@@ -1,0 +1,5 @@
+from .server import (ForestServer, LMServer, MicroBatcher, Request,
+                     Reservoir, ServerStats)
+
+__all__ = ["ForestServer", "LMServer", "MicroBatcher", "Request",
+           "Reservoir", "ServerStats"]

@@ -44,3 +44,9 @@ def trained_rf(magic_ds):
 def rand_X(forest, B=64, seed=3):
     rng = np.random.default_rng(seed)
     return rng.normal(0, 1.2, size=(B, forest.n_features))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; the "
+        "test skips without them (run with `-m cuda` on the card)")
