@@ -8,17 +8,21 @@ toolkit.  It imports ``repro_torch`` from ``src/`` and nothing of ``repro``
 or JAX.  Phases:
 
  1. the software and the card (``nvidia-smi`` name and power limit);
- 2. build every kernel of the path from ``src/repro_torch/kernels/csrc``;
- 3. hold each kernel against its plain torch version on the card, at the
-    kernel tests' shape sweep and at the full-width shape, float and
+ 2. build every kernel of the path from ``src/repro_torch/kernels/csrc``
+    (one ``nvcc`` per source, all started together);
+ 3. hold each kernel (``qs_forward``, ``qs_bitmm_forward``,
+    ``gemm_forward``) against its plain torch version on the card, at the
+    kernel tests' shape sweeps and at the full-width shape, float and
     int16-quantized (int-accum: bit-exact), and against the numpy oracle;
  4. the main path at full width: an MSN-shaped ranking forest (1024 trees
     × 64 leaves × 136 features), quantized int16 with int-accum and
-    calibrated on MSN rows, compiled with ``backend="cuda"`` and served
-    through ``ForestServer(max_batch=1024)``; served output must equal
-    synchronous ``predict``, and the kernel's launches the batches.  Then
-    a trained ``magic`` random forest, served quantized, whose accuracy
-    may fall at most ``ACCURACY_MARGIN_PP`` below its float forest's;
+    calibrated on MSN rows, compiled with ``backend="cuda"`` for each of
+    the engines ``bitvector``, ``bitmm`` and ``gemm`` and served through
+    ``ForestServer(max_batch=1024)``; served output must equal synchronous
+    ``predict``, each engine's kernel launches the batches, and the three
+    engines' served outputs must be bit-identical.  Then a trained
+    ``magic`` random forest, served quantized, whose accuracy may fall at
+    most ``ACCURACY_MARGIN_PP`` below its float forest's;
  5. time each kernel and its plain version with CUDA events beside the
     least time the card could take for the same work.
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,10 +50,12 @@ import torch  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.data import datasets  # noqa: E402
 from repro_torch.inference import ForestServer  # noqa: E402
-from repro_torch.kernels import build, quickscorer_kernel  # noqa: E402
-from repro_torch.kernels.ops import _out_dtype, _qs_arrays  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
+    gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
-    qs_forward, qs_forward_reference)
+    qs_bitmm_forward, qs_bitmm_forward_reference, qs_forward,
+    qs_forward_reference)
 from repro_torch.trees.random_forest import (  # noqa: E402
     RandomForest, RandomForestConfig)
 
@@ -60,6 +67,15 @@ SHAPE_SWEEP = [
     (6, 64, 8, 2, 33),
     (16, 32, 784, 10, 40),
     (3, 16, 5, 1, 1),
+]
+# (n_trees, n_leaves, n_features, n_classes, full, seed) — tests/test_bitmm.py:
+# deep unbalanced trees, multiclass, stumps, 22 packed groups at L=128
+FOREST_SWEEP = [
+    (8, 16, 6, 1, True, 0),
+    (6, 64, 8, 1, False, 1),
+    (12, 32, 10, 3, False, 2),
+    (10, 2, 4, 1, True, 3),
+    (4, 128, 5, 2, False, 4),
 ]
 # benchmarks/bench_engines.py full scale: MSN-shaped ranking forest
 FULL = (1024, 64, 136, 1, 1024)
@@ -79,10 +95,68 @@ ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
 # the paper calls int16 quantization's accuracy cost "neglectable": held
 # here to at most half a percentage point on magic's 1200 test rows
 ACCURACY_MARGIN_PP = 0.5
-# H100 SXM datasheet peaks: HBM bytes/s, and the
-# non-tensor f32 rate, which bounds the kernel's 32-bit compare/logic ops
+# H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
+# the rate of every 32-bit compare, logic or integer instruction (twice
+# the rate at which the card issues them, so a bound built on it is a
+# floor); the dense int8 tensor rate, which bounds the products of 0/1
+# conditions with small integers (A in {-1, 0, 1}; byte planes of the
+# packed bitmm words), exact in int8 with int32 accumulation
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+
+
+class Kernel:
+    """One engine's kernel: its wrapper, plain version and padded operands
+    for a forest."""
+
+    def __init__(self, engine, launch, plain, source_name):
+        self.engine, self.launch, self.plain = engine, launch, plain
+        self.source_name = source_name
+
+    def operands(self, forest):
+        """(arrays, keyword arguments) of the wrapper for ``forest``."""
+        if self.engine == "bitvector":
+            return ops._qs_arrays(forest, BLOCK_T), {}
+        if self.engine == "bitmm":
+            arrays, bits, npack = ops._bitmm_arrays(forest, BLOCK_T)
+            return arrays, dict(bits=bits, npack=npack,
+                                n_leaves=forest.n_leaves)
+        return ops._gemm_arrays(forest, BLOCK_T), {}
+
+    def work(self, x, arrays):
+        """(operations, least seconds) of the function on these operands.
+
+        Every engine: a compare per (row, tree, node) and a leaf add per
+        (row, tree, class), one hit per tree.  qs: a predicated AND per
+        leafidx word and node, on the ALU (its int8 form, a count of
+        clearing nodes per leaf, would take longer).  bitmm: the
+        contraction as three int8 products of cond with the packed words'
+        byte planes; then per (row, tree, group) two multiply-adds joining
+        the planes, the borrow trick's subtract and three-input logic op,
+        and a test.  gemm: the int8 product S·A, then an equality test per
+        leaf.  Tensor and ALU pipes run side by side, so the least time is
+        the larger of their two times."""
+        B = x.shape[0]
+        T, N = arrays[0].shape
+        L, C = arrays[-1].shape[1:]
+        if self.engine == "bitvector":
+            alu = B * T * N * (1 + arrays[2].shape[-1]) + B * T * C
+            return alu, alu / ALU_OPS_PER_S
+        if self.engine == "bitmm":
+            G = arrays[2].shape[-1]
+            mma, alu = 3 * 2 * B * T * N * G, B * T * (N + 5 * G + C)
+        else:
+            mma, alu = 2 * B * T * N * L, B * T * (N + L + C)
+        return mma + alu, max(mma / INT8_OPS_PER_S, alu / ALU_OPS_PER_S)
+
+
+KERNELS = [
+    Kernel("bitvector", qs_forward, qs_forward_reference, "qs_forward"),
+    Kernel("bitmm", qs_bitmm_forward, qs_bitmm_forward_reference,
+           "qs_bitmm_forward"),
+    Kernel("gemm", gemm_forward, gemm_forward_reference, "gemm_forward"),
+]
 
 
 def card_line() -> str:
@@ -93,26 +167,28 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def kernel_inputs(forest, X, device):
-    """The kernel's operands for ``forest`` on rows ``X``, on ``device``."""
-    arrays = tuple(torch.from_numpy(a).to(device)
-                   for a in _qs_arrays(forest, BLOCK_T))
+def kernel_inputs(kernel, forest, X, device):
+    """The kernel's operands for ``forest`` on rows ``X``, on ``device``:
+    (x, arrays, keyword arguments with ``out_dtype``)."""
+    arrays, kw = kernel.operands(forest)
+    arrays = tuple(torch.from_numpy(a).to(device) for a in arrays)
     xq = core.quantize_inputs(forest, np.asarray(X)).astype(np.float32)
-    return torch.from_numpy(xq).to(device), arrays, _out_dtype(forest,
-                                                               BLOCK_T)
+    kw["out_dtype"] = ops._out_dtype(forest, BLOCK_T)
+    return torch.from_numpy(xq).to(device), arrays, kw
 
 
-def compare_kernel(forest, X, device, atol: float) -> float:
+def compare_kernel(kernel, forest, X, device, atol: float) -> float:
     """Kernel vs plain version vs numpy oracle on the same inputs; returns
     the kernel's largest absolute difference from the plain version."""
-    x, arrays, out_dtype = kernel_inputs(forest, X, device)
-    got = qs_forward(x, *arrays, out_dtype=out_dtype)
-    ref = qs_forward_reference(x, *arrays, out_dtype=out_dtype)
+    x, arrays, kw = kernel_inputs(kernel, forest, X, device)
+    out_dtype = kw["out_dtype"]
+    got = kernel.launch(x, *arrays, **kw)
+    ref = kernel.plain(x, *arrays, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     err = float((got.double() - ref.double()).abs().max())
-    shape = (forest.n_trees, forest.n_leaves, forest.n_features,
-             forest.n_classes, X.shape[0])
+    shape = (kernel.source_name, forest.n_trees, forest.n_leaves,
+             forest.n_features, forest.n_classes, X.shape[0])
     if out_dtype == torch.int32:
         if not torch.equal(got, ref):
             raise AssertionError(f"{shape} int-accum: kernel != plain "
@@ -150,16 +226,20 @@ def serve(pred, rows, *, max_batch=MAX_BATCH, rate_hz=ARRIVAL_RATE_HZ,
     return np.stack([r.result for r in reqs]), server
 
 
-def main_path(forest, X_calib, rows, device):
-    """Quantize → compile_forest(backend="cuda") → serve; the launches of
-    ``qs_forward`` are counted over exactly this run and must equal the
-    batches served."""
-    qs_forward.launches = 0
+def main_path(forest, X_calib, rows, device, engine="bitvector"):
+    """Quantize → compile_forest(engine, backend="cuda") → serve.  Every
+    kernel's launch count is set to 0 just before and read just after;
+    the engine's kernel must have launched once per served batch and the
+    others not at all.  Returns (predictor, served output, server, the
+    engine's launches)."""
+    for k in KERNELS:
+        k.launch.launches = 0
     qforest = core.quantize_forest(forest, X_calib, QUANT)
-    pred = core.compile_forest(qforest, engine="bitvector", backend="cuda",
+    pred = core.compile_forest(qforest, engine=engine, backend="cuda",
                                device=device)
     served, server = serve(pred, rows)
-    launches = qs_forward.launches
+    counts = {k.engine: k.launch.launches for k in KERNELS}
+    launches = counts.pop(engine)
     if not np.array_equal(served, pred.predict(rows)):
         raise AssertionError("served output != synchronous predict")
     if not np.isfinite(served).all() or \
@@ -168,9 +248,11 @@ def main_path(forest, X_calib, rows, device):
                              "non-finite values")
     # on the card every batch is one launch; on the CPU (tests) none is
     if device.type == "cuda" and launches != server.stats.n_batches:
-        raise AssertionError(f"qs_forward launched {launches} times for "
-                             f"{server.stats.n_batches} batches")
-    return pred, server, launches
+        raise AssertionError(f"{engine}: its kernel launched {launches} "
+                             f"times for {server.stats.n_batches} batches")
+    if any(counts.values()):
+        raise AssertionError(f"{engine}: other kernels launched {counts}")
+    return pred, served, server, launches
 
 
 def magic_accuracy(device, n_trees=128, max_leaves=64):
@@ -210,22 +292,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def qs_bound(x, arrays, out_dtype):
-    """Least time for ``qs_forward`` on these operands: each input read
-    and the output written once at the HBM rate, or one compare plus a
-    select and an AND per leafidx word for every (row, tree, node), plus
-    one add per (row, tree, class), at the ALU rate — the larger."""
-    feat, _, masks, _, leaf_val = arrays
-    B = x.shape[0]
-    T, N = feat.shape
-    W = masks.shape[-1]
-    C = leaf_val.shape[-1]
+def bound(kernel, x, arrays, kw):
+    """Least time for the kernel's function on these operands: each input
+    read and the output written once at the HBM rate, or its operations
+    (``Kernel.work``) at their peak rates — the larger."""
+    B, C = x.shape[0], arrays[-1].shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in (x,) + arrays) \
-        + B * C * torch.tensor([], dtype=out_dtype).element_size()
-    ops = B * T * N * (1 + 2 * W) + B * T * C
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+        + B * C * torch.tensor([], dtype=kw["out_dtype"]).element_size()
+    n_ops, t_ops = kernel.work(x, arrays)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+        ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops
 
 
 def main() -> int:
@@ -243,76 +320,101 @@ def main() -> int:
 
     # 2. build from the repo's sources
     t0 = time.perf_counter()
-    paths = build.build(["qs_forward"])
+    paths = build.build([k.source_name for k in KERNELS])
     print(f"built {', '.join(str(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
-    regs = [ln.strip() for ln in build.build_log("qs_forward").splitlines()
-            if "registers" in ln]
-    print(f"ptxas: {len(regs)} functions; {regs[0] if regs else ''}")
+    for k in KERNELS:
+        log = build.build_log(k.source_name)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"ptxas {k.source_name}: {len(regs)} functions, at most "
+              f"{max(regs, default=0)} registers, "
+              f"{sum(n > 0 for n in spills)} with spill stores (at most "
+              f"{max(spills, default=0)} bytes)")
 
-    # 3. kernel vs plain version vs oracle
-    for T, L, d, C, B in SHAPE_SWEEP:
-        forest = core.random_forest_ir(T, L, d, n_classes=C, seed=T,
-                                       full=(T % 2 == 0))
-        X = np.random.default_rng(B).normal(0, 1.3, size=(B, d))
-        err = compare_kernel(forest, X, device, ATOL)
-        qforest = core.quantize_forest(forest, X, QUANT)
-        compare_kernel(qforest, X, device, ATOL)
-        print(f"qs_forward T={T} L={L} d={d} C={C} B={B}: float max|diff| "
-              f"{err:.3g} (rtol {RTOL}, atol {ATOL}); int16 bit-exact")
-    T, L, d, C, B = FULL
+    # 3. each kernel vs its plain version vs the oracle
     msn = datasets.make_msn()
+    T, L, d, C, B = FULL
     full = core.random_forest_ir(T, L, d, n_classes=C, seed=0)
-    rows_full = msn.X_test[:B]
-    err_float = compare_kernel(full, rows_full, device, ATOL_FULL)
     qfull = core.quantize_forest(full, msn.X_train, QUANT)
-    err_quant = compare_kernel(qfull, rows_full, device, ATOL_FULL)
-    print(f"qs_forward full width T={T} L={L} d={d} C={C} B={B}: float "
-          f"max|diff| {err_float:.3g} (atol {ATOL_FULL}); int16 "
-          f"bit-exact ({err_quant})")
+    rows_full = msn.X_test[:B]
+    sweep = [(T_, L_, d_, C_, B_, T_ % 2 == 0, T_)
+             for T_, L_, d_, C_, B_ in SHAPE_SWEEP]
+    full_err = {}
+    for k in KERNELS:
+        shapes = sweep + ([(T_, L_, d_, C_, 24, f, s_)
+                           for T_, L_, d_, C_, f, s_ in FOREST_SWEEP]
+                          if k.engine == "bitmm" else [])
+        worst = 0.0
+        for T_, L_, d_, C_, B_, full_, seed in shapes:
+            forest = core.random_forest_ir(T_, L_, d_, n_classes=C_,
+                                           seed=seed, full=full_)
+            X = np.random.default_rng(B_).normal(0, 1.3, size=(B_, d_))
+            worst = max(worst, compare_kernel(k, forest, X, device, ATOL))
+            compare_kernel(k, core.quantize_forest(forest, X, QUANT), X,
+                           device, ATOL)
+        err_float = compare_kernel(k, full, rows_full, device, ATOL_FULL)
+        err_quant = compare_kernel(k, qfull, rows_full, device, ATOL_FULL)
+        full_err[k.engine] = max(err_float, err_quant)
+        print(f"{k.source_name}: {len(shapes)} sweep shapes, float max|diff| "
+              f"{worst:.3g} (rtol {RTOL}, atol {ATOL}), int16 bit-exact; "
+              f"full width T={T} L={L} d={d} C={C} B={B}: float max|diff| "
+              f"{err_float:.3g} (atol {ATOL_FULL}), int16 bit-exact "
+              f"({err_quant})")
 
-    # 4. the main path at full width, then a trained model's accuracy
+    # 4. the main path at full width through each engine, then a trained
+    # model's accuracy
     rows = np.concatenate([msn.X_test, msn.X_train])[:N_REQUESTS]
-    t0 = time.perf_counter()
-    pred, server, launches = main_path(full, msn.X_train, rows, device)
-    wall = time.perf_counter() - t0
-    stats = server.stats.summary()
-    print(f"main path: {pred.plan.describe()}")
-    print(f"served {stats['n_requests']} requests in {stats['n_batches']} "
-          f"batches (mean {stats['mean_batch']:.1f} rows), qs_forward "
-          f"launches {launches}; served == predict; {wall:.2f} s host wall "
-          "incl. quantize+compile")
-    print(f"per batch, host clock: predict (quantize rows, pad, copy in, "
-          f"kernel, copy out) p50 {stats['compute_p50_ms']:.3f} ms, max "
-          f"{max(server.stats.compute_ms):.3f} ms [{card}]")
+    launches, served = {}, {}
+    for k in KERNELS:
+        t0 = time.perf_counter()
+        pred, served[k.engine], server, launches[k.engine] = main_path(
+            full, msn.X_train, rows, device, engine=k.engine)
+        wall = time.perf_counter() - t0
+        stats = server.stats.summary()
+        print(f"main path: {pred.plan.describe()}")
+        print(f"{k.engine}: served {stats['n_requests']} requests in "
+              f"{stats['n_batches']} batches (mean {stats['mean_batch']:.1f} "
+              f"rows), {k.source_name} launches {launches[k.engine]}; served "
+              f"== predict; {wall:.2f} s host wall incl. quantize+compile")
+        print(f"{k.engine} per batch, host clock: predict (quantize rows, "
+              f"pad, copy in, kernel, copy out) p50 "
+              f"{stats['compute_p50_ms']:.3f} ms, max "
+              f"{max(server.stats.compute_ms):.3f} ms [{card}]")
+    for engine, out in served.items():
+        if not np.array_equal(out, served["bitvector"]):
+            raise AssertionError(f"{engine} served output differs from "
+                                 "bitvector's on the same int16 forest")
+    print(f"served int16 outputs bit-identical across {', '.join(served)}")
     acc_float, acc_quant, n_test = magic_accuracy(device)
     print(f"magic RF 128x64: float accuracy {acc_float:.4f}, int16 served "
           f"{acc_quant:.4f} on {n_test} rows (margin "
           f"{ACCURACY_MARGIN_PP} pp)")
 
     # 5. timings at the main path's full-width kernel shape
-    x, arrays, out_dtype = kernel_inputs(pred.forest, rows[:B], device)
-    ms = cuda_ms(lambda: qs_forward(x, *arrays, out_dtype=out_dtype), 200)
-    plain_ms = cuda_ms(lambda: qs_forward_reference(
-        x, *arrays, out_dtype=out_dtype), 10)
-    bound_ms, bound_by, nbytes, ops = qs_bound(x, arrays, out_dtype)
-    fx, farrays, fdtype = kernel_inputs(full, rows[:B], device)
-    float_ms = cuda_ms(lambda: qs_forward(fx, *farrays, out_dtype=fdtype),
-                       200)
-    print(f"qs_forward B={B} T={T} L={L} d={d} int16/int32-accum: kernel "
-          f"{ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {bound_ms:.5f}"
-          f" ms by {bound_by} ({nbytes} bytes, {ops} ops); no single "
-          f"PyTorch call computes this function [{card}]")
-    print(f"qs_forward same shape, float forest (f32 accumulation): kernel "
-          f"{float_ms:.4f} ms [{card}]")
+    records = []
+    for k in KERNELS:
+        x, arrays, kw = kernel_inputs(k, qfull, rows[:B], device)
+        ms = cuda_ms(lambda: k.launch(x, *arrays, **kw), 200)
+        plain_ms = cuda_ms(lambda: k.plain(x, *arrays, **kw), 10)
+        bound_ms, bound_by, nbytes, n_ops = bound(k, x, arrays, kw)
+        fx, farrays, fkw = kernel_inputs(k, full, rows[:B], device)
+        float_ms = cuda_ms(lambda: k.launch(fx, *farrays, **fkw), 200)
+        print(f"{k.source_name} B={B} T={T} L={L} d={d} int16/int32-accum: "
+              f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {n_ops} "
+              f"ops); float forest (f32 accumulation) {float_ms:.4f} ms; no "
+              f"single PyTorch call computes this function [{card}]")
+        records.append({
+            "name": k.source_name, "route": "cuda",
+            "source": k.launch.source, "replaces": k.launch.replaces,
+            "launches": launches[k.engine],
+            "max_abs_err": full_err[k.engine], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
 
-    print(json.dumps({"kernels": [{
-        "name": "qs_forward", "route": "cuda",
-        "source": quickscorer_kernel.SOURCE,
-        "replaces": quickscorer_kernel.REPLACES,
-        "launches": launches, "max_abs_err": max(err_float, err_quant),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,17 +22,33 @@ from .quantize import (QuantSpec, accum_bits, feature_ranges, flint_forest,
 from . import registry
 from .registry import (BasePredictor, EngineSpec, Predictor,
                        normalize_scores, register_engine, resolve_device)
-# importing the engine module registers the torch engine
-from .quickscorer import (CompiledQS, QSPredictor, compile_qs, eval_batch,
+# importing the engine modules registers the torch engines
+from .quickscorer import (BitMMPredictor, CompiledBitMM, CompiledQS,
+                          QSPredictor, bitmm_cuda_layout, compile_qs,
+                          compile_qs_bitmm, eval_batch, eval_batch_bitmm,
                           eval_scalar_numpy, exit_leaf)
+from .rapidscorer import (CompiledRS, RSPredictor, compile_rs, merge_nodes,
+                          merge_stats)
+from .baselines import (BaselinePredictor, compile_gemm, compile_native,
+                        eval_gemm, eval_native, gemm_predictor,
+                        native_predictor)
 from .convert import forest_from_reference
 
-# the kernel engine registers lazily: resolving it imports the kernel
+# the kernel engines register lazily: resolving one imports the kernel
 # stack (repro_torch.kernels.ops) on first use, never at import time
 registry.register_deferred(
     "bitvector", backend="cuda", tune_name="cuda-qs",
     target="repro_torch.kernels.ops:cuda_qs_predictor",
     doc="QuickScorer, hand-written CUDA kernel for sm_90a")
+registry.register_deferred(
+    "bitmm", backend="cuda", tune_name="cuda-bitmm",
+    target="repro_torch.kernels.ops:cuda_bitmm_predictor",
+    layout=bitmm_cuda_layout,
+    doc="bit-matmul QuickScorer, hand-written CUDA kernel for sm_90a")
+registry.register_deferred(
+    "gemm", backend="cuda", tune_name="cuda-gemm",
+    target="repro_torch.kernels.ops:cuda_gemm_predictor",
+    doc="Hummingbird tensor traversal, hand-written CUDA kernel for sm_90a")
 
 from .pipeline import CompilePlan, PassRecord, compile_plan
 
@@ -65,7 +81,12 @@ __all__ = [
     "feature_ranges", "normalize_features", "leaf_scale",
     "accum_bits", "flint_forest", "flint_key",
     "CompiledQS", "compile_qs", "QSPredictor", "eval_batch",
-    "eval_scalar_numpy", "exit_leaf", "compile_forest", "registry",
+    "CompiledBitMM", "compile_qs_bitmm", "BitMMPredictor",
+    "eval_batch_bitmm",
+    "eval_scalar_numpy", "exit_leaf", "CompiledRS", "compile_rs",
+    "RSPredictor", "merge_nodes", "merge_stats", "BaselinePredictor",
+    "compile_native", "compile_gemm", "eval_native", "eval_gemm",
+    "native_predictor", "gemm_predictor", "compile_forest", "registry",
     "register_engine", "EngineSpec", "Predictor", "BasePredictor",
     "normalize_scores", "resolve_device", "forest_from_reference",
     "CompilePlan", "PassRecord", "compile_plan",

@@ -179,9 +179,15 @@ def flint(forest: Forest, plan: CompilePlan, ctx: dict) -> Forest:
 
 @forest_pass("layout")
 def layout(forest: Forest, plan: CompilePlan, ctx: dict) -> Forest:
-    """Memory-layout decisions, recorded on the plan.  The port's engines
-    take the IR's tree-major SoA as-is (no engine has a layout hook yet)."""
-    if plan.backend == "cuda":
+    """Engine-aware memory-layout decisions, recorded on the plan.  An
+    engine may carry a ``layout`` hook that chooses packing / tiling
+    defaults (written into ``plan.engine_kw``; caller-provided values
+    win) and returns the recorded detail.  Engines without a hook take
+    the IR's tree-major SoA as-is."""
+    spec = registry.get(plan.engine, plan.backend)
+    if spec.layout is not None:
+        plan.record("layout", spec.layout(forest, plan))
+    elif plan.backend == "cuda":
         plan.record("layout", "tree-major SoA, shared-memory tree chunks")
     else:
         plan.record("layout", "tree-major SoA")

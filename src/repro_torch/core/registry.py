@@ -168,6 +168,8 @@ class EngineSpec:
     compile: Optional[Callable] = None    # (forest, device=) -> compiled
     evaluate: Optional[Callable] = None   # (compiled, X) -> (B, C) tensor
     predictor_cls: type = BasePredictor
+    layout: Optional[Callable] = None     # (forest, plan) -> detail string;
+    #                                       pipeline layout-pass hook
     deferred: Optional[str] = None        # "module:attr" lazy build target
     doc: str = ""
 

@@ -1,13 +1,23 @@
 """Hopper kernels for the port's hot spots, each beside its plain torch
 version.
 
-quickscorer_kernel — QuickScorer bitvector traversal (csrc/qs_forward.cu),
-                     replacing the Pallas ``qs_forward``
+quickscorer_kernel — QuickScorer bitvector (csrc/qs_forward.cu) and
+                     bit-matmul (csrc/qs_bitmm_forward.cu) traversal,
+                     replacing the Pallas ``qs_forward`` and
+                     ``qs_bitmm_forward``
+gemm_forest_kernel — GEMM (Hummingbird) traversal (csrc/gemm_forward.cu),
+                     replacing the Pallas ``gemm_forward``
 ops                — host glue: padding, dtype prep, kernel predictors
 ref                — plain oracles
+launch             — what every wrapper shares: block limits, operand
+                     checks, card-or-CPU choice, the ctypes launch
 build              — nvcc into build/, loaded with ctypes at first use
 """
 from . import ops, ref
-from .quickscorer_kernel import qs_forward, qs_forward_reference
+from .gemm_forest_kernel import gemm_forward, gemm_forward_reference
+from .quickscorer_kernel import (qs_bitmm_forward, qs_bitmm_forward_reference,
+                                 qs_forward, qs_forward_reference)
 
-__all__ = ["ops", "ref", "qs_forward", "qs_forward_reference"]
+__all__ = ["ops", "ref", "qs_forward", "qs_forward_reference",
+           "qs_bitmm_forward", "qs_bitmm_forward_reference", "gemm_forward",
+           "gemm_forward_reference"]

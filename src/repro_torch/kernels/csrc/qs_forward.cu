@@ -12,11 +12,13 @@
 // stream feat/thr/masks (T*N*(8+4W)), init_idx (T*W*4) and leaf_val
 // (T*L*C*4), and writes (B*C*4).  At T=1024, L=64 (N=63, W=2), d=136, C=1,
 // B=1024 that is 1.86 MB: 0.56 us at 3.35 TB/s.  The work is
-// B*T*N*(1+2W) 32-bit ALU operations (one compare, one select and one AND
-// per word, ~3.3e8 here) plus B*T*C adds: 4.9 us at the 67 T op/s of the
-// card's non-tensor f32 peak, and about four times that at the int32
-// pipe's rate (64 lanes per SM against 128).  So the kernel is bound by
-// integer and compare operations, not bytes, by an order of magnitude.
+// B*T*N*(1+W) 32-bit instructions (one compare per node and one AND per
+// word, predicated on it; ~2.0e8 here) plus B*T*C adds: 3.0 us at the
+// 67 T op/s of the card's non-tensor f32 peak, which is twice the rate at
+// which it issues such instructions.  The same exit leaf as an int8
+// tensor-core count of clearing nodes per leaf (2*B*T*N*L ~ 8.5e9
+// operations at 1979 T op/s) needs 4.3 us, so the bound is 3.0 us, by
+// operations, not bytes.
 //
 // What the design does about it.
 //   * No one-hot matmuls: the TPU kernel selects features and leaf rows by

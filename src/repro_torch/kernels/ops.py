@@ -1,17 +1,22 @@
-"""Host glue around the CUDA QuickScorer kernel: padding, dtype prep and
-the kernel-backed predictor — the QS half of ``repro.kernels.ops``."""
+"""Host glue around the CUDA forest kernels: padding, dtype prep and the
+kernel-backed predictors — the port's ``repro.kernels.ops``."""
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from ..core.baselines import gemm_arrays
 from ..core.engine_select import bucket_batch
 from ..core.forest import Forest
 from ..core.quantize import leaf_scale, quantize_inputs
-from ..core.quickscorer import as_bit_pattern
+from ..core.quickscorer import (as_bit_pattern, bitmm_full_word,
+                                bitmm_pack_arrays)
 from ..core.registry import BasePredictor, ensure_feature_column, \
     resolve_device
-from .quickscorer_kernel import qs_forward
+from .gemm_forest_kernel import gemm_forward, node_masks
+from .quickscorer_kernel import qs_bitmm_forward, qs_forward
 
 
 def _pad_to(x: np.ndarray, axis: int, mult: int, fill=0) -> np.ndarray:
@@ -40,8 +45,8 @@ def bucket_rows(n: int, block_b: int) -> int:
 def _out_dtype(forest: Forest, block_t: int) -> torch.dtype:
     """Kernel output dtype: int32 accumulation for int-accum forests.
 
-    The CUDA kernel sums int32 directly, but the reference's Pallas tile
-    sums in f32 and needs ``block_t × max|leaf| < 2^24``; the same check
+    The CUDA kernels sum int32 directly, but the reference's Pallas tiles
+    sum in f32 and need ``block_t × max|leaf| < 2^24``; the same check
     here keeps both packages accepting the same forests."""
     if not forest.int_accum:
         return torch.float32
@@ -56,9 +61,11 @@ def _out_dtype(forest: Forest, block_t: int) -> torch.dtype:
 
 class _KernelPredictor(BasePredictor):
     """Kernel-backed predictor on the shared base: overrides the predict
-    path for batch bucketing/padding, inherits predict_class/proba."""
+    path for batch bucketing/padding, inherits predict_class/proba.
+    ``launch(x, *arrays, out_dtype=)`` is the kernel wrapper; ``arrays``
+    its padded operands, ``feat`` first."""
 
-    def __init__(self, forest: Forest, arrays: tuple, out_dtype,
+    def __init__(self, forest: Forest, launch, arrays: tuple, out_dtype,
                  block_b: int, device: torch.device):
         if forest.flint:
             raise ValueError(
@@ -69,6 +76,7 @@ class _KernelPredictor(BasePredictor):
         # forest + the padded kernel arrays on the device
         self.forest = forest
         self.device = device
+        self.launch = launch
         self.arrays = tuple(torch.from_numpy(a).to(device) for a in arrays)
         self.out_dtype = out_dtype
         self.block_b = block_b
@@ -88,10 +96,22 @@ class _KernelPredictor(BasePredictor):
         B = Xq.shape[0]
         Xp = _pad_to(Xq, 0, bucket_rows(B, self.block_b))
         x = torch.from_numpy(np.ascontiguousarray(Xp)).to(self.device)
-        out = qs_forward(x, *self.arrays, out_dtype=self.out_dtype)
+        out = self.launch(x, *self.arrays, out_dtype=self.out_dtype)
         # int-accum kernels return int32 totals; the f32 cast + pow2
         # descale matches the torch engine's rounding bit-for-bit
         return out[:B].cpu().numpy().astype(np.float32) / self.leaf_scale
+
+
+def _node_arrays(forest: Forest, block_t: int, node_thr, tree_thr):
+    """feat (T, N) i32, thr (T, N) f32 and leaf_val (T, L, C) f32, the tree
+    axis padded to ``block_t``: padding nodes take threshold ``node_thr``,
+    padding trees feature 0, threshold ``tree_thr`` and zero leaf rows."""
+    feat = _pad_to(np.maximum(forest.feature, 0).astype(np.int32), 0, block_t)
+    thr = forest.threshold.astype(np.float32).copy()
+    thr[forest.feature < 0] = np.float32(node_thr)
+    thr = _pad_to(thr, 0, block_t, fill=np.float32(tree_thr))
+    leaf_val = _pad_to(forest.leaf_value.astype(np.float32), 0, block_t)
+    return feat, thr, leaf_val
 
 
 def _qs_arrays(forest: Forest, block_t: int):
@@ -101,14 +121,10 @@ def _qs_arrays(forest: Forest, block_t: int):
     nodes take ``_thr_pad_value``: iinfo.max for quantized forests (no
     quantized input exceeds it), +inf for float ones.  Masks travel as
     int32 bit patterns."""
-    thr_pad = _thr_pad_value(forest)
-    feat = _pad_to(np.maximum(forest.feature, 0).astype(np.int32), 0, block_t)
-    thr = forest.threshold.astype(np.float32).copy()
-    thr[forest.feature < 0] = np.float32(thr_pad)
-    thr = _pad_to(thr, 0, block_t, fill=np.float32(np.inf))
+    feat, thr, leaf_val = _node_arrays(forest, block_t,
+                                       _thr_pad_value(forest), np.inf)
     masks = _pad_to(forest.node_masks(), 0, block_t, fill=0xFFFFFFFF)
     init_idx = _pad_to(forest.init_leafidx(), 0, block_t)           # pad: 0
-    leaf_val = _pad_to(forest.leaf_value.astype(np.float32), 0, block_t)
     return (feat, thr, as_bit_pattern(masks).numpy(),
             as_bit_pattern(init_idx).numpy(), leaf_val)
 
@@ -119,5 +135,59 @@ def cuda_qs_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     ``repro.kernels.ops.pallas_qs_predictor``).  ``device=None`` means
     the card; on ``device="cpu"`` the kernel's plain version runs."""
     device = resolve_device(device)
-    return _KernelPredictor(forest, _qs_arrays(forest, block_t),
+    return _KernelPredictor(forest, qs_forward, _qs_arrays(forest, block_t),
+                            _out_dtype(forest, block_t), block_b, device)
+
+
+def _bitmm_arrays(forest: Forest, block_t: int):
+    """Bit-matmul kernel arrays (feat, thr, packed, bias, leaf_val) and the
+    field layout (bits, npack), tree axis padded to ``block_t``.  Padding
+    nodes and trees get +inf thresholds (no predicate fires) and zero
+    packed rows; padding trees a bias of ``bitmm_full_word`` (every leaf
+    cleared → leaf 0) and zero leaf rows.  The packed words are integers
+    below 2^24, so their conversion to int32 is exact."""
+    packed, bias, bits, npack = bitmm_pack_arrays(forest)
+    feat, thr, leaf_val = _node_arrays(forest, block_t, np.inf, np.inf)
+    packed = _pad_to(packed.astype(np.int32), 0, block_t)         # pad: 0
+    bias = _pad_to(bias.astype(np.int32), 0, block_t,
+                   fill=bitmm_full_word(bits, npack))
+    return (feat, thr, packed, bias, leaf_val), bits, npack
+
+
+def cuda_bitmm_predictor(forest: Forest, block_b: int = 128,
+                         block_t: int = 8, device=None) -> _KernelPredictor:
+    """Bit-matmul QuickScorer engine, CUDA backend (the counterpart of
+    ``repro.kernels.ops.pallas_bitmm_predictor``).  ``device=None`` means
+    the card; on ``device="cpu"`` the kernel's plain version runs."""
+    device = resolve_device(device)
+    arrays, bits, npack = _bitmm_arrays(forest, block_t)
+    fn = functools.partial(qs_bitmm_forward, bits=bits, npack=npack,
+                           n_leaves=forest.n_leaves)
+    return _KernelPredictor(forest, fn, arrays, _out_dtype(forest, block_t),
+                            block_b, device)
+
+
+def _gemm_arrays(forest: Forest, block_t: int):
+    """GEMM kernel arrays (feat, thr, plus, minus, Bvec, leaf_val), tree
+    axis padded to ``block_t``.  Padding nodes take thresholds -inf (their
+    rows of A are zero, so S is irrelevant; -inf makes it 0 for finite
+    rows); padding trees zero rows of A and Bvec = L + 1 (no leaf matches),
+    as padding leaves already have.  A travels as its ``node_masks`` (the
+    +1 and -1 nodes of each leaf as bits) and Bvec as int32, both exact."""
+    A, Bvec = gemm_arrays(forest)
+    feat, thr, leaf_val = _node_arrays(forest, block_t, -np.inf, -np.inf)
+    plus, minus = node_masks(_pad_to(A, 0, block_t))
+    Bvec = _pad_to(Bvec.astype(np.int32), 0, block_t,
+                   fill=forest.n_leaves + 1)
+    return feat, thr, plus, minus, Bvec, leaf_val
+
+
+def cuda_gemm_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
+                        device=None) -> _KernelPredictor:
+    """GEMM (Hummingbird) engine, CUDA backend (the counterpart of
+    ``repro.kernels.ops.pallas_gemm_predictor``).  ``device=None`` means
+    the card; on ``device="cpu"`` the kernel's plain version runs."""
+    device = resolve_device(device)
+    return _KernelPredictor(forest, gemm_forward,
+                            _gemm_arrays(forest, block_t),
                             _out_dtype(forest, block_t), block_b, device)

@@ -1,40 +1,39 @@
-"""CUDA kernel: QuickScorer bitvector traversal, hand-written for Hopper.
+"""CUDA kernels: QuickScorer bitvector and bit-matmul traversal, hand-written
+for Hopper.
 
-``qs_forward`` replaces the Pallas TPU kernel of the same name
-(``repro/kernels/quickscorer_kernel.py:130``).  For a CUDA tensor it
-launches ``csrc/qs_forward.cu`` (built by ``kernels/build.py``) on the
-current stream, or raises; for a CPU tensor it runs
-``qs_forward_reference``, the same function in plain torch.  Nothing
+``qs_forward`` and ``qs_bitmm_forward`` replace the Pallas TPU kernels of
+the same names (``repro/kernels/quickscorer_kernel.py:130`` and ``:240``).
+For a CUDA tensor each launches its source in ``csrc/`` (built by
+``kernels/build.py``) on the current stream, or raises; for a CPU tensor
+it runs its ``*_reference``, the same function in plain torch.  Nothing
 falls back from one to the other.
 
-``qs_forward.launches`` counts the kernel's launches, so a run can show
-that its main path went through the kernel.
+Each wrapper's ``.launches`` counts its kernel's launches, so a run can
+show that its main path went through the kernel; ``.source`` and
+``.replaces`` name the CUDA source and the TPU kernel.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..core.quickscorer import qs_scores
-from . import build
+from ..core.quickscorer import bitmm_scores, qs_scores
+from .launch import (MAX_CLASSES, MAX_NODES, MAX_SHARED_BYTES,
+                     check_out_dtype, check_tensors, launch, library, on_card,
+                     trees_per_block)
 
-SOURCE = "src/repro_torch/kernels/csrc/qs_forward.cu"
-REPLACES = "src/repro/kernels/quickscorer_kernel.py:130"
 MAX_WORDS = 8            # leafidx words a thread keeps in registers (L <= 256)
-MAX_CLASSES = 16         # class accumulators a thread keeps in registers
-MAX_TREE_CHUNK = 16      # trees a block stages in shared memory
-SHARED_BYTES = 48 * 1024
 
 
 def tree_chunk(n_trees: int, n_nodes: int, n_words: int) -> int:
-    """Trees per block: as many as fit the shared-memory budget (feat,
-    thr, masks per node and init_idx per tree, 4 bytes each), at most
-    ``MAX_TREE_CHUNK``."""
-    per_tree = 4 * (n_nodes * (2 + n_words) + n_words)
-    return max(1, min(MAX_TREE_CHUNK, n_trees, SHARED_BYTES // per_tree))
+    """Trees per block: feat, thr and ``n_words`` words per node plus
+    ``n_words`` per tree, 4 bytes each (the qs kernel's leafidx masks and
+    init words; the bitmm kernel's packed and bias words)."""
+    return trees_per_block(n_trees, 4 * (n_nodes * (2 + n_words) + n_words))
 
 
+# --------------------------------------------------------------------------- #
+# qs_forward — QuickScorer bitvector traversal
+# --------------------------------------------------------------------------- #
 def qs_forward_reference(x, feat, thr, masks, init_idx, leaf_val, *,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The plain torch version: ``eval_batch``'s arithmetic on the padded
@@ -45,24 +44,13 @@ def qs_forward_reference(x, feat, thr, masks, init_idx, leaf_val, *,
 
 
 def _check(x, feat, thr, masks, init_idx, leaf_val, out_dtype):
-    named = dict(x=x, feat=feat, thr=thr, masks=masks, init_idx=init_idx,
-                 leaf_val=leaf_val)
-    dtypes = dict(x=torch.float32, feat=torch.int32, thr=torch.float32,
-                  masks=torch.int32, init_idx=torch.int32,
-                  leaf_val=torch.float32)
-    ndims = dict(x=2, feat=2, thr=2, masks=3, init_idx=2, leaf_val=3)
-    for name, t in named.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: expected a tensor")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected "
-                            f"{dtypes[name]}")
-        if t.dim() != ndims[name]:
-            raise ValueError(f"{name}: {t.dim()}-D, expected {ndims[name]}-D")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(
+        x, dict(x=x, feat=feat, thr=thr, masks=masks, init_idx=init_idx,
+                leaf_val=leaf_val),
+        dict(x=torch.float32, feat=torch.int32, thr=torch.float32,
+             masks=torch.int32, init_idx=torch.int32,
+             leaf_val=torch.float32),
+        dict(x=2, feat=2, thr=2, masks=3, init_idx=2, leaf_val=3))
     T, N = feat.shape
     W = masks.shape[-1]
     L, C = leaf_val.shape[1:]
@@ -74,19 +62,7 @@ def _check(x, feat, thr, masks, init_idx, leaf_val, out_dtype):
             f"{tuple(init_idx.shape)}, leaf_val {tuple(leaf_val.shape)}")
     if L > 32 * W:
         raise ValueError(f"{L} leaves need more than {W} leafidx words")
-    if out_dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"out_dtype {out_dtype}: float32 or int32 only")
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("qs_forward")
-    if lib.qs_forward_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qs_forward_launch.argtypes = [p] * 8 + [i] * 9 + [p]
-        lib.qs_forward_launch.restype = ctypes.c_int
-        lib.qs_error_string.argtypes = [i]
-        lib.qs_error_string.restype = ctypes.c_char_p
-    return lib
+    check_out_dtype(out_dtype)
 
 
 def qs_forward(x, feat, thr, masks, init_idx, leaf_val, *,
@@ -100,11 +76,9 @@ def qs_forward(x, feat, thr, masks, init_idx, leaf_val, *,
     kernel gathers without a bounds check (``ops.cuda_qs_predictor``
     checks it on the host)."""
     _check(x, feat, thr, masks, init_idx, leaf_val, out_dtype)
-    if x.device.type == "cpu":
+    if not on_card(x, "qs_forward"):
         return qs_forward_reference(x, feat, thr, masks, init_idx, leaf_val,
                                     out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"qs_forward runs on cuda or cpu, not {x.device}")
     B, d = x.shape
     T, N = feat.shape
     W = masks.shape[-1]
@@ -119,19 +93,109 @@ def qs_forward(x, feat, thr, masks, init_idx, leaf_val, *,
     tc = tree_chunk(T, N, W)
     partial = torch.empty((-(-T // tc), B, C), dtype=out_dtype,
                           device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.qs_forward_launch(
-            x.data_ptr(), feat.data_ptr(), thr.data_ptr(), masks.data_ptr(),
-            init_idx.data_ptr(), leaf_val.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), B, d, T, N, W, L, C, tc,
-            int(out_dtype == torch.int32), stream)
-    if err != 0:
-        raise RuntimeError("qs_forward kernel launch failed: "
-                           + lib.qs_error_string(err).decode())
+    lib = library("qs_forward", "qs_forward_launch", "qs_error_string", 8, 9)
+    launch(lib.qs_forward_launch, lib.qs_error_string, "qs_forward",
+           x.device, x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+           masks.data_ptr(), init_idx.data_ptr(), leaf_val.data_ptr(),
+           partial.data_ptr(), out.data_ptr(), B, d, T, N, W, L, C, tc,
+           int(out_dtype == torch.int32))
     qs_forward.launches += 1
     return out
 
 
 qs_forward.launches = 0
+qs_forward.source = "src/repro_torch/kernels/csrc/qs_forward.cu"
+qs_forward.replaces = "src/repro/kernels/quickscorer_kernel.py:130"
+
+
+# --------------------------------------------------------------------------- #
+# qs_bitmm_forward — bit-matmul QuickScorer
+# --------------------------------------------------------------------------- #
+def qs_bitmm_forward_reference(x, feat, thr, packed, bias, leaf_val, *,
+                               bits: int, npack: int, n_leaves: int,
+                               out_dtype=torch.float32) -> torch.Tensor:
+    """The plain torch version: ``eval_batch_bitmm``'s arithmetic on the
+    padded kernel arrays (padding nodes carry +inf thresholds and zero
+    packed rows; padding trees a full bias word and zero leaf rows),
+    taken over tree chunks.  Raw leaf sums (B, C) in ``out_dtype``."""
+    return bitmm_scores(x, feat, thr, packed, bias, leaf_val, out_dtype,
+                        bits=bits, npack=npack, n_leaves=n_leaves)
+
+
+def _check_bitmm(x, feat, thr, packed, bias, leaf_val, bits, npack,
+                 n_leaves, out_dtype):
+    check_tensors(
+        x, dict(x=x, feat=feat, thr=thr, packed=packed, bias=bias,
+                leaf_val=leaf_val),
+        dict(x=torch.float32, feat=torch.int32, thr=torch.float32,
+             packed=torch.int32, bias=torch.int32, leaf_val=torch.float32),
+        dict(x=2, feat=2, thr=2, packed=3, bias=2, leaf_val=3))
+    T, N = feat.shape
+    G = packed.shape[-1]
+    L = leaf_val.shape[1]
+    if thr.shape != (T, N) or packed.shape[:2] != (T, N) or \
+            bias.shape != (T, G) or leaf_val.shape[0] != T:
+        raise ValueError(
+            f"inconsistent shapes: feat {tuple(feat.shape)}, thr "
+            f"{tuple(thr.shape)}, packed {tuple(packed.shape)}, bias "
+            f"{tuple(bias.shape)}, leaf_val {tuple(leaf_val.shape)}")
+    if not (1 <= bits and 1 <= npack and bits * npack <= 24):
+        raise ValueError(f"bits={bits}, npack={npack}: fields must fit the "
+                         "24 bits of a packed word")
+    if not 1 <= n_leaves <= min(L, G * npack):
+        raise ValueError(f"n_leaves={n_leaves} outside 1..{min(L, G * npack)}"
+                         f" (L={L}, {G} groups of {npack})")
+    check_out_dtype(out_dtype)
+
+
+def qs_bitmm_forward(x, feat, thr, packed, bias, leaf_val, *, bits: int,
+                     npack: int, n_leaves: int,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Padded kernel arrays → raw leaf sums (B, C) in ``out_dtype``.
+
+    x (B, d) f32; feat (T, N) i32; thr (T, N) f32; packed (T, N, G) and
+    bias (T, G) int32 holding the packed clear-count words (integers below
+    2^24, the uint32 words of ``bitmm_pack_arrays``); leaf_val (T, L, C)
+    f32 (exact integers for int-accum forests, which use
+    ``out_dtype=torch.int32``).  Leaf ``l`` is field ``l % npack`` of
+    group ``l // npack``, ``bits`` wide.  Every ``feat`` entry must be
+    < d: the kernel gathers without a bounds check."""
+    _check_bitmm(x, feat, thr, packed, bias, leaf_val, bits, npack,
+                 n_leaves, out_dtype)
+    if not on_card(x, "qs_bitmm_forward"):
+        return qs_bitmm_forward_reference(
+            x, feat, thr, packed, bias, leaf_val, bits=bits, npack=npack,
+            n_leaves=n_leaves, out_dtype=out_dtype)
+    B, d = x.shape
+    T, N = feat.shape
+    G = packed.shape[-1]
+    L, C = leaf_val.shape[1:]
+    if N > MAX_NODES or C > MAX_CLASSES:
+        raise ValueError(f"the kernel takes at most {MAX_NODES} nodes per "
+                         f"tree (L <= {MAX_NODES + 1}) and {MAX_CLASSES} "
+                         f"classes; got N={N}, C={C}")
+    tc = tree_chunk(T, N, G)
+    if 4 * tc * (N * (2 + G) + G) > MAX_SHARED_BYTES:
+        raise ValueError(f"one tree's packed words ({N} nodes x {G} groups)"
+                         f" exceed the {MAX_SHARED_BYTES} bytes of shared "
+                         "memory a block may hold")
+    out = torch.empty((B, C), dtype=out_dtype, device=x.device)
+    if B == 0:
+        return out
+    partial = torch.empty((-(-T // tc), B, C), dtype=out_dtype,
+                          device=x.device)
+    lib = library("qs_bitmm_forward", "qs_bitmm_forward_launch",
+                  "qs_bitmm_error_string", 8, 12)
+    launch(lib.qs_bitmm_forward_launch, lib.qs_bitmm_error_string,
+           "qs_bitmm_forward", x.device, x.data_ptr(), feat.data_ptr(),
+           thr.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+           leaf_val.data_ptr(), partial.data_ptr(), out.data_ptr(), B, d, T,
+           N, G, L, C, n_leaves, bits, npack, tc,
+           int(out_dtype == torch.int32))
+    qs_bitmm_forward.launches += 1
+    return out
+
+
+qs_bitmm_forward.launches = 0
+qs_bitmm_forward.source = "src/repro_torch/kernels/csrc/qs_bitmm_forward.cu"
+qs_bitmm_forward.replaces = "src/repro/kernels/quickscorer_kernel.py:240"

@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card: tests that need an NVIDIA GPU and nvcc.
+"""The CUDA kernels on the card: tests that need an NVIDIA GPU and nvcc.
 
 Each test skips here, without a card.  On the card they run with
 
@@ -15,8 +15,11 @@ import numpy as np  # noqa: E402
 
 from repro_torch import core  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
+    gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
-    qs_forward, qs_forward_reference)
+    qs_bitmm_forward, qs_bitmm_forward_reference, qs_forward,
+    qs_forward_reference)
 
 SHAPES = [
     # (n_trees, n_leaves, n_features, n_classes, batch): the kernel tests'
@@ -99,3 +102,83 @@ def test_compile_forest_defaults_to_the_card(card):
     before = qs_forward.launches
     pred.predict(X)
     assert qs_forward.launches == before + 1
+
+
+def _bitmm_operands(f, card):
+    arrays, bits, npack = ops._bitmm_arrays(f, 8)
+    return ([torch.from_numpy(a).to(card) for a in arrays],
+            dict(bits=bits, npack=npack, n_leaves=f.n_leaves))
+
+
+def _gemm_operands(f, card):
+    return [torch.from_numpy(a).to(card) for a in ops._gemm_arrays(f, 8)], {}
+
+
+# engine → (wrapper, plain version, operands, predictor builder)
+NEW_KERNELS = {
+    "bitmm": (qs_bitmm_forward, qs_bitmm_forward_reference, _bitmm_operands,
+              ops.cuda_bitmm_predictor),
+    "gemm": (gemm_forward, gemm_forward_reference, _gemm_operands,
+             ops.cuda_gemm_predictor),
+}
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("T,L,d,C,B", SHAPES)
+def test_new_kernel_matches_plain_version(card, engine, T, L, d, C, B):
+    kernel, plain, operands, _ = NEW_KERNELS[engine]
+    X, forests = _forests(T, L, d, C, B)
+    for f in forests:
+        arrays, kw = operands(f, card)
+        kw["out_dtype"] = ops._out_dtype(f, 8)
+        x = torch.from_numpy(core.quantize_inputs(f, X).astype(
+            np.float32)).to(card)
+        before = kernel.launches
+        got = kernel(x, *arrays, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(x, *arrays, **kw)
+        if kw["out_dtype"] == torch.int32:
+            assert torch.equal(got, want)
+        else:
+            # up to 1024 f32 leaves summed in two orders
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        # deterministic: no atomics, a fixed reduction order
+        assert torch.equal(got, kernel(x, *arrays, **kw))
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("T,L,d,C,B", SHAPES[:5])
+def test_new_predictor_on_card_matches_cpu(card, engine, T, L, d, C, B):
+    build = NEW_KERNELS[engine][3]
+    X, forests = _forests(T, L, d, C, B)
+    for f in forests:
+        got = build(f, device=card).predict(X)
+        want = build(f, device="cpu").predict(X)
+        if f.int_accum:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+def test_new_kernel_rejects_what_it_cannot_take(card, engine):
+    kernel, _, operands, _ = NEW_KERNELS[engine]
+    X, (forest, _) = _forests(2, 512, 4, 1, 8)        # 511 nodes per tree
+    arrays, kw = operands(forest, card)
+    x = torch.from_numpy(X.astype(np.float32)).to(card)
+    with pytest.raises(ValueError, match="at most"):
+        kernel(x, *arrays, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        kernel(x.cpu(), *arrays, **kw)
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+def test_compile_forest_engine_defaults_to_the_card(card, engine):
+    kernel = NEW_KERNELS[engine][0]
+    X, (forest, _) = _forests(8, 16, 6, 1, 64)
+    pred = core.compile_forest(forest, engine=engine)
+    assert pred.device.type == "cuda"
+    before = kernel.launches
+    pred.predict(X)
+    assert kernel.launches == before + 1

@@ -34,7 +34,7 @@ assert not any(m == "jax" or m.startswith(("jax.", "repro."))
 from repro_torch import core
 forest = core.random_forest_ir(8, 16, 6, n_classes=2, seed=0)
 X = np.random.default_rng(0).normal(size=(40, 6))
-pred, server, _ = chip_smoke.main_path(forest, X, X, torch.device("cpu"))
+pred, _, server, _ = chip_smoke.main_path(forest, X, X, torch.device("cpu"))
 assert server.stats.n_requests == 40
 want = core.quantize_forest(forest, X, chip_smoke.QUANT)
 np.testing.assert_array_equal(

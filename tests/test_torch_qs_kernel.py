@@ -17,6 +17,7 @@ from repro.kernels.ops import pallas_qs_predictor  # noqa: E402
 from repro.kernels.ref import ref_oracle, ref_qs  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from test_kernels import SHAPE_SWEEP  # noqa: E402
+from repro_torch.kernels import launch  # noqa: E402
 from repro_torch.kernels import ops, quickscorer_kernel  # noqa: E402
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
     qs_forward, qs_forward_reference)
@@ -187,6 +188,6 @@ def test_predictor_rejects_narrow_rows(small_forest):
 def test_tree_chunk_fits_shared_memory():
     for T, N, W in [(1024, 63, 2), (3, 15, 1), (100, 255, 8)]:
         tc = quickscorer_kernel.tree_chunk(T, N, W)
-        assert 1 <= tc <= min(T, quickscorer_kernel.MAX_TREE_CHUNK)
-        assert 4 * tc * (N * (2 + W) + W) <= quickscorer_kernel.SHARED_BYTES
+        assert 1 <= tc <= min(T, launch.MAX_TREE_CHUNK)
+        assert 4 * tc * (N * (2 + W) + W) <= launch.SHARED_BYTES
 
