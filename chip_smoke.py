@@ -23,7 +23,20 @@ or JAX.  Phases:
     engines' served outputs must be bit-identical.  Then a trained
     ``magic`` random forest, served quantized, whose accuracy may fall at
     most ``ACCURACY_MARGIN_PP`` below its float forest's;
- 5. time each kernel and its plain version with CUDA events beside the
+ 5. the cascade slice: hold ``cascade_qs_forward`` against its plain
+    version at a shape sweep (margin, proba and bound gates; logit and
+    vote leaves; float and int16) and at full width; train the reference
+    benchmark's largest cascade forest (``RandomForest`` 512 trees x 64
+    leaves on mnist, d=784, C=10), quantize it int16 with int-accum,
+    calibrate the gate on half the test rows and serve the other half,
+    repeated to 4096 requests, through ``compile_forest(...,
+    backend="cuda", cascade=CascadeSpec((16, 64, 256), fused=...))`` fused
+    (one ``cascade_qs_forward`` launch per batch) and staged (one
+    ``qs_forward`` launch per stage with survivors): bit-identical scores
+    and exit counts, served == ``predict``; a disabled gate served fused
+    equals the plain bitvector engine, and ``ScoreBoundGate`` keeps every
+    row's class;
+ 6. time each kernel and its plain version with CUDA events beside the
     least time the card could take for the same work.
 
 It prints one JSON line of kernel records, the card's line, and last
@@ -33,6 +46,8 @@ CUDA device, and where ``src/repro_torch`` is missing.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import re
@@ -48,9 +63,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch  # noqa: E402
 
 from repro_torch import core  # noqa: E402
+from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
+                                 ProbaGate, ScoreBoundGate, calibrate)
 from repro_torch.data import datasets  # noqa: E402
 from repro_torch.inference import ForestServer  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.cascade_kernel import (  # noqa: E402
+    cascade_qs_forward, cascade_qs_forward_reference)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
@@ -95,6 +114,25 @@ ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-5
 # the paper calls int16 quantization's accuracy cost "neglectable": held
 # here to at most half a percentage point on magic's 1200 test rows
 ACCURACY_MARGIN_PP = 0.5
+# (n_trees, n_leaves, n_features, n_classes, batch, stages, gate, vote
+# leaves) for the cascade kernel: logit leaves through the softmax gate,
+# vote leaves through the vote normalization, the bound gate where its
+# later stages are short enough to fire (C = 3 and the C = 1 band), wide
+# leaves and classes, and batches that cross the 8-row tiles
+CASCADE_SWEEP = [
+    (24, 16, 8, 3, 300, (6, 12, 24), MarginGate(0.3), False),
+    (24, 16, 8, 3, 300, (6, 12, 24), ProbaGate(0.5), True),
+    (24, 16, 8, 3, 300, (20, 22, 24), ScoreBoundGate(), True),
+    (24, 16, 8, 1, 129, (20, 22, 24), ScoreBoundGate(0.5, 0.25), False),
+    (16, 64, 10, 2, 77, (4, 16), MarginGate(0.2), True),
+    (12, 256, 7, 16, 33, (3, 12), MarginGate(0.1), False),
+]
+# benchmarks/bench_cascade.py:53-60, its largest case: mnist, a random
+# forest of 512 trees x 64 leaves, stages (16, 64, 256), calibrated to
+# within half a percentage point of the full forest (:75-85)
+CASCADE_FOREST = (512, 64)
+CASCADE_STAGES = (16, 64, 256, 512)
+CASCADE_FLOOR_PP = 0.5
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -226,19 +264,32 @@ def serve(pred, rows, *, max_batch=MAX_BATCH, rate_hz=ARRIVAL_RATE_HZ,
     return np.stack([r.result for r in reqs]), server
 
 
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launch.launches = 0
+    cascade_qs_forward.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by engine (``"cascade"`` for
+    ``cascade_qs_forward``)."""
+    counts = {k.engine: k.launch.launches for k in KERNELS}
+    counts["cascade"] = cascade_qs_forward.launches
+    return counts
+
+
 def main_path(forest, X_calib, rows, device, engine="bitvector"):
     """Quantize → compile_forest(engine, backend="cuda") → serve.  Every
     kernel's launch count is set to 0 just before and read just after;
     the engine's kernel must have launched once per served batch and the
     others not at all.  Returns (predictor, served output, server, the
     engine's launches)."""
-    for k in KERNELS:
-        k.launch.launches = 0
+    reset_launches()
     qforest = core.quantize_forest(forest, X_calib, QUANT)
     pred = core.compile_forest(qforest, engine=engine, backend="cuda",
                                device=device)
     served, server = serve(pred, rows)
-    counts = {k.engine: k.launch.launches for k in KERNELS}
+    counts = launch_counts()
     launches = counts.pop(engine)
     if not np.array_equal(served, pred.predict(rows)):
         raise AssertionError("served output != synchronous predict")
@@ -278,6 +329,186 @@ def magic_accuracy(device, n_trees=128, max_leaves=64):
     return acc_float, acc_quant, len(ds.y_test)
 
 
+class ExitRecorder:
+    """A cascade predictor as ``ForestServer`` sees it, keeping each served
+    batch's per-stage exit counts."""
+
+    def __init__(self, pred):
+        self.pred, self.batches = pred, []
+
+    def predict(self, X):
+        out = self.pred.predict(X)
+        self.batches.append(self.pred.last_exit_counts.copy())
+        return out
+
+    @property
+    def last_exit_counts(self):
+        return self.pred.last_exit_counts
+
+
+def stages_entered(counts) -> int:
+    """How many stages a batch with these exit counts ran: those that some
+    row reached."""
+    reach = np.cumsum(np.asarray(counts)[::-1])[::-1]
+    return int((reach > 0).sum())
+
+
+def cascade_operands(forest, stages, policy, X, device):
+    """``cascade_qs_forward``'s operands for ``forest``, a prepared
+    ``policy`` and rows ``X``: (x, valid, arrays, keyword arguments)."""
+    fn = ops.cuda_fused_cascade_qs(forest, stages, policy, block_t=BLOCK_T,
+                                   device=device)
+    xq = core.quantize_inputs(forest, np.asarray(X)).astype(np.float32)
+    x = torch.from_numpy(xq).to(device)
+    valid = torch.ones(len(X), dtype=torch.bool, device=device)
+    kw = dict(stage_bounds=fn.stage_bounds, policy=policy,
+              inv_scale=1.0 / core.leaf_scale(forest),
+              out_dtype=fn.out_dtype)
+    return x, valid, fn.arrays, kw
+
+
+def compare_cascade(forest, stages, policy, X, device, atol: float):
+    """``cascade_qs_forward`` vs its plain version on the same operands,
+    ``policy`` prepared anew for ``forest``: the exit stages must be
+    identical, the scores bit-exact on int-accum forests and within rtol
+    / ``atol`` otherwise.  Returns (max |diff| of the scores, per-stage
+    exit counts)."""
+    policy = copy.copy(policy)
+    policy.prepare(forest, stages)
+    x, valid, arrays, kw = cascade_operands(forest, stages, policy, X,
+                                            device)
+    got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
+    want, want_exit = cascade_qs_forward_reference(x, valid, *arrays, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    err = float((got.double() - want.double()).abs().max())
+    tag = (forest.n_trees, forest.n_leaves, forest.n_features,
+           forest.n_classes, len(X), stages, policy.tag(),
+           "int16" if forest.int_accum else "float")
+    flips = int((got_exit != want_exit).sum())
+    if flips:
+        raise AssertionError(f"cascade {tag}: {flips} rows exit at another "
+                             "stage than in the plain version")
+    if forest.int_accum:
+        if not torch.equal(got, want):
+            raise AssertionError(f"cascade {tag}: kernel != plain version "
+                                 f"(max |diff| {err})")
+    elif not torch.allclose(got, want, rtol=RTOL, atol=atol):
+        raise AssertionError(f"cascade {tag}: max |diff| {err} > atol "
+                             f"{atol}")
+    counts = torch.bincount(got_exit.long(), minlength=len(stages))
+    return err, counts.cpu().numpy()
+
+
+def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
+                 stages=CASCADE_STAGES):
+    """The cascade slice's main path: quantize → staged cascade →
+    ``calibrate`` → serve fused and staged on ``backend="cuda"``.  Each
+    served run starts with every launch count at 0 and must launch only
+    its kernel: fused ``cascade_qs_forward`` once per batch, staged
+    ``qs_forward`` once per stage with survivors (none at all on the
+    CPU).  Fused and staged must agree bit for bit, scores and per-batch
+    exit counts, and equal synchronous ``predict``.  Then a disabled gate
+    served fused must equal the plain bitvector engine, and
+    ``ScoreBoundGate`` must keep every row's class."""
+    on_card = device.type == "cuda"
+    qforest = core.quantize_forest(forest, X_train, QUANT)
+    staged = core.compile_forest(qforest, engine="bitvector", backend="cuda",
+                                 device=device,
+                                 cascade=CascadeSpec(stages))
+    cal = calibrate(staged, X_cal, y_cal, floor_pp=CASCADE_FLOOR_PP)
+    staged.set_policy(cal.policy)
+    fused = core.compile_forest(qforest, engine="bitvector", backend="cuda",
+                                device=device, cascade=CascadeSpec(
+                                    stages, cal.policy, fused=True))
+    runs = {}
+    for name, pred in (("fused", fused), ("staged", staged)):
+        reset_launches()
+        rec = ExitRecorder(pred)
+        served, server = serve(rec, rows)
+        counts = launch_counts()
+        if not np.array_equal(served, pred.predict(rows)):
+            raise AssertionError(f"{name} cascade: served != predict")
+        if not np.isfinite(served).all() or \
+                served.shape != (len(rows), forest.n_classes):
+            raise AssertionError(f"{name} cascade: served shape "
+                                 f"{served.shape} or non-finite values")
+        want = {"cascade": server.stats.n_batches} if name == "fused" \
+            else {"bitvector": sum(stages_entered(c) for c in rec.batches)}
+        want = {k: want.get(k, 0) if on_card else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} cascade: kernel launches {counts},"
+                                 f" expected {want}")
+        if sum(server.stats.stage_exit_counts) != len(rows):
+            raise AssertionError(f"{name} cascade: exit counts "
+                                 f"{server.stats.stage_exit_counts} for "
+                                 f"{len(rows)} rows")
+        runs[name] = dict(served=served, batches=rec.batches, server=server,
+                          launches=counts)
+    f, st = runs["fused"], runs["staged"]
+    if not np.array_equal(f["served"], st["served"]):
+        raise AssertionError("fused and staged cascades serve different "
+                             "scores")
+    if len(f["batches"]) != len(st["batches"]) or not all(
+            np.array_equal(a, b) for a, b in zip(f["batches"],
+                                                 st["batches"])):
+        raise AssertionError("fused and staged cascades exit rows at "
+                             "different stages")
+    plain = core.compile_forest(qforest, engine="bitvector", backend="cuda",
+                                device=device)
+    full = plain.predict(rows)
+    policy = fused.policy
+    fused.set_policy(MarginGate(np.inf))
+    never, _ = serve(fused, rows)
+    if not np.array_equal(never, full):
+        raise AssertionError("fused cascade with a disabled gate != the "
+                             "bitvector engine on the whole forest")
+    fused.set_policy(ScoreBoundGate())
+    if not np.array_equal(fused.predict_class(rows), full.argmax(axis=1)):
+        raise AssertionError("ScoreBoundGate changed a row's class")
+    fused.set_policy(policy)
+    exits = np.asarray(f["server"].stats.stage_exit_counts)
+    acc_gated = float((f["served"].argmax(axis=1) == y_rows).mean())
+    acc_full = float((full.argmax(axis=1) == y_rows).mean())
+    # the reference's held-out sanity bound (tests/test_cascade.py:451)
+    if acc_gated < acc_full - 0.02:
+        raise AssertionError(f"gated accuracy {acc_gated:.4f} more than 2 pp"
+                             f" below the full forest's {acc_full:.4f}")
+    return dict(
+        qforest=qforest, policy=fused.policy, calibration=cal,
+        stages=fused.stages, launches=f["launches"]["cascade"],
+        staged_launches=st["launches"]["bitvector"],
+        n_batches=f["server"].stats.n_batches,
+        mean_batch=f["server"].stats.batch_sizes.mean(),
+        exit_fractions=f["server"].stats.summary()["exit_fractions"],
+        mean_trees=float((exits * np.asarray(fused.stages)).sum()
+                         / exits.sum()),
+        acc_gated=acc_gated, acc_full=acc_full,
+        compute_p50_ms={name: r["server"].stats.summary()["compute_p50_ms"]
+                        for name, r in runs.items()})
+
+
+def cascade_bound(x, valid, arrays, kw, exit_stage, stages):
+    """Least time for the cascade on these operands and this batch's
+    exits: bytes as ``bound`` counts them (plus ``valid``, the stage
+    offsets and the exit stages); operations as ``Kernel.work`` counts
+    the bitvector kernel's, for the rows that reach each stage times that
+    stage's trees."""
+    B = x.shape[0]
+    N, W = arrays[0].shape[1], arrays[2].shape[-1]
+    C = arrays[-1].shape[-1]
+    ex = exit_stage[valid].cpu().numpy()
+    trees = np.diff((0,) + tuple(stages))
+    reach = [int((ex >= k).sum()) for k in range(len(stages))]
+    n_ops = sum(r * int(t) for r, t in zip(reach, trees)) \
+        * (N * (1 + W) + C)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, valid) + arrays) \
+        + 4 * len(kw["stage_bounds"]) + B * C * 4 + B * 4
+    t_ops, t_bytes = n_ops / ALU_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops, reach
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events,
     after two warm-up calls."""
@@ -309,6 +540,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
 
@@ -320,15 +552,16 @@ def main() -> int:
 
     # 2. build from the repo's sources
     t0 = time.perf_counter()
-    paths = build.build([k.source_name for k in KERNELS])
+    sources = [k.source_name for k in KERNELS] + ["cascade_qs_forward"]
+    paths = build.build(sources)
     print(f"built {', '.join(str(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for k in KERNELS:
-        log = build.build_log(k.source_name)
+    for name in sources:
+        log = build.build_log(name)
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
                                              log)]
-        print(f"ptxas {k.source_name}: {len(regs)} functions, at most "
+        print(f"ptxas {name}: {len(regs)} functions, at most "
               f"{max(regs, default=0)} registers, "
               f"{sum(n > 0 for n in spills)} with spill stores (at most "
               f"{max(spills, default=0)} bytes)")
@@ -392,7 +625,71 @@ def main() -> int:
           f"{acc_quant:.4f} on {n_test} rows (margin "
           f"{ACCURACY_MARGIN_PP} pp)")
 
-    # 5. timings at the main path's full-width kernel shape
+    # 5. the cascade slice: the kernel against its plain version, then the
+    # trained mnist cascade served fused and staged
+    worst_cascade = 0.0
+    for T_, L_, d_, C_, B_, st, gate, votes in CASCADE_SWEEP:
+        forest = core.random_forest_ir(T_, L_, d_, n_classes=C_,
+                                       seed=T_ + L_, full=False)
+        if votes:
+            forest = dataclasses.replace(
+                forest, leaf_value=np.abs(forest.leaf_value))
+        X = np.random.default_rng(B_).normal(0, 1.3, size=(B_, d_))
+        err, _ = compare_cascade(forest, st, gate, X, device, ATOL)
+        worst_cascade = max(worst_cascade, err)
+        _, counts = compare_cascade(core.quantize_forest(forest, X, QUANT),
+                                    st, gate, X, device, ATOL)
+        print(f"cascade_qs_forward T={T_} L={L_} d={d_} C={C_} B={B_} "
+              f"stages={st} {gate.tag()} {'votes' if votes else 'logits'}: "
+              f"exit stages identical, int16 bit-exact (exits "
+              f"{counts.tolist()}), float max|diff| {err:.3g}")
+    mnist = datasets.make_mnist()
+    n_trees, max_leaves = CASCADE_FOREST
+    t0 = time.perf_counter()
+    rf = RandomForest(RandomForestConfig(n_trees=n_trees,
+                                         max_leaves=max_leaves, seed=0))
+    cforest = core.from_random_forest(rf.fit(mnist.X_train, mnist.y_train))
+    print(f"trained mnist RF {n_trees}x{max_leaves} (d="
+          f"{cforest.n_features}, C={cforest.n_classes}) on "
+          f"{len(mnist.X_train)} rows in {time.perf_counter() - t0:.1f} s")
+    n_cal = len(mnist.X_test) // 2
+    reps = -(-N_REQUESTS // (len(mnist.X_test) - n_cal))
+    crows = np.tile(mnist.X_test[n_cal:], (reps, 1))[:N_REQUESTS]
+    cy = np.tile(mnist.y_test[n_cal:], reps)[:N_REQUESTS]
+    t0 = time.perf_counter()
+    casc = cascade_path(cforest, mnist.X_train, mnist.X_test[:n_cal],
+                        mnist.y_test[:n_cal], crows, cy, device)
+    cal = casc["calibration"]
+    print(f"cascade main path ({time.perf_counter() - t0:.1f} s host wall "
+          f"incl. quantize, compile, calibrate, serve): stages "
+          f"{casc['stages']}, calibrated on {n_cal} rows (floor "
+          f"{CASCADE_FLOOR_PP} pp): {cal.policy.tag()}, accuracy "
+          f"{cal.accuracy:.4f} vs full {cal.full_accuracy:.4f}")
+    print(f"served {N_REQUESTS} requests in {casc['n_batches']} batches "
+          f"(mean {casc['mean_batch']:.1f} rows): fused "
+          f"cascade_qs_forward launches {casc['launches']}, qs_forward 0; "
+          f"staged qs_forward launches {casc['staged_launches']}, "
+          f"cascade_qs_forward 0; fused == staged bit for bit, scores and "
+          f"per-batch exit counts; served == predict")
+    print(f"exit fractions {[round(x, 4) for x in casc['exit_fractions']]},"
+          f" mean trees per row {casc['mean_trees']:.2f} of {n_trees}; "
+          f"served accuracy gated {casc['acc_gated']:.4f}, full forest "
+          f"{casc['acc_full']:.4f}; disabled gate == bitvector engine; "
+          f"ScoreBoundGate keeps every class")
+    print(f"cascade per batch, host clock: predict p50 fused "
+          f"{casc['compute_p50_ms']['fused']:.3f} ms, staged "
+          f"{casc['compute_p50_ms']['staged']:.3f} ms [{card}]")
+    err_q, _ = compare_cascade(casc["qforest"], casc["stages"],
+                               casc["policy"], crows[:B], device, ATOL_FULL)
+    err_f, _ = compare_cascade(cforest, casc["stages"], casc["policy"],
+                               crows[:B], device, ATOL_FULL)
+    print(f"cascade_qs_forward full width T={n_trees} L={max_leaves} "
+          f"d={cforest.n_features} C={cforest.n_classes} B={B}: exit "
+          f"stages identical; int16 bit-exact ({err_q}); float max|diff| "
+          f"{err_f:.3g} (atol {ATOL_FULL}); sweep float max|diff| "
+          f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL})")
+
+    # 6. timings at the main paths' full-width kernel shapes
     records = []
     for k in KERNELS:
         x, arrays, kw = kernel_inputs(k, qfull, rows[:B], device)
@@ -414,6 +711,35 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
 
+    x, valid, arrays, kw = cascade_operands(
+        casc["qforest"], casc["stages"], casc["policy"], crows[:B], device)
+    ms = cuda_ms(lambda: cascade_qs_forward(x, valid, *arrays, **kw), 200)
+    plain_ms = cuda_ms(
+        lambda: cascade_qs_forward_reference(x, valid, *arrays, **kw), 10)
+    _, exit_stage = cascade_qs_forward(x, valid, *arrays, **kw)
+    bound_ms, bound_by, nbytes, n_ops, reach = cascade_bound(
+        x, valid, arrays, kw, exit_stage, casc["stages"])
+    qx, qarrays, qkw = kernel_inputs(KERNELS[0], casc["qforest"], crows[:B],
+                                     device)
+    qs_ms = cuda_ms(lambda: qs_forward(qx, *qarrays, **qkw), 200)
+    qs_bound_ms, qs_by, _, qs_ops = bound(KERNELS[0], qx, qarrays, qkw)
+    print(f"cascade_qs_forward B={B} T={n_trees} L={max_leaves} "
+          f"d={cforest.n_features} C={cforest.n_classes} int16/int32-accum, "
+          f"{casc['policy'].tag()}, rows reaching each stage {reach}: "
+          f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {n_ops} ops); "
+          f"qs_forward over all {n_trees} trees {qs_ms:.4f} ms (bound "
+          f"{qs_bound_ms:.5f} ms by {qs_by}, {qs_ops} ops); no single "
+          f"PyTorch call computes this function [{card}]")
+    records.append({
+        "name": "cascade_qs_forward", "route": "cuda",
+        "source": cascade_qs_forward.source,
+        "replaces": cascade_qs_forward.replaces,
+        "launches": casc["launches"],
+        "max_abs_err": max(err_q, err_f), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """repro_torch — the PyTorch + CUDA port of ``repro`` for NVIDIA Hopper.
 
 The same packages as ``repro`` (``trees``, ``data``, ``core``, ``optim``,
-``kernels``, ``inference``), so each module's counterpart sits at the same
+``cascade``, ``kernels``, ``inference``), so each module's counterpart sits at the same
 path.  The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``repro``.
 
@@ -12,6 +12,8 @@ Backends map one to one onto the reference's:
         bitvector: qs_forward        (kernels/csrc/qs_forward.cu)
         bitmm:     qs_bitmm_forward  (kernels/csrc/qs_bitmm_forward.cu)
         gemm:      gemm_forward      (kernels/csrc/gemm_forward.cu)
+        bitvector cascade, fused:
+                   cascade_qs_forward (kernels/csrc/cascade_qs_forward.cu)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``device`` they raise.

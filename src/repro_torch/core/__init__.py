@@ -62,8 +62,10 @@ def compile_forest(forest: Forest, engine: str = "bitvector",
     is forwarded to the engine's build function.  ``device=None`` means
     the card: without CUDA that raises, and only an explicit
     ``device="cpu"`` selects the CPU (where the cuda backend runs its
-    kernel's plain version).  ``tune=`` raises until the autotuner is ported; ``opt``
-    other than O0 and ``cascade`` raise in the pipeline likewise.
+    kernel's plain version).  ``cascade=CascadeSpec(...)`` builds a staged
+    or fused cascade predictor (``repro_torch.cascade``).  ``tune=`` raises
+    until the autotuner is ported; ``opt`` other than O0 raises in the
+    pipeline likewise.
     """
     if tune is not None:
         raise NotImplementedError(

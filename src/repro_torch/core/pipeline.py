@@ -7,8 +7,8 @@ a compiled predictor can explain how it was built
 
 Passes whose machinery belongs to a later slice of the port raise
 ``NotImplementedError`` naming it instead of skipping silently: loading a
-model file (``deserialize``), the optimizer levels (``optimize``),
-cascades and tree-sharded execution (``lower``).
+model file (``deserialize``), the optimizer levels (``optimize``) and
+tree-sharded execution (``lower``).
 """
 from __future__ import annotations
 
@@ -196,12 +196,29 @@ def layout(forest: Forest, plan: CompilePlan, ctx: dict) -> Forest:
 
 @forest_pass("lower")
 def lower(forest: Forest, plan: CompilePlan, ctx: dict):
-    """Resolve the engine through the registry and build the predictor."""
+    """Resolve the engine through the registry and build the predictor.
+
+    With ``plan.cascade`` set, the forest is partitioned into tree-prefix
+    stages and each stage lowers through the same engine build function;
+    the cascade is recorded as its own plan stage.
+    ``CascadeSpec(fused=True)`` picks the fused predictor."""
     spec = registry.get(plan.engine, plan.backend)
     if plan.cascade is not None:
-        raise NotImplementedError(
-            "cascade= needs repro_torch.cascade, ported in the cascade "
-            "slice (ROADMAP Queue A item 7)")
+        if plan.n_devices > 1:
+            raise ValueError(
+                "cascade + tree-sharded execution is not supported "
+                f"(n_devices={plan.n_devices}); pick one")
+        from ..cascade import CascadePredictor, FusedCascadePredictor
+        fused = bool(getattr(plan.cascade, "fused", False))
+        cls = FusedCascadePredictor if fused else CascadePredictor
+        pred = cls(forest, plan.cascade, engine=plan.engine,
+                   backend=plan.backend, engine_kw=plan.engine_kw,
+                   device=plan.device)
+        plan.record("cascade", pred.describe())
+        stage_note = f"{spec.tune_name} × {len(pred.stages)} cascade stages"
+        plan.record("lower", stage_note + (" (fused)" if fused else ""))
+        pred.plan = plan
+        return pred
     if plan.n_devices > 1:
         raise NotImplementedError(
             f"n_devices={plan.n_devices} needs tree-sharded execution, "

@@ -132,6 +132,9 @@ class ServerStats:
     # host sync (device synchronize + copy-out)
     compute_ms: Reservoir = field(default_factory=Reservoir)
     sync_ms: Reservoir = field(default_factory=Reservoir)
+    # cascade serving: cumulative per-stage exit counts (empty unless the
+    # predictor reports them — see ForestServer._run)
+    stage_exit_counts: list = field(default_factory=list)
 
     def record_batch(self, reqs: list[Request]) -> None:
         if not reqs:                   # zero-request batch: stats unchanged
@@ -146,6 +149,18 @@ class ServerStats:
         """Record one batch's device-compute / host-sync split."""
         self.compute_ms.append(compute_ms)
         self.sync_ms.append(sync_ms)
+
+    def record_exits(self, counts) -> None:
+        """Accumulate a cascade predictor's per-stage exit counts for the
+        batch just served (``counts`` is its ``last_exit_counts``)."""
+        if counts is None:
+            return
+        counts = [int(c) for c in counts]
+        if len(self.stage_exit_counts) < len(counts):
+            self.stage_exit_counts.extend(
+                [0] * (len(counts) - len(self.stage_exit_counts)))
+        for i, c in enumerate(counts):
+            self.stage_exit_counts[i] += c
 
     def summary(self) -> dict:
         # no completed request → no latency distribution: report null,
@@ -163,6 +178,10 @@ class ServerStats:
             out["compute_p50_ms"] = self.compute_ms.percentile(50)
             out["sync_p50_ms"] = self.sync_ms.percentile(50) \
                 if self.sync_ms else None
+        if self.stage_exit_counts:
+            tot = sum(self.stage_exit_counts)
+            out["exit_fractions"] = [c / max(tot, 1)
+                                     for c in self.stage_exit_counts]
         return out
 
 
@@ -282,6 +301,9 @@ class ForestServer:
         self.stats.record_batch(reqs)
         self.stats.record_phases((t_compute - t0) * 1e3,
                                  (t_sync - t_compute) * 1e3)
+        # cascade predictors report which stage each row exited at
+        self.stats.record_exits(getattr(self.predictor, "last_exit_counts",
+                                        None))
         return reqs
 
 

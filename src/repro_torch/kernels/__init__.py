@@ -7,6 +7,9 @@ quickscorer_kernel — QuickScorer bitvector (csrc/qs_forward.cu) and
                      ``qs_bitmm_forward``
 gemm_forest_kernel — GEMM (Hummingbird) traversal (csrc/gemm_forward.cu),
                      replacing the Pallas ``gemm_forward``
+cascade_kernel     — the fused confidence-gated cascade over bitvector
+                     stages (csrc/cascade_qs_forward.cu), replacing the
+                     Pallas ``cascade_qs_forward``
 ops                — host glue: padding, dtype prep, kernel predictors
 ref                — plain oracles
 launch             — what every wrapper shares: block limits, operand
@@ -14,10 +17,12 @@ launch             — what every wrapper shares: block limits, operand
 build              — nvcc into build/, loaded with ctypes at first use
 """
 from . import ops, ref
+from .cascade_kernel import cascade_qs_forward, cascade_qs_forward_reference
 from .gemm_forest_kernel import gemm_forward, gemm_forward_reference
 from .quickscorer_kernel import (qs_bitmm_forward, qs_bitmm_forward_reference,
                                  qs_forward, qs_forward_reference)
 
 __all__ = ["ops", "ref", "qs_forward", "qs_forward_reference",
            "qs_bitmm_forward", "qs_bitmm_forward_reference", "gemm_forward",
-           "gemm_forward_reference"]
+           "gemm_forward_reference", "cascade_qs_forward",
+           "cascade_qs_forward_reference"]

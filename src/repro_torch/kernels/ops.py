@@ -191,3 +191,50 @@ def cuda_gemm_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     return _KernelPredictor(forest, gemm_forward,
                             _gemm_arrays(forest, block_t),
                             _out_dtype(forest, block_t), block_b, device)
+
+
+def cuda_fused_cascade_qs(forest: Forest, stages, policy, block_b: int = 128,
+                          block_t: int = 8, device=None):
+    """Single-kernel cascade for the bitvector engine: all stages and the
+    gate in one ``cascade_qs_forward`` launch (the counterpart of
+    ``repro.kernels.ops.pallas_fused_cascade_qs``).  Returns
+    ``(Xp (B, d) f32, valid (B,) bool) -> (scores (B, C) descaled f32,
+    exit_stage (B,) int32)`` on ``device`` (``None`` → the card; on
+    ``device="cpu"`` the kernel's plain version runs).
+
+    Each stage slice is padded to ``block_t`` trees on its own, as the
+    staged per-stage predictors pad it, and the stages are concatenated.
+    ``block_b`` is accepted so one ``engine_kw`` serves the stage
+    predictors and this function: the kernel tiles rows itself, and
+    ``FusedCascadePredictor`` pads batches to ``block_b`` multiples."""
+    from ..cascade.predictor import tree_slice
+    from .cascade_kernel import cascade_qs_forward
+
+    if forest.flint:
+        raise ValueError(
+            "FLInt forests are unsupported on the cuda backend: the fused "
+            "cascade kernel takes f32 rows, which cannot represent int32 "
+            "FLInt keys (use backend='torch')")
+    device = resolve_device(device)
+    bounds = (0,) + tuple(stages)
+    parts = [_qs_arrays(tree_slice(forest, bounds[k], bounds[k + 1]),
+                        block_t) for k in range(len(stages))]
+    arrays = tuple(torch.from_numpy(np.concatenate([p[i] for p in parts]))
+                   .to(device) for i in range(5))
+    stage_bounds = (0,) + tuple(
+        np.cumsum([p[0].shape[0] for p in parts]).tolist())
+    out_dtype = _out_dtype(forest, block_t)
+    inv_scale = 1.0 / leaf_scale(forest)
+    inv = torch.tensor(inv_scale, dtype=torch.float32, device=device)
+
+    def fn(Xp: torch.Tensor, valid: torch.Tensor):
+        scores, exit_stage = cascade_qs_forward(
+            Xp, valid, *arrays, stage_bounds=stage_bounds, policy=policy,
+            inv_scale=inv_scale, out_dtype=out_dtype)
+        # power-of-two scale: the multiply is exact on quantized forests
+        return scores.to(torch.float32) * inv, exit_stage
+
+    fn.stage_bounds = stage_bounds
+    fn.arrays = arrays
+    fn.out_dtype = out_dtype
+    return fn

@@ -14,7 +14,13 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import core  # noqa: E402
+from repro_torch.cascade import (CascadePredictor,  # noqa: E402
+                                 CascadeSpec, FusedCascadePredictor,
+                                 GatePolicy, MarginGate, ProbaGate,
+                                 ScoreBoundGate)
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.cascade_kernel import (  # noqa: E402
+    cascade_qs_forward, cascade_qs_forward_reference)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
@@ -182,3 +188,159 @@ def test_compile_forest_engine_defaults_to_the_card(card, engine):
     before = kernel.launches
     pred.predict(X)
     assert kernel.launches == before + 1
+
+
+# --------------------------------------------------------------------------- #
+# cascade_qs_forward
+# --------------------------------------------------------------------------- #
+# (n_trees, n_leaves, n_features, n_classes, batch, stages, gate, vote
+# leaves): logit leaves through the expf softmax, vote leaves, the bound
+# gate where it fires (C = 3, and the C = 1 band), wide leaves and classes,
+# batches across the 8-row tiles, and the mnist cascade's width
+CASCADE_SHAPES = [
+    (24, 16, 8, 3, 300, (6, 12, 24), MarginGate(0.3), False),
+    (24, 16, 8, 3, 129, (6, 12, 24), ProbaGate(0.5), True),
+    (24, 16, 8, 3, 300, (20, 22, 24), ScoreBoundGate(), True),
+    (24, 16, 8, 1, 77, (20, 22, 24), ScoreBoundGate(0.5, 0.25), False),
+    (12, 256, 7, 16, 33, (3, 12), MarginGate(0.1), False),
+    (512, 64, 784, 10, 1024, (16, 64, 256, 512), MarginGate(0.3), False),
+]
+CASCADE_IDS = [f"{s[0]}x{s[1]}-C{s[3]}-B{s[4]}-{s[6].tag()}"
+               for s in CASCADE_SHAPES]
+
+
+def _cascade_forests(T, L, d, C, B, votes):
+    import dataclasses
+    forest = core.random_forest_ir(T, L, d, n_classes=C, seed=T + L,
+                                   full=False)
+    if votes:
+        forest = dataclasses.replace(forest,
+                                     leaf_value=np.abs(forest.leaf_value))
+    X = np.random.default_rng(B).normal(0, 1.3, size=(B, d))
+    return X, (forest, core.quantize_forest(
+        forest, X, core.QuantSpec(16, int_accum=True)))
+
+
+def _cascade_operands(f, stages, gate, X, card):
+    import copy
+    policy = copy.copy(gate)
+    policy.prepare(f, stages)
+    fn = ops.cuda_fused_cascade_qs(f, stages, policy, device=card)
+    x = torch.from_numpy(core.quantize_inputs(f, X).astype(
+        np.float32)).to(card)
+    valid = torch.arange(len(X), device=card) < len(X) - 2
+    kw = dict(stage_bounds=fn.stage_bounds, policy=policy,
+              inv_scale=1.0 / core.leaf_scale(f), out_dtype=fn.out_dtype)
+    return x, valid, fn.arrays, kw
+
+
+@pytest.mark.parametrize("T,L,d,C,B,stages,gate,votes", CASCADE_SHAPES,
+                         ids=CASCADE_IDS)
+def test_cascade_kernel_matches_plain_version(card, T, L, d, C, B, stages,
+                                              gate, votes):
+    """Exit stages identical (the expf softmax of logit forests included),
+    scores bit-exact on int-accum forests; deterministic."""
+    X, forests = _cascade_forests(T, L, d, C, B, votes)
+    for f in forests:
+        x, valid, arrays, kw = _cascade_operands(f, stages, gate, X, card)
+        before = cascade_qs_forward.launches
+        got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
+        torch.cuda.synchronize()
+        assert cascade_qs_forward.launches == before + 1
+        want, want_exit = cascade_qs_forward_reference(x, valid, *arrays,
+                                                       **kw)
+        assert torch.equal(got_exit, want_exit)
+        if f.int_accum:
+            assert torch.equal(got, want)
+        else:
+            # up to 512 f32 leaves summed in two orders
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        # invalid rows: zero scores, the last stage
+        assert not got[-2:].any() and (got_exit[-2:] == len(stages) - 1).all()
+        again = cascade_qs_forward(x, valid, *arrays, **kw)
+        assert torch.equal(got, again[0]) and torch.equal(got_exit, again[1])
+
+
+@pytest.mark.parametrize("T,L,d,C,B,stages,gate,votes", CASCADE_SHAPES,
+                         ids=CASCADE_IDS)
+def test_fused_cascade_on_card_matches_staged(card, T, L, d, C, B, stages,
+                                              gate, votes):
+    """The kernel tier against the staged cascade on the card (qs_forward
+    per stage, the torch gate on the card): bit-exact on int-accum
+    forests, scores and exit counts."""
+    X, (_, qf) = _cascade_forests(T, L, d, C, B, votes)
+    fused = FusedCascadePredictor(qf, CascadeSpec(stages, gate, fused=True),
+                                  backend="cuda", device=card)
+    staged = CascadePredictor(qf, CascadeSpec(stages, gate), backend="cuda",
+                              device=card)
+    before = cascade_qs_forward.launches
+    got = fused.predict(X)
+    assert cascade_qs_forward.launches == before + 1
+    np.testing.assert_array_equal(got, staged.predict(X))
+    np.testing.assert_array_equal(fused.last_exit_counts,
+                                  staged.last_exit_counts)
+    cpu = FusedCascadePredictor(qf, CascadeSpec(stages, gate, fused=True),
+                                backend="cuda", device="cpu")
+    np.testing.assert_array_equal(got, cpu.predict(X))
+
+
+def test_cascade_float_forest_within_tolerance(card):
+    X, (forest, _) = _cascade_forests(24, 16, 8, 3, 300, False)
+    spec = CascadeSpec((6, 12, 24), MarginGate(0.3))
+    fused = FusedCascadePredictor(forest, CascadeSpec(
+        spec.stages, spec.policy, fused=True), backend="cuda", device=card)
+    staged = CascadePredictor(forest, spec, backend="cuda", device=card)
+    np.testing.assert_allclose(fused.predict(X), staged.predict(X),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(fused.last_exit_counts,
+                                  staged.last_exit_counts)
+
+
+@pytest.mark.parametrize("T,L,d,C,B", [(24, 16, 8, 3, 300),
+                                       (1024, 64, 136, 1, 1024)])
+def test_cascade_gate_that_never_fires_is_qs_forward(card, T, L, d, C, B):
+    X, (_, qf) = _cascade_forests(T, L, d, C, B, False)
+    stages = (T // 4, T // 2, T)
+    x, valid, arrays, kw = _cascade_operands(qf, stages, MarginGate(np.inf),
+                                             X, card)
+    valid = torch.ones_like(valid)
+    got, exit_stage = cascade_qs_forward(x, valid, *arrays, **kw)
+    qs = [torch.from_numpy(a).to(card) for a in ops._qs_arrays(qf, 8)]
+    want = qs_forward(x, *qs, out_dtype=kw["out_dtype"])
+    assert torch.equal(got, want)
+    assert (exit_stage == len(stages) - 1).all()
+
+
+class _NumpyOnlyGate(GatePolicy):
+    def exits(self, scores, stage):
+        return scores[:, 0] > 0
+
+    def tag(self):
+        return "numpy-only"
+
+
+def test_cascade_kernel_rejects_a_third_party_policy(card):
+    X, (_, qf) = _cascade_forests(24, 16, 8, 3, 16, False)
+    with pytest.raises(NotImplementedError, match="fused=False"):
+        core.compile_forest(qf, engine="bitvector", backend="cuda",
+                            cascade=CascadeSpec((12, 24), _NumpyOnlyGate(),
+                                                fused=True))
+    x, valid, arrays, kw = _cascade_operands(qf, (12, 24), MarginGate(0.3),
+                                             X, card)
+    with pytest.raises(NotImplementedError, match="_NumpyOnlyGate"):
+        cascade_qs_forward(x, valid, *arrays,
+                           **dict(kw, policy=_NumpyOnlyGate()))
+    staged = core.compile_forest(qf, engine="bitvector", backend="cuda",
+                                 cascade=CascadeSpec((12, 24),
+                                                     _NumpyOnlyGate()))
+    assert staged.predict(X).shape == (16, 3)
+
+
+def test_compile_forest_fused_cascade_defaults_to_the_card(card):
+    X, (_, qf) = _cascade_forests(24, 16, 8, 3, 64, False)
+    pred = core.compile_forest(qf, engine="bitvector", backend="cuda",
+                               cascade=CascadeSpec((6, 24), fused=True))
+    assert pred.device.type == "cuda" and pred.host_syncs == 1
+    before = cascade_qs_forward.launches
+    pred.predict(X)
+    assert cascade_qs_forward.launches == before + 1

@@ -40,6 +40,15 @@ want = core.quantize_forest(forest, X, chip_smoke.QUANT)
 np.testing.assert_array_equal(
     pred.predict(X),
     core.compile_forest(want, backend="torch", device="cpu").predict(X))
+from repro_torch.data import datasets
+from repro_torch.trees.random_forest import RandomForest, RandomForestConfig
+ds = datasets.make_mnist(n=600)
+rf = RandomForest(RandomForestConfig(n_trees=16, max_leaves=8, seed=0))
+res = chip_smoke.cascade_path(
+    core.from_random_forest(rf.fit(ds.X_train, ds.y_train)), ds.X_train,
+    ds.X_test[:60], ds.y_test[:60], ds.X_test[60:], ds.y_test[60:],
+    torch.device("cpu"), stages=(4, 8, 16))
+assert res["launches"] == 0 and sum(res["exit_fractions"]) > 0.999
 if not torch.cuda.is_available():
     try:
         core.compile_forest(forest)
