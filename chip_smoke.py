@@ -36,8 +36,21 @@ or JAX.  Phases:
     and exit counts, served == ``predict``; a disabled gate served fused
     equals the plain bitvector engine, and ``ScoreBoundGate`` keeps every
     row's class;
- 6. time each kernel and its plain version with CUDA events beside the
-    least time the card could take for the same work.
+ 6. the LM slice: hold ``flash_forward`` against its plain version at the
+    reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
+    in both, two launches bit-identical; then serve smollm-360m at full
+    width (32 layers, d 960, 15/5 heads, vocab 49152; seeded random
+    weights in bf16) through ``LMServer(batch=8, max_len=1057)
+    .generate(8 prompts x 1024 tokens, n_new=32)`` on ``backend="cuda"``:
+    one ``flash_forward`` launch per attention layer of the one-pass
+    prefill and no other kernel; in f32 at the same weights ``cuda`` and
+    ``torch`` give the same greedy tokens and close prefill logits, so do
+    the bf16 prefill logits, and teacher-forced ``decode_step`` matches
+    ``Model.forward``;
+ 7. time each kernel and its plain version with CUDA events beside the
+    least time the card could take for the same work (``flash_forward``
+    also beside ``scaled_dot_product_attention``, at the served shape and
+    at ``prefill_32k``'s per-sequence shape, S = 32768).
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -62,14 +75,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
+
 from repro_torch import core  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
                                  ProbaGate, ScoreBoundGate, calibrate)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import datasets  # noqa: E402
-from repro_torch.inference import ForestServer  # noqa: E402
+from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
+                                     TokenPipelineConfig)
+from repro_torch.inference import ForestServer, LMServer  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.cascade_kernel import (  # noqa: E402
     cascade_qs_forward, cascade_qs_forward_reference)
+from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
+    flash_forward, flash_forward_reference)
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
@@ -133,6 +155,38 @@ CASCADE_SWEEP = [
 CASCADE_FOREST = (512, 64)
 CASCADE_STAGES = (16, 64, 256, 512)
 CASCADE_FLOOR_PP = 0.5
+# (B, Sq, Sk, H, K, hd, causal) for flash_forward: tests/test_flash_kernel.py
+# :29-35 (MHA, GQA 3:1, MQA, Sq != Sk non-causal, smollm ratios), ragged
+# edges, and the dense configs' head dims 96 and 128
+FLASH_SWEEP = [
+    (1, 32, 32, 4, 4, 8, True),
+    (2, 64, 64, 6, 2, 16, True),
+    (2, 64, 64, 8, 1, 16, True),
+    (1, 48, 96, 4, 4, 8, False),
+    (2, 128, 128, 15, 5, 4, True),
+    (2, 300, 300, 15, 5, 64, True),
+    (1, 77, 131, 4, 2, 96, True),
+    (1, 131, 77, 8, 8, 128, False),
+]
+# the reference's tolerances (tests/test_flash_kernel.py:45, :75): the same
+# f32 arithmetic summed in another order; bf16 out
+FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
+# the LM slice: smollm-360m (src/repro/configs/smollm_360m.py), the
+# reference serve's default arch, at full width and depth; prefill_32k
+# (S 32768, batch 32, models/config.py:160) cut to 8 prompts x 1024
+# tokens for the script's time, then 32 greedy tokens
+LM_ARCH = "smollm_360m"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
+LM_SEED = 0
+LONG_S = 32768
+# f32 backends differ only in the prefill attention's summation order:
+# prefill logits within 1e-3 of the largest |logit|.  bf16: the torch
+# engine rounds the probabilities to bf16 before the PV product, the
+# kernel keeps them f32, and 32 layers of bf16 residual carry that: within
+# 5% of the largest |logit|.  Teacher-forced decode vs forward in f32:
+# the reference test's 2e-2 (tests/test_models_smoke.py:92)
+LM_LOGIT_TOL_F32, LM_LOGIT_TOL_BF16, LM_DECODE_TOL = 1e-3, 5e-2, 2e-2
+LM_TEACHER_STEPS = 16
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -142,6 +196,9 @@ CASCADE_FLOOR_PP = 0.5
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
+FUSED_SDPA = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION]
 
 
 class Kernel:
@@ -268,13 +325,15 @@ def reset_launches() -> None:
     for k in KERNELS:
         k.launch.launches = 0
     cascade_qs_forward.launches = 0
+    flash_forward.launches = 0
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by engine (``"cascade"`` for
-    ``cascade_qs_forward``)."""
+    ``cascade_qs_forward``, ``"flash"`` for ``flash_forward``)."""
     counts = {k.engine: k.launch.launches for k in KERNELS}
     counts["cascade"] = cascade_qs_forward.launches
+    counts["flash"] = flash_forward.launches
     return counts
 
 
@@ -509,6 +568,207 @@ def cascade_bound(x, valid, arrays, kw, exit_stage, stages):
         ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops, reach
 
 
+def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
+    """Seeded head-major q (B*H, Sq, hd) and k/v (B*K, Sk, hd), made on
+    ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(b * h, n, hd, generator=g, device=device)
+                 .to(dtype) for b, h, n in ((B, H, Sq), (B, K, Sk),
+                                            (B, K, Sk)))
+
+
+def compare_flash(B, Sq, Sk, H, K, hd, causal, dtype, device) -> float:
+    """``flash_forward`` vs its plain version on the same inputs, within
+    the reference's tolerance for ``dtype``; on the card two launches must
+    give the same bits.  Returns the largest absolute difference."""
+    q, k, v = flash_inputs(B, Sq, Sk, H, K, hd, dtype, device,
+                           seed=Sq * 31 + Sk + hd)
+    got = flash_forward(q, k, v, causal=causal, n_rep=H // K)
+    want = flash_forward_reference(q, k, v, causal=causal, n_rep=H // K)
+    again = flash_forward(q, k, v, causal=causal, n_rep=H // K)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    tol = FLASH_TOL_F32 if dtype == torch.float32 else FLASH_TOL_BF16
+    err = float((got.float() - want.float()).abs().max())
+    tag = (B, Sq, Sk, H, K, hd, causal, str(dtype))
+    if got.dtype != dtype or got.shape != q.shape:
+        raise AssertionError(f"flash {tag}: out {got.dtype} {got.shape}")
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"flash {tag}: kernel vs plain version max "
+                             f"|diff| {err} > {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash {tag}: two launches differ")
+    return err
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(q, k) pairs the mask leaves visible in one head: all, or for the
+    top-left causal mask min(q + 1, Sk) keys for query q."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+
+
+def flash_bound(q, k, v, causal: bool):
+    """Least time for the attention on these operands: 4*hd operations per
+    visible (q, k) pair (q.k and p*v; the softmax's exps not counted) at
+    the bf16 tensor rate, or q, k, v read and out written once at the HBM
+    rate — the larger."""
+    BH, Sq, hd = q.shape
+    n_ops = 4 * hd * BH * visible_pairs(Sq, k.shape[1], causal)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t_ops, t_bytes = n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops
+
+
+def library_attention(q4, k4, v4):
+    """One ``scaled_dot_product_attention`` call computing
+    ``flash_forward``'s function (causal, GQA) on the same inputs, on
+    PyTorch's fused backends only (the math backend would hold the whole
+    score matrix: 64 GB at S = 32768).  With ``enable_gqa`` where a fused
+    backend takes it, else over k/v repeated to every query head.
+    Returns (call, which form).  A yardstick: the port never calls it."""
+    def gqa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              enable_gqa=True)
+    with sdpa_kernel(FUSED_SDPA):
+        try:
+            gqa()
+            return gqa, "enable_gqa"
+        except RuntimeError:
+            pass
+    rep = q4.shape[1] // k4.shape[1]
+    k_r, v_r = (t.repeat_interleave(rep, dim=1) for t in (k4, v4))
+    return (lambda: F.scaled_dot_product_attention(q4, k_r, v_r,
+                                                   is_causal=True),
+            "k/v repeated")
+
+
+def lm_prompts(cfg, batch: int, seq_len: int) -> np.ndarray:
+    """Seeded prompts from the reference's synthetic token pipeline."""
+    return SyntheticTokens(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq_len, global_batch=batch,
+        seed=LM_SEED)).batch(0)
+
+
+def rel_logit_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
+    """The LM slice's main path and its checks.  Seeded f32 weights on
+    ``device``; the served model computes in bf16 on ``backend="cuda"``.
+    Every launch count is set to 0 just before the served ``generate``
+    and read just after: ``flash_forward`` must have launched once per
+    attention layer (none on the CPU) and no other kernel at all.  Then,
+    at the same weights: f32 ``cuda`` and ``torch`` must give the same
+    greedy tokens and prefill logits within ``LM_LOGIT_TOL_F32`` of the
+    largest; bf16 ``cuda`` and ``torch`` prefill logits within
+    ``LM_LOGIT_TOL_BF16``; and teacher-forced f32 ``decode_step`` over the
+    first ``LM_TEACHER_STEPS`` positions must match ``Model.forward``."""
+    B, S = prompts.shape
+    max_len = S + n_new + 1
+    n_attn = cfg.n_layers                       # dense: every layer
+    models = {(dt, b): Model(cfg, dt, backend=b, device=device)
+              for dt in (torch.bfloat16, torch.float32)
+              for b in ("cuda", "torch")}
+    params = models[torch.float32, "cuda"].init_params(LM_SEED)
+    servers = {key: LMServer(m, params, batch=B, max_len=max_len)
+               for key, m in models.items()}
+    served = servers[torch.bfloat16, "cuda"]
+
+    reset_launches()
+    out = served.generate(prompts, n_new)
+    counts = launch_counts()
+    launches = counts.pop("flash")
+    want = n_attn if device.type == "cuda" else 0
+    if launches != want or any(counts.values()):
+        raise AssertionError(f"LM generate: flash_forward launched "
+                             f"{launches} times for {n_attn} attention "
+                             f"layers; other kernels {counts}")
+    if out.shape != (B, S + n_new) or out.dtype != np.int32 or \
+            not np.array_equal(out[:, :S], prompts) or \
+            out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError(f"LM generate: output {out.shape} {out.dtype}"
+                             f" out of range or prompt changed")
+    times_cold = dict(served.last_times)
+    before = flash_forward.launches
+    if not np.array_equal(served.generate(prompts, n_new), out):
+        raise AssertionError("LM generate: a second call differs")
+    if flash_forward.launches - before != want:
+        raise AssertionError("LM generate: second call's launches")
+    times = dict(served.last_times)
+
+    tokens32 = {b: servers[torch.float32, b].generate(prompts, n_new)
+                for b in ("cuda", "torch")}
+    if not np.array_equal(tokens32["cuda"], tokens32["torch"]):
+        diff = np.argwhere(tokens32["cuda"] != tokens32["torch"])[0]
+        raise AssertionError(f"f32 greedy tokens differ between cuda and "
+                             f"torch first at (row, pos) {tuple(diff)}")
+    logits = {}
+    for key, server in servers.items():
+        state = server.model.init_decode_state(B, max_len)
+        _, logits[key] = server._prefill(state, prompts)
+        if not torch.isfinite(logits[key]).all() or \
+                logits[key].shape != (B, cfg.vocab):
+            raise AssertionError(f"prefill logits {key}: shape "
+                                 f"{tuple(logits[key].shape)} or not finite")
+    err32 = rel_logit_err(logits[torch.float32, "cuda"],
+                          logits[torch.float32, "torch"])
+    err16 = rel_logit_err(logits[torch.bfloat16, "cuda"],
+                          logits[torch.bfloat16, "torch"])
+    err16_vs32 = rel_logit_err(logits[torch.bfloat16, "cuda"],
+                               logits[torch.float32, "torch"])
+    if err32 > LM_LOGIT_TOL_F32 or err16 > LM_LOGIT_TOL_BF16:
+        raise AssertionError(f"prefill logits cuda vs torch: f32 {err32} "
+                             f"(tol {LM_LOGIT_TOL_F32}), bf16 {err16} (tol "
+                             f"{LM_LOGIT_TOL_BF16}) of the largest |logit|")
+
+    m32 = models[torch.float32, "cuda"]
+    steps = min(LM_TEACHER_STEPS, S)
+    full = m32.forward(params, prompts[:, :steps])
+    state = m32.init_decode_state(B, steps + 1, dtype=torch.float32)
+    got = []
+    for i in range(steps):
+        lg, state = m32.decode_step(params, state, prompts[:, i:i + 1])
+        got.append(lg)
+    dec_err = float((torch.stack(got, dim=1) - full).abs().max())
+    if not torch.allclose(torch.stack(got, dim=1), full, rtol=LM_DECODE_TOL,
+                          atol=LM_DECODE_TOL):
+        raise AssertionError(f"teacher-forced decode vs forward: max |diff|"
+                             f" {dec_err} > {LM_DECODE_TOL}")
+    return dict(tokens=out, launches=launches, times=times,
+                times_cold=times_cold, err32=err32, err16=err16,
+                err16_vs32=err16_vs32, dec_err=dec_err, steps=steps)
+
+
+def ptxas_functions(log: str):
+    """(kernel, registers, spill-store bytes) per entry function in an
+    ``nvcc -Xptxas -v`` log, the kernel named by its template arguments
+    (head_dim and element type for ``flash_kernel``)."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            hd = re.search(r"ILi(\d+)E", name)
+            name = (f"hd={hd.group(1)} " if hd else "") + \
+                ("bf16" if "bfloat16" in name else "f32")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events,
     after two warm-up calls."""
@@ -552,7 +812,8 @@ def main() -> int:
 
     # 2. build from the repo's sources
     t0 = time.perf_counter()
-    sources = [k.source_name for k in KERNELS] + ["cascade_qs_forward"]
+    sources = [k.source_name for k in KERNELS] + ["cascade_qs_forward",
+                                                  "flash_forward"]
     paths = build.build(sources)
     print(f"built {', '.join(str(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -565,6 +826,9 @@ def main() -> int:
               f"{max(regs, default=0)} registers, "
               f"{sum(n > 0 for n in spills)} with spill stores (at most "
               f"{max(spills, default=0)} bytes)")
+    for fn, regs, spill in ptxas_functions(build.build_log("flash_forward")):
+        print(f"ptxas flash_forward {fn}: {regs} registers, {spill} bytes "
+              f"spill stores")
 
     # 3. each kernel vs its plain version vs the oracle
     msn = datasets.make_msn()
@@ -689,7 +953,54 @@ def main() -> int:
           f"{err_f:.3g} (atol {ATOL_FULL}); sweep float max|diff| "
           f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL})")
 
-    # 6. timings at the main paths' full-width kernel shapes
+    # 6. the LM slice: flash_forward against its plain version, then
+    # smollm-360m served at full width
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for shape in FLASH_SWEEP:
+        for dt in worst:
+            worst[dt] = max(worst[dt], compare_flash(*shape, dt, device))
+    cfg = get_config(LM_ARCH)
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    served_shape = (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True)
+    served_err = {dt: compare_flash(*served_shape, dt, device)
+                  for dt in worst}
+    print(f"flash_forward: {len(FLASH_SWEEP)} sweep shapes, max|diff| f32 "
+          f"{worst[torch.float32]:.3g} (tol {FLASH_TOL_F32}), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol {FLASH_TOL_BF16}); served shape "
+          f"B*H={LM_BATCH * H} S={LM_PROMPT} hd={hd} causal GQA {H}/{K}: f32 "
+          f"{served_err[torch.float32]:.3g}, bf16 "
+          f"{served_err[torch.bfloat16]:.3g}; two launches bit-identical")
+    prompts = lm_prompts(cfg, LM_BATCH, LM_PROMPT)
+    t0 = time.perf_counter()
+    lm = lm_path(cfg, prompts, LM_NEW, device)
+    t_lm = lm["times"]
+    gen_ms = t_lm["prefill_ms"] + t_lm["decode_ms"]
+    print(f"LM main path ({time.perf_counter() - t0:.1f} s host wall incl. "
+          f"init, 6 generates, 4 prefills, teacher forcing): {cfg.name} "
+          f"{cfg.n_layers} layers d={cfg.d_model} heads {H}/{K} hd={hd} "
+          f"vocab {cfg.vocab}, {cfg.param_count()} params (seeded, bf16 on "
+          f"backend=cuda); LMServer(batch={LM_BATCH}, max_len="
+          f"{LM_PROMPT + LM_NEW + 1}).generate({LM_BATCH}x{LM_PROMPT} "
+          f"prompts, n_new={LM_NEW}): flash_forward launches "
+          f"{lm['launches']} (one per attention layer), no other kernel")
+    print(f"LM checks: f32 greedy tokens cuda == torch ({LM_BATCH}x{LM_NEW})"
+          f"; prefill logits cuda vs torch max|diff| / max|logit|: f32 "
+          f"{lm['err32']:.3g} (tol {LM_LOGIT_TOL_F32}), bf16 "
+          f"{lm['err16']:.3g} (tol {LM_LOGIT_TOL_BF16}); bf16 cuda vs f32 "
+          f"torch {lm['err16_vs32']:.3g}; teacher-forced decode vs forward "
+          f"({lm['steps']} steps, f32) max|diff| {lm['dec_err']:.3g} (tol "
+          f"{LM_DECODE_TOL})")
+    print(f"LM served (bf16, host clock around synchronised calls, second "
+          f"call): prefill {t_lm['prefill_ms']:.2f} ms, decode "
+          f"{t_lm['decode_ms'] / LM_NEW:.3f} ms per token, "
+          f"{LM_BATCH * LM_NEW / gen_ms * 1e3:.1f} generated tokens/s "
+          f"({LM_BATCH * (LM_PROMPT + LM_NEW) / gen_ms * 1e3:.0f} tokens/s "
+          f"with the prompt); first call prefill "
+          f"{lm['times_cold']['prefill_ms']:.2f} ms, decode "
+          f"{lm['times_cold']['decode_ms'] / LM_NEW:.3f} ms per token "
+          f"[{card}]")
+
+    # 7. timings at the main paths' full-width kernel shapes
     records = []
     for k in KERNELS:
         x, arrays, kw = kernel_inputs(k, qfull, rows[:B], device)
@@ -738,6 +1049,44 @@ def main() -> int:
         "launches": casc["launches"],
         "max_abs_err": max(err_q, err_f), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+
+    flash_ms = {}
+    for name, (B_, S_) in (("served", (LM_BATCH, LM_PROMPT)),
+                           ("32k", (1, LONG_S))):
+        q, k, v = flash_inputs(B_, S_, S_, H, K, hd, torch.bfloat16, device)
+        q4, k4, v4 = (t.view(B_, -1, S_, hd) for t in (q, k, v))
+        reps = 50 if name == "served" else 3
+        ms = cuda_ms(lambda: flash_forward(q, k, v, n_rep=H // K), reps)
+        lib, lib_form = library_attention(q4, k4, v4)
+        with sdpa_kernel(FUSED_SDPA):
+            lib_ms = cuda_ms(lib, 10 * reps)
+            lib_out = lib()
+        plain_ms = cuda_ms(lambda: flash_forward_reference(
+            q, k, v, n_rep=H // K), 5) if name == "served" else None
+        lib_err = float((flash_forward(q, k, v, n_rep=H // K).view_as(q4)
+                         .float() - lib_out.float()).abs().max())
+        if lib_err > FLASH_TOL_BF16:
+            raise AssertionError(f"flash {name}: kernel vs SDPA max |diff| "
+                                 f"{lib_err}")
+        bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, True)
+        flash_ms[name] = dict(ms=ms, lib_ms=lib_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        print(f"flash_forward {name} B={B_} H={H}/{K} S={S_} hd={hd} bf16 "
+              f"causal: kernel {ms:.4f} ms, plain torch "
+              f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
+              f", scaled_dot_product_attention ({lib_form}) {lib_ms:.4f} ms"
+              f" (max|diff| "
+              f"vs kernel {lib_err:.3g}), bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({nbytes} bytes, {n_ops} ops); kernel "
+              f"{n_ops / ms / 1e9:.2f} TFLOP/s [{card}]")
+    served_t = flash_ms["served"]
+    records.append({
+        "name": "flash_forward", "route": "cuda",
+        "source": flash_forward.source, "replaces": flash_forward.replaces,
+        "launches": lm["launches"],
+        "max_abs_err": served_err[torch.bfloat16], "ms": served_t["ms"],
+        "plain_ms": served_t["plain_ms"], "bound_ms": served_t["bound_ms"],
+        "bound_by": served_t["bound_by"], "library_ms": served_t["lib_ms"]})
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

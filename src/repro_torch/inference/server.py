@@ -13,9 +13,12 @@ clocks are ``time.perf_counter()`` (monotonic); callers may pass explicit
 ``arrival_s`` / ``now_s`` values (virtual clocks), since the server only
 ever subtracts timestamps.
 
+  * ``LMServer`` — batch LM completion over ``repro_torch.models.Model``:
+    one trunk pass fills the KV cache from the prompt, then greedy decode.
+
 Not yet ported: ``ForestServer.from_forest`` (the autotuner), ``save`` /
-``load`` (``io``), ``obs=`` (``obs``) and ``LMServer`` (the LM slice); each
-raises ``NotImplementedError``.
+``load`` (``io``), ``obs=`` (``obs``) and ``LMServer(kv_quant=True)`` (the
+int8 KV cache); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -308,9 +311,74 @@ class ForestServer:
 
 
 class LMServer:
-    """LM prefill + decode serving — waits for the LM slice of the port."""
+    """Batch LM text completion over the port's ``Model``.  Greedy decode.
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(
-            "LMServer waits for the LM slice of the port (ROADMAP Queue A "
-            "item 12)")
+    The reference prefills by teacher-forcing the prompt through S decode
+    steps (``repro/inference/server.py:431-448``).  Here the prefill is
+    one trunk pass over the prompt (``Model.prefill`` with the decode
+    state): every attention layer writes its post-RoPE K and V into cache
+    positions 0..S-1 in the cache's dtype and attends over them as
+    stored, ``index`` becomes S, and the last position's logits come back
+    as f32 — what the reference's sequential prefill returns, up to
+    rounding.  On ``backend="cuda"`` that pass runs the flash kernel once
+    per attention layer.  Decode then runs ``Model.decode_step`` once per
+    new token, as the reference.
+
+    The params are cast to the model's compute dtype once, here.  The KV
+    cache is bf16, the reference's default, whatever the compute dtype.
+    ``last_times`` holds the host-clock milliseconds of the last
+    ``generate``'s prefill and decode, each ended by a device sync.
+    """
+
+    def __init__(self, model, params, *, batch: int, max_len: int,
+                 kv_quant: bool = False):
+        if kv_quant:
+            raise NotImplementedError(
+                "LMServer(kv_quant=True): the int8 KV cache waits for a "
+                "later slice of the port (ROADMAP Queue A 12)")
+        self.model = model
+        self.params = model.cast(params)
+        self.batch = batch
+        self.max_len = max_len
+        self.last_times: dict = {}
+
+    def _sync(self) -> None:
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+
+    def _prefill(self, state: dict, tokens) -> tuple[dict, torch.Tensor]:
+        """Fill ``state``'s cache from ``tokens`` (B, S) in one pass →
+        (state, last-position logits (B, vocab) f32)."""
+        logits = self.model.prefill(self.params, tokens, state)
+        return state, logits.float()
+
+    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+        """prompts (B, S) int32 → (B, S + n_new) completed greedily (the
+        first maximum on ties, as ``jnp.argmax``)."""
+        B, S = prompts.shape
+        if B != self.batch or S + n_new > self.max_len:
+            raise ValueError(f"prompts {prompts.shape} and {n_new} new "
+                             f"tokens for batch {self.batch}, max_len "
+                             f"{self.max_len}")
+        with torch.inference_mode():
+            state = self.model.init_decode_state(B, self.max_len,
+                                                 params=self.params)
+            t0 = time.perf_counter()
+            state, logits = self._prefill(state, prompts)
+            tok = torch.argmax(logits, dim=-1)
+            self._sync()
+            t1 = time.perf_counter()
+            new = []
+            for _ in range(n_new):
+                new.append(tok)
+                logits, state = self.model.decode_step(
+                    self.params, state, tok[:, None])
+                tok = torch.argmax(logits.float(), dim=-1)
+            self._sync()
+            t2 = time.perf_counter()
+        self.last_times = {"prefill_ms": (t1 - t0) * 1e3,
+                           "decode_ms": (t2 - t1) * 1e3, "n_decode": n_new}
+        out = [np.asarray(prompts, dtype=np.int32)]
+        if new:
+            out.append(torch.stack(new, dim=1).cpu().numpy().astype(np.int32))
+        return np.concatenate(out, axis=1)

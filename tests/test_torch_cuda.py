@@ -21,6 +21,8 @@ from repro_torch.cascade import (CascadePredictor,  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cascade_kernel import (  # noqa: E402
     cascade_qs_forward, cascade_qs_forward_reference)
+from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
+    flash_attention_bshd, flash_forward, flash_forward_reference)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
@@ -344,3 +346,92 @@ def test_compile_forest_fused_cascade_defaults_to_the_card(card):
     before = cascade_qs_forward.launches
     pred.predict(X)
     assert cascade_qs_forward.launches == before + 1
+
+
+# --------------------------------------------------------------------------- #
+# flash_forward and the LM path
+# --------------------------------------------------------------------------- #
+# (B, Sq, Sk, H, K, hd, causal): tests/test_flash_kernel.py's sweep, ragged
+# edges no tile divides, the dense configs' head dims (64, 96, 128), and
+# the served smollm-360m prefill shape
+FLASH_SHAPES = [
+    (1, 32, 32, 4, 4, 8, True),
+    (2, 64, 64, 6, 2, 16, True),
+    (2, 64, 64, 8, 1, 16, True),
+    (1, 48, 96, 4, 4, 8, False),
+    (2, 128, 128, 15, 5, 4, True),
+    (2, 300, 300, 15, 5, 64, True),
+    (1, 77, 131, 4, 2, 96, True),
+    (1, 131, 77, 8, 8, 128, False),
+    (8, 1024, 1024, 15, 5, 64, True),
+]
+
+
+def _flash_inputs(B, Sq, Sk, H, K, hd, card, dtype):
+    g = torch.Generator(device="cpu").manual_seed(Sq * 31 + Sk + hd)
+    q, k, v = (torch.randn(B, s, h, hd, generator=g).to(card, dtype)
+               for s, h in ((Sq, H), (Sk, K), (Sk, K)))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Sk, H, K, hd,
+                                            causal):
+    """f32 at the reference's 2e-5, bf16 at its 3e-2; two launches give
+    the same bits."""
+    q, k, v = _flash_inputs(B, Sq, Sk, H, K, hd, card, getattr(torch, dtype))
+    before = flash_forward.launches
+    got = flash_attention_bshd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_forward.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    qh, kh, vh = (t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+                  for t in (q, k, v))
+    want = flash_forward_reference(qh, kh, vh, causal=causal, n_rep=H // K)
+    want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention_bshd(q, k, v, causal=causal))
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(card):
+    q, k, v = _flash_inputs(1, 8, 8, 2, 2, 32, card, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention_bshd(q, k, v)
+    q, k, v = _flash_inputs(1, 8, 8, 2, 2, 64, card, torch.float32)
+    with pytest.raises(ValueError, match="is on"):
+        flash_attention_bshd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_forward(_misaligned(card), k.reshape(2, 8, 64),
+                      v.reshape(2, 8, 64))
+
+
+def _misaligned(card):
+    """A contiguous (2, 8, 64) f32 view that starts 4 bytes into its
+    storage."""
+    return torch.zeros(2 * 8 * 64 + 1, device=card)[1:].view(2, 8, 64)
+
+
+@pytest.mark.parametrize("name", ["smollm_360m", "starcoder2_3b"])
+def test_lmserver_on_card_launches_flash_per_attention_layer(card, name):
+    """A reduced dense config served on the card: one flash_forward
+    launch per attention layer per generate, and the same greedy tokens
+    as backend="torch" (f32 model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import LMServer
+    from repro_torch.models import Model
+    cfg = get_config(name).reduced()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 40)).astype(np.int32)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        model = Model(cfg, torch.float32, backend=backend)
+        assert model.device.type == "cuda"
+        params = model.init_params(0)
+        server = LMServer(model, params, batch=2, max_len=56)
+        before = flash_forward.launches
+        outs[backend] = server.generate(prompts, 16)
+        want = cfg.n_layers if backend == "cuda" else 0
+        assert flash_forward.launches - before == want
+    np.testing.assert_array_equal(outs["cuda"], outs["torch"])

@@ -49,6 +49,15 @@ res = chip_smoke.cascade_path(
     ds.X_test[:60], ds.y_test[:60], ds.X_test[60:], ds.y_test[60:],
     torch.device("cpu"), stages=(4, 8, 16))
 assert res["launches"] == 0 and sum(res["exit_fractions"]) > 0.999
+from repro_torch.configs import get_config
+cfg = get_config(chip_smoke.LM_ARCH).reduced()
+lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,
+                        torch.device("cpu"))
+assert lm["launches"] == 0 and lm["tokens"].shape == (2, 23)
+for shape in chip_smoke.FLASH_SWEEP[:2]:
+    for dt in (torch.float32, torch.bfloat16):
+        assert chip_smoke.compare_flash(*shape, dt, torch.device("cpu")) == 0
+assert 120 * chip_smoke.visible_pairs(1024, 1024, True) == 62_976_000
 if not torch.cuda.is_available():
     try:
         core.compile_forest(forest)
