@@ -9,7 +9,10 @@ or JAX.  Phases:
 
  1. the software and the card (``nvidia-smi`` name and power limit);
  2. build every kernel of the path from ``src/repro_torch/kernels/csrc``
-    (one ``nvcc`` per source, all started together);
+    (one ``nvcc`` per source, all started together); print each kernel's
+    ptxas registers, static shared memory and spills, and the HGMMA
+    (wgmma) instructions in the SASS of ``flash_forward``'s bf16 kernels,
+    which must hold some;
  3. hold each kernel (``qs_forward``, ``qs_bitmm_forward``,
     ``gemm_forward``) against its plain torch version on the card, at the
     kernel tests' shape sweeps and at the full-width shape, float and
@@ -19,8 +22,9 @@ or JAX.  Phases:
     calibrated on MSN rows, compiled with ``backend="cuda"`` for each of
     the engines ``bitvector``, ``bitmm`` and ``gemm`` and served through
     ``ForestServer(max_batch=1024)``; served output must equal synchronous
-    ``predict``, each engine's kernel launches the batches, and the three
-    engines' served outputs must be bit-identical.  Then a trained
+    ``predict``, each engine's kernel launches the batches (``qs_forward``
+    on its shared-memory-x route only), and the three engines' served
+    outputs must be bit-identical.  Then a trained
     ``magic`` random forest, served quantized, whose accuracy may fall at
     most ``ACCURACY_MARGIN_PP`` below its float forest's;
  5. the cascade slice: hold ``cascade_qs_forward`` against its plain
@@ -32,7 +36,8 @@ or JAX.  Phases:
     repeated to 4096 requests, through ``compile_forest(...,
     backend="cuda", cascade=CascadeSpec((16, 64, 256), fused=...))`` fused
     (one ``cascade_qs_forward`` launch per batch) and staged (one
-    ``qs_forward`` launch per stage with survivors): bit-identical scores
+    ``qs_forward`` launch per stage with survivors, shared-memory-x route
+    only): bit-identical scores
     and exit counts, served == ``predict``; a disabled gate served fused
     equals the plain bitvector engine, and ``ScoreBoundGate`` keeps every
     row's class;
@@ -43,14 +48,20 @@ or JAX.  Phases:
     weights in bf16) through ``LMServer(batch=8, max_len=1057)
     .generate(8 prompts x 1024 tokens, n_new=32)`` on ``backend="cuda"``:
     one ``flash_forward`` launch per attention layer of the one-pass
-    prefill and no other kernel; in f32 at the same weights ``cuda`` and
+    prefill, every one on the bf16 ``wgmma`` route, and no other kernel;
+    in f32 at the same weights ``cuda`` and
     ``torch`` give the same greedy tokens and close prefill logits, so do
     the bf16 prefill logits, and teacher-forced ``decode_step`` matches
     ``Model.forward``;
- 7. time each kernel and its plain version with CUDA events beside the
-    least time the card could take for the same work (``flash_forward``
-    also beside ``scaled_dot_product_attention``, at the served shape and
-    at ``prefill_32k``'s per-sequence shape, S = 32768).
+ 7. time each kernel and its plain version with CUDA events, as an
+    eager loop of calls, beside the least time the card could take for
+    the same work (the kernels and SDPA also replayed from one CUDA graph,
+    the device's time without the host's work per call, in ``device_ms``
+    and ``library_device_ms``; ``flash_forward`` also beside
+    ``scaled_dot_product_attention``, at the served shape and at
+    ``prefill_32k``'s per-sequence shape, S = 32768, and its f32 route
+    at the served shape; ``qs_forward`` also over the mnist cascade's 512
+    trees).
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -180,10 +191,10 @@ LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
 LM_SEED = 0
 LONG_S = 32768
 # f32 backends differ only in the prefill attention's summation order:
-# prefill logits within 1e-3 of the largest |logit|.  bf16: the torch
-# engine rounds the probabilities to bf16 before the PV product, the
-# kernel keeps them f32, and 32 layers of bf16 residual carry that: within
-# 5% of the largest |logit|.  Teacher-forced decode vs forward in f32:
+# prefill logits within 1e-3 of the largest |logit|.  bf16: both engines
+# round the probabilities to bf16 before the PV product, in other tile
+# orders, and 32 layers of bf16 residual carry the difference: within 5%
+# of the largest |logit|.  Teacher-forced decode vs forward in f32:
 # the reference test's 2e-2 (tests/test_models_smoke.py:92)
 LM_LOGIT_TOL_F32, LM_LOGIT_TOL_BF16, LM_DECODE_TOL = 1e-3, 5e-2, 2e-2
 LM_TEACHER_STEPS = 16
@@ -326,6 +337,10 @@ def reset_launches() -> None:
         k.launch.launches = 0
     cascade_qs_forward.launches = 0
     flash_forward.launches = 0
+    for routes in (qs_forward.launches_by_route,
+                   flash_forward.launches_by_route):
+        for route in routes:
+            routes[route] = 0
 
 
 def launch_counts() -> dict:
@@ -349,6 +364,7 @@ def main_path(forest, X_calib, rows, device, engine="bitvector"):
                                device=device)
     served, server = serve(pred, rows)
     counts = launch_counts()
+    routes = dict(qs_forward.launches_by_route)
     launches = counts.pop(engine)
     if not np.array_equal(served, pred.predict(rows)):
         raise AssertionError("served output != synchronous predict")
@@ -360,9 +376,20 @@ def main_path(forest, X_calib, rows, device, engine="bitvector"):
     if device.type == "cuda" and launches != server.stats.n_batches:
         raise AssertionError(f"{engine}: its kernel launched {launches} "
                              f"times for {server.stats.n_batches} batches")
+    check_qs_route(routes, launches if engine == "bitvector" else 0, engine)
     if any(counts.values()):
         raise AssertionError(f"{engine}: other kernels launched {counts}")
     return pred, served, server, launches
+
+
+def check_qs_route(routes: dict, launches: int, what: str) -> None:
+    """Every one of ``launches`` ``qs_forward`` launches (``routes``, read
+    with them) staged its rows of x in shared memory: no dataset of the
+    repo is wide enough for the global-memory route."""
+    want = {"smem_x": launches, "global_x": 0}
+    if routes != want:
+        raise AssertionError(f"{what}: qs_forward routes {routes}, "
+                             f"expected {want}")
 
 
 def magic_accuracy(device, n_trees=128, max_leaves=64):
@@ -486,6 +513,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         rec = ExitRecorder(pred)
         served, server = serve(rec, rows)
         counts = launch_counts()
+        routes = dict(qs_forward.launches_by_route)
         if not np.array_equal(served, pred.predict(rows)):
             raise AssertionError(f"{name} cascade: served != predict")
         if not np.isfinite(served).all() or \
@@ -498,6 +526,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         if counts != want:
             raise AssertionError(f"{name} cascade: kernel launches {counts},"
                                  f" expected {want}")
+        check_qs_route(routes, counts["bitvector"], f"{name} cascade")
         if sum(server.stats.stage_exit_counts) != len(rows):
             raise AssertionError(f"{name} cascade: exit counts "
                                  f"{server.stats.stage_exit_counts} for "
@@ -685,11 +714,13 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
     out = served.generate(prompts, n_new)
     counts = launch_counts()
     launches = counts.pop("flash")
+    routes = dict(flash_forward.launches_by_route)
     want = n_attn if device.type == "cuda" else 0
-    if launches != want or any(counts.values()):
+    if launches != want or any(counts.values()) or \
+            routes != {"wgmma": want, "simt": 0}:
         raise AssertionError(f"LM generate: flash_forward launched "
-                             f"{launches} times for {n_attn} attention "
-                             f"layers; other kernels {counts}")
+                             f"{launches} times ({routes}) for {n_attn} "
+                             f"attention layers; other kernels {counts}")
     if out.shape != (B, S + n_new) or out.dtype != np.int32 or \
             not np.array_equal(out[:, :S], prompts) or \
             out.min() < 0 or out.max() >= cfg.vocab:
@@ -741,32 +772,75 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
                           atol=LM_DECODE_TOL):
         raise AssertionError(f"teacher-forced decode vs forward: max |diff|"
                              f" {dec_err} > {LM_DECODE_TOL}")
-    return dict(tokens=out, launches=launches, times=times,
+    return dict(tokens=out, launches=launches, routes=routes, times=times,
                 times_cold=times_cold, err32=err32, err16=err16,
                 err16_vs32=err16_vs32, dec_err=dec_err, steps=steps)
 
 
+def demangle(names) -> dict:
+    """Mangled kernel name → ``name<template arguments>`` (e.g.
+    ``flash_wgmma_kernel<64,1>``), demangled by the toolkit's
+    ``cu++filt``, then cut to the name and its template arguments."""
+    names = sorted(set(names))
+    if not names:
+        return {}
+    text = subprocess.run([build.toolkit_binary("cu++filt"), *names],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.splitlines()
+    out = {}
+    for mangled, full in zip(names, text):
+        full = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", full)
+        depth, end = 0, len(full)
+        for i, ch in enumerate(full):       # the parameter list's "("
+            depth += (ch == "<") - (ch == ">")
+            if ch == "(" and depth == 0:
+                end = i
+                break
+        name = full[:end]
+        ret, _, rest = name.partition(" ")
+        if rest and "<" not in ret:         # "void name<...>"
+            name = rest
+        out[mangled] = re.sub(r"\((?:unsigned )?(?:int|bool)\)|\s", "",
+                              name)
+    return out
+
+
 def ptxas_functions(log: str):
-    """(kernel, registers, spill-store bytes) per entry function in an
-    ``nvcc -Xptxas -v`` log, the kernel named by its template arguments
-    (head_dim and element type for ``flash_kernel``)."""
+    """(kernel, registers, static shared bytes, spill-store bytes) per
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    names = demangle(re.findall(r"Compiling entry function '([^']+)'",
+                                log))
     out, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name, spill = m.group(1), 0
-            hd = re.search(r"ILi(\d+)E", name)
-            name = (f"hd={hd.group(1)} " if hd else "") + \
-                ("bf16" if "bfloat16" in name else "f32")
+            name, spill = names[m.group(1)], 0
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append((name, int(m.group(1)), spill))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), int(sm.group(1)) if sm else 0,
+                        spill))
             name = None
     return out
+
+
+def hgmma_counts(sass: str) -> dict:
+    """HGMMA (wgmma) instructions per kernel in ``cuobjdump -sass``
+    output."""
+    names = demangle(re.findall(r"Function : (\S+)", sass))
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = names[m.group(1)]
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -778,6 +852,28 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the device: ``reps`` calls captured in
+    one CUDA graph and replayed, by CUDA events, after two eager warm-up
+    calls.  Replay leaves out the host's work per call (the wrapper's
+    checks, the ctypes call), which ``cuda_ms`` counts wherever it exceeds
+    the kernel's own time."""
+    fn(), fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -818,17 +914,28 @@ def main() -> int:
     print(f"built {', '.join(str(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
-        log = build.build_log(name)
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                             log)]
-        print(f"ptxas {name}: {len(regs)} functions, at most "
-              f"{max(regs, default=0)} registers, "
-              f"{sum(n > 0 for n in spills)} with spill stores (at most "
-              f"{max(spills, default=0)} bytes)")
-    for fn, regs, spill in ptxas_functions(build.build_log("flash_forward")):
-        print(f"ptxas flash_forward {fn}: {regs} registers, {spill} bytes "
-              f"spill stores")
+        fns = ptxas_functions(build.build_log(name))
+        print(f"ptxas {name}: {len(fns)} functions, at most "
+              f"{max((r for _, r, _, _ in fns), default=0)} registers, "
+              f"{sum(sp > 0 for *_, sp in fns)} with spill stores (at most "
+              f"{max((sp for *_, sp in fns), default=0)} bytes)")
+    # per function: flash_forward's kernels, and qs_forward's at W <= 2
+    # (the MSN and mnist forests: L = 64, two leafidx words)
+    for name, keep in (("flash_forward", lambda fn: True),
+                       ("qs_forward", lambda fn: "qs_tile_kernel<2," in fn)):
+        for fn, regs, smem, spill in ptxas_functions(build.build_log(name)):
+            if keep(fn):
+                print(f"ptxas {name} {fn}: {regs} registers, {smem} bytes "
+                      f"static shared memory, {spill} bytes spill stores")
+    hgmma = hgmma_counts(build.sass("flash_forward"))
+    wgmma_fns = {fn: n for fn, n in hgmma.items()
+                 if "flash_wgmma_kernel" in fn}
+    print(f"SASS flash_forward (cuobjdump -sass): HGMMA instructions "
+          f"{wgmma_fns}; in the CUDA-core kernels "
+          f"{sum(n for fn, n in hgmma.items() if fn not in wgmma_fns)}")
+    if not wgmma_fns or min(wgmma_fns.values()) == 0:
+        raise AssertionError(f"flash_forward's wgmma kernels hold no HGMMA: "
+                             f"{hgmma}")
 
     # 3. each kernel vs its plain version vs the oracle
     msn = datasets.make_msn()
@@ -982,7 +1089,8 @@ def main() -> int:
           f"backend=cuda); LMServer(batch={LM_BATCH}, max_len="
           f"{LM_PROMPT + LM_NEW + 1}).generate({LM_BATCH}x{LM_PROMPT} "
           f"prompts, n_new={LM_NEW}): flash_forward launches "
-          f"{lm['launches']} (one per attention layer), no other kernel")
+          f"{lm['launches']} (one per attention layer; by route "
+          f"{lm['routes']}), no other kernel")
     print(f"LM checks: f32 greedy tokens cuda == torch ({LM_BATCH}x{LM_NEW})"
           f"; prefill logits cuda vs torch max|diff| / max|logit|: f32 "
           f"{lm['err32']:.3g} (tol {LM_LOGIT_TOL_F32}), bf16 "
@@ -1000,27 +1108,35 @@ def main() -> int:
           f"{lm['times_cold']['decode_ms'] / LM_NEW:.3f} ms per token "
           f"[{card}]")
 
-    # 7. timings at the main paths' full-width kernel shapes
+    # 7. timings at the main paths' full-width kernel shapes.  ms and
+    # library_ms: an eager loop of calls (cuda_ms), the host's work per
+    # call included.  device_ms and library_device_ms: the same calls
+    # replayed from one CUDA graph (graph_ms), the device's time alone;
+    # null for the cascade kernel, whose wrapper copies its gate constants
+    # to the card per call, which a graph cannot capture
     records = []
     for k in KERNELS:
         x, arrays, kw = kernel_inputs(k, qfull, rows[:B], device)
         ms = cuda_ms(lambda: k.launch(x, *arrays, **kw), 200)
+        device_ms = graph_ms(lambda: k.launch(x, *arrays, **kw), 200)
         plain_ms = cuda_ms(lambda: k.plain(x, *arrays, **kw), 10)
         bound_ms, bound_by, nbytes, n_ops = bound(k, x, arrays, kw)
         fx, farrays, fkw = kernel_inputs(k, full, rows[:B], device)
         float_ms = cuda_ms(lambda: k.launch(fx, *farrays, **fkw), 200)
         print(f"{k.source_name} B={B} T={T} L={L} d={d} int16/int32-accum: "
-              f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {n_ops} "
-              f"ops); float forest (f32 accumulation) {float_ms:.4f} ms; no "
-              f"single PyTorch call computes this function [{card}]")
+              f"kernel {ms:.4f} ms (eager loop; on the device by graph "
+              f"replay {device_ms:.4f} ms), plain torch {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, "
+              f"{n_ops} ops); float forest (f32 accumulation) {float_ms:.4f}"
+              f" ms; no single PyTorch call computes this function [{card}]")
         records.append({
             "name": k.source_name, "route": "cuda",
             "source": k.launch.source, "replaces": k.launch.replaces,
             "launches": launches[k.engine],
             "max_abs_err": full_err[k.engine], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_device_ms": None})
 
     x, valid, arrays, kw = cascade_operands(
         casc["qforest"], casc["stages"], casc["policy"], crows[:B], device)
@@ -1033,13 +1149,15 @@ def main() -> int:
     qx, qarrays, qkw = kernel_inputs(KERNELS[0], casc["qforest"], crows[:B],
                                      device)
     qs_ms = cuda_ms(lambda: qs_forward(qx, *qarrays, **qkw), 200)
+    qs_device_ms = graph_ms(lambda: qs_forward(qx, *qarrays, **qkw), 200)
     qs_bound_ms, qs_by, _, qs_ops = bound(KERNELS[0], qx, qarrays, qkw)
     print(f"cascade_qs_forward B={B} T={n_trees} L={max_leaves} "
           f"d={cforest.n_features} C={cforest.n_classes} int16/int32-accum, "
           f"{casc['policy'].tag()}, rows reaching each stage {reach}: "
           f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {n_ops} ops); "
-          f"qs_forward over all {n_trees} trees {qs_ms:.4f} ms (bound "
+          f"qs_forward over all {n_trees} trees {qs_ms:.4f} ms (on the "
+          f"device by graph replay {qs_device_ms:.4f} ms; bound "
           f"{qs_bound_ms:.5f} ms by {qs_by}, {qs_ops} ops); no single "
           f"PyTorch call computes this function [{card}]")
     records.append({
@@ -1047,8 +1165,9 @@ def main() -> int:
         "source": cascade_qs_forward.source,
         "replaces": cascade_qs_forward.replaces,
         "launches": casc["launches"],
-        "max_abs_err": max(err_q, err_f), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        "max_abs_err": max(err_q, err_f), "ms": ms, "device_ms": None,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "library_device_ms": None})
 
     flash_ms = {}
     for name, (B_, S_) in (("served", (LM_BATCH, LM_PROMPT)),
@@ -1057,9 +1176,12 @@ def main() -> int:
         q4, k4, v4 = (t.view(B_, -1, S_, hd) for t in (q, k, v))
         reps = 50 if name == "served" else 3
         ms = cuda_ms(lambda: flash_forward(q, k, v, n_rep=H // K), reps)
+        device_ms = graph_ms(lambda: flash_forward(q, k, v, n_rep=H // K),
+                             reps)
         lib, lib_form = library_attention(q4, k4, v4)
         with sdpa_kernel(FUSED_SDPA):
             lib_ms = cuda_ms(lib, 10 * reps)
+            lib_device_ms = graph_ms(lib, reps)
             lib_out = lib()
         plain_ms = cuda_ms(lambda: flash_forward_reference(
             q, k, v, n_rep=H // K), 5) if name == "served" else None
@@ -1069,24 +1191,37 @@ def main() -> int:
             raise AssertionError(f"flash {name}: kernel vs SDPA max |diff| "
                                  f"{lib_err}")
         bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, True)
-        flash_ms[name] = dict(ms=ms, lib_ms=lib_ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+        flash_ms[name] = dict(ms=ms, device_ms=device_ms, lib_ms=lib_ms,
+                              lib_device_ms=lib_device_ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
         print(f"flash_forward {name} B={B_} H={H}/{K} S={S_} hd={hd} bf16 "
-              f"causal: kernel {ms:.4f} ms, plain torch "
+              f"causal: kernel {ms:.4f} ms (eager loop; on the device by "
+              f"graph replay {device_ms:.4f} ms), plain torch "
               f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
               f", scaled_dot_product_attention ({lib_form}) {lib_ms:.4f} ms"
-              f" (max|diff| "
-              f"vs kernel {lib_err:.3g}), bound {bound_ms:.5f} ms by "
-              f"{bound_by} ({nbytes} bytes, {n_ops} ops); kernel "
+              f" (on the device {lib_device_ms:.4f} ms; max|diff| vs kernel "
+              f"{lib_err:.3g}), bound {bound_ms:.5f} ms by {bound_by} "
+              f"({nbytes} bytes, {n_ops} ops); kernel "
               f"{n_ops / ms / 1e9:.2f} TFLOP/s [{card}]")
+    q, k, v = flash_inputs(LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd,
+                           torch.float32, device)
+    f32_ms = cuda_ms(lambda: flash_forward(q, k, v, n_rep=H // K), 20)
+    f32_device_ms = graph_ms(lambda: flash_forward(q, k, v, n_rep=H // K),
+                             20)
+    print(f"flash_forward served shape in f32 (route simt, the CUDA-core "
+          f"kernel): {f32_ms:.4f} ms (eager loop; on the device by graph "
+          f"replay {f32_device_ms:.4f} ms) [{card}]")
     served_t = flash_ms["served"]
     records.append({
         "name": "flash_forward", "route": "cuda",
         "source": flash_forward.source, "replaces": flash_forward.replaces,
         "launches": lm["launches"],
         "max_abs_err": served_err[torch.bfloat16], "ms": served_t["ms"],
-        "plain_ms": served_t["plain_ms"], "bound_ms": served_t["bound_ms"],
-        "bound_by": served_t["bound_by"], "library_ms": served_t["lib_ms"]})
+        "device_ms": served_t["device_ms"], "plain_ms": served_t["plain_ms"],
+        "bound_ms": served_t["bound_ms"], "bound_by": served_t["bound_by"],
+        "library_ms": served_t["lib_ms"],
+        "library_device_ms": served_t["lib_device_ms"]})
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

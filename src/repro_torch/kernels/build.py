@@ -27,14 +27,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOADED: dict[str, ctypes.CDLL] = {}     # one load per library per process
 
 
-def nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
+def toolkit_binary(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``) on PATH or under
+    /usr/local/cuda/bin."""
+    path = shutil.which(name)
+    if path is None and os.path.exists(f"/usr/local/cuda/bin/{name}"):
+        path = f"/usr/local/cuda/bin/{name}"
     if path is None:
-        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
-                           "the CUDA toolkit (on PATH or /usr/local/cuda)")
+        raise RuntimeError(f"{name} not found: building the CUDA kernels "
+                           "needs the CUDA toolkit (on PATH or "
+                           "/usr/local/cuda)")
     return path
+
+
+def nvcc() -> str:
+    return toolkit_binary("nvcc")
 
 
 def library_path(name: str) -> Path:
@@ -50,6 +57,15 @@ def build_log(name: str) -> str:
     library as last built, or "" if it was not built in this checkout."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The SASS of the built library for ``csrc/<name>.cu``, as
+    ``cuobjdump -sass`` prints it (building the library if needed)."""
+    so = build([name])[name]
+    return subprocess.run([toolkit_binary("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
 
 
 def build(names) -> dict[str, Path]:

@@ -3,10 +3,10 @@
 // Replaces the Pallas TPU kernel `qs_forward` in
 // src/repro/kernels/quickscorer_kernel.py:130 (body `_qs_kernel` :107 ->
 // `qs_tile_scores` :50).  Same function: for every (row, tree), the nodes
-// whose predicate x[feat] > thr fires AND their interval masks into the
-// tree's W-word leafidx, `& init_idx`; the exit leaf is the lowest set bit;
-// leaf_val[t, leaf, :] is summed over trees.  Float forests sum in f32,
-// int-accum forests in int32.
+// whose predicate x[feat] > thr fires (NaN does not: it goes left) AND
+// their interval masks into the tree's W-word leafidx, `& init_idx`; the
+// exit leaf is the lowest set bit; leaf_val[t, leaf, :] is summed over
+// trees.  Float forests sum in f32, int-accum forests in int32.
 //
 // What bounds it on an H100.  Per call it reads x (B*d*4 bytes), the node
 // stream feat/thr/masks (T*N*(8+4W)), init_idx (T*W*4) and leaf_val
@@ -15,31 +15,41 @@
 // B*T*N*(1+W) 32-bit instructions (one compare per node and one AND per
 // word, predicated on it; ~2.0e8 here) plus B*T*C adds: 3.0 us at the
 // 67 T op/s of the card's non-tensor f32 peak, which is twice the rate at
-// which it issues such instructions.  The same exit leaf as an int8
-// tensor-core count of clearing nodes per leaf (2*B*T*N*L ~ 8.5e9
-// operations at 1979 T op/s) needs 4.3 us, so the bound is 3.0 us, by
+// which it issues such instructions.  So the bound is 3.0 us, by
 // operations, not bytes.
 //
-// What the design does about it.
-//   * No one-hot matmuls: the TPU kernel selects features and leaf rows by
-//     matmul because it cannot gather (quickscorer_kernel.py:72-77, :98-103).
-//     Here x[row, feat] is a direct __ldg gather and leaf_val[t, leaf, :] a
-//     direct load, so no operations are spent on a d-wide or L-wide
-//     contraction.
-//   * One thread per row; a block covers 128 rows x one chunk of trees.
-//     The chunk's feat/thr/masks/init_idx sit in shared memory, and every
-//     thread of a warp reads the same node at once (a broadcast, no bank
-//     conflicts).  x stays in global memory and is read through the
-//     read-only cache: a 128-row tile of x at d=784 would not fit in
-//     shared memory.
-//   * The W-word leafidx lives in registers (W <= 8, so L <= 256), and the
-//     predicate is applied branch-free: leafidx &= mask | ~fire, one LOP3
-//     per word.  The exit leaf is __ffs of the lowest nonzero word.
-//   * No float atomics.  Each block writes its partial sums to
-//     partial[chunk, row, :], and a second kernel sums the chunks in order,
-//     so a float forest gives the same bits on every run.
-//
-// wgmma, TMA and tile tuning are left for later work.
+// What held the first kernel (one thread per row, x gathered from global
+// memory) at 0.53 ms: per node, the 32 lanes of a warp read x[row_lane,
+// feat] from 32 rows d*4 bytes apart, 32 cache lines and 32 L1 wavefronts
+// per warp instruction, ~66 M lane reads at the MSN shape.  This kernel
+// stages x instead:
+//   * A block is 32 rows x 8 warps: lane = row, warp = tree slice.  Its
+//     rows of x sit in shared memory feature-major, x_s[f * 33 + lane]
+//     (33: the tile is written row by row from coalesced global reads
+//     without bank conflicts), so a warp's gather of one feature over its
+//     32 rows reads 32 consecutive banks: one wavefront.  17 KB at d=136,
+//     101 KB at mnist's d=784 (dynamic shared memory, opted in).
+//   * Node records.  A tree's nodes are packed in shared memory as one
+//     record each, {feat, thr, mask words}, 16 bytes for W <= 2 (32 for
+//     W <= 4, 48 for W <= 8); all lanes of a warp read the same record, a
+//     broadcast.  A chunk of `chunk` trees is staged by cp.async into a
+//     two-stage ring while the previous chunk is traversed.
+//   * The node loop is unrolled by kUnroll: the records of kUnroll nodes
+//     are loaded, then their x values, then the compares and ANDs, so the
+//     dependent pair of shared-memory loads of several nodes is in flight
+//     at once.  leafidx lives in registers (W <= 8, so L <= 256), updated
+//     branch-free: leafidx &= mask | keep.  The exit leaf is __ffs of the
+//     lowest nonzero word.
+//   * Grid: ceil(B/32) row blocks x tree groups; the wrapper
+//     (quickscorer_kernel.qs_layout) picks the group size so that a batch
+//     of 1024 rows fills the SMs in one wave, and never from B.  Each block
+//     writes partial[group, row, :]: its 8 warps' sums added in warp order
+//     in shared memory.  A second kernel sums the groups in order.  No
+//     atomics, so a float forest gives the same bits on every run and for
+//     a row in any batch.
+//   * Where 32 rows of x do not fit in shared memory (d above ~1700), the
+//     kSmemX = false instance reads x from global memory as the first
+//     kernel did; the wrapper counts which route ran.
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -50,162 +60,278 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
+constexpr int kRows = 32;                 // rows of a block: lane = row
+constexpr int kWarps = 8;                 // tree slices: warp = slice
+constexpr int kThreads = kRows * kWarps;
+constexpr int kXStride = kRows + 1;       // words per feature in x_s
+constexpr int kUnroll = 4;                // nodes whose loads overlap
 constexpr int kReduceThreads = 256;
-constexpr size_t kMaxSharedBytes = 48 * 1024;
+constexpr size_t kMaxSharedBytes = 232448;   // 227 KB
 
-template <int WMAX, int CMAX, typename Acc>
-__global__ void __launch_bounds__(kRowsPerBlock)
+// Words of one node record: feat, thr and W mask words, rounded up to
+// 16-byte units (W <= 8).
+constexpr int record_words(int W) { return W <= 2 ? 4 : (W <= 4 ? 8 : 12); }
+
+template <int WMAX>
+struct Record {
+  static constexpr int kWords = record_words(WMAX);
+  static constexpr int kVecs = kWords / 4;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Word i of a record held as 16-byte vectors (i is a constant after
+// unrolling, so this folds to a register).
+template <int V>
+__device__ __forceinline__ uint32_t word(const uint4 (&r)[V], int i) {
+  const uint4 q = r[i / 4];
+  switch (i % 4) {
+    case 0: return q.x;
+    case 1: return q.y;
+    case 2: return q.z;
+    default: return q.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared bytes of a block: the ring (or, after the tree loop, the 8 warps'
+// partial sums) and, for kSmemX, the x tile.  The wrapper passes what
+// qs_layout computed; the entry point checks it against this.
+inline size_t shared_bytes(int N, int W, int C, int d, int chunk,
+                           bool smem_x) {
+  const size_t ring =
+      2 * static_cast<size_t>(chunk) * N * record_words(W);
+  const size_t part = static_cast<size_t>(kWarps) * kRows * C;
+  return 4 * ((ring > part ? ring : part) +
+              (smem_x ? static_cast<size_t>(kXStride) * d : 0));
+}
+
+template <int WMAX, int CMAX, bool kSmemX, typename Acc>
+__global__ void __launch_bounds__(kThreads)
 qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                const float* __restrict__ thr,
                const uint32_t* __restrict__ masks,
                const uint32_t* __restrict__ init_idx,
                const float* __restrict__ leaf_val, Acc* __restrict__ partial,
-               int B, int d, int T, int N, int W, int L, int C,
-               int tree_chunk) {
-  extern __shared__ uint32_t smem[];
-  const int t0 = blockIdx.y * tree_chunk;
-  const int tc = min(tree_chunk, T - t0);
-  const int n_nodes = tc * N;
-  int* feat_s = reinterpret_cast<int*>(smem);
-  float* thr_s = reinterpret_cast<float*>(smem + tree_chunk * N);
-  uint32_t* masks_s = smem + 2 * tree_chunk * N;
-  uint32_t* init_s = masks_s + tree_chunk * N * W;
+               int B, int d, int T, int N, int W, int L, int C, int chunk,
+               int group_trees) {
+  using R = Record<WMAX>;
+  extern __shared__ uint4 smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
+  const int chunk_words = chunk * N * R::kWords;
+  const int ring_words = max(2 * chunk_words, kWarps * kRows * C);
+  float* x_s = reinterpret_cast<float*>(ring + ring_words);
 
-  const size_t node0 = static_cast<size_t>(t0) * N;
-  for (int i = threadIdx.x; i < n_nodes; i += blockDim.x) {
-    feat_s[i] = feat[node0 + i];
-    thr_s[i] = thr[node0 + i];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = blockIdx.x * kRows;
+  const int t_begin = blockIdx.y * group_trees;
+  const int t_end = min(T, t_begin + group_trees);
+  const int n_chunks = (t_end - t_begin + chunk - 1) / chunk;
+
+  if (kSmemX) {
+    // x_s[f * 33 + r] = x[row0 + r, f]: consecutive threads read
+    // consecutive features of a row and write banks f + r, all different
+    for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
+      const int r = i / d, f = i % d;
+      if (row0 + r < B)
+        cp_async4(x_s + f * kXStride + r,
+                  x + static_cast<size_t>(row0 + r) * d + f);
+      else
+        x_s[f * kXStride + r] = 0.f;
+    }
   }
-  for (int i = threadIdx.x; i < n_nodes * W; i += blockDim.x)
-    masks_s[i] = masks[node0 * W + i];
-  for (int i = threadIdx.x; i < tc * W; i += blockDim.x)
-    init_s[i] = init_idx[static_cast<size_t>(t0) * W + i];
-  __syncthreads();
+  // chunk c's records into ring stage c % 2
+  auto stage = [&](int c) {
+    const int t0 = t_begin + c * chunk;
+    const int n_nodes = min(chunk, t_end - t0) * N;
+    uint32_t* dst = ring + (c % 2) * chunk_words;
+    const size_t node0 = static_cast<size_t>(t0) * N;
+    for (int i = threadIdx.x; i < n_nodes; i += kThreads) {
+      uint32_t* rec = dst + i * R::kWords;
+      cp_async4(rec, feat + node0 + i);
+      cp_async4(rec + 1, thr + node0 + i);
+      for (int w = 0; w < W; ++w)
+        cp_async4(rec + 2 + w, masks + (node0 + i) * W + w);
+    }
+    cp_async_commit();
+  };
 
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x;
-  if (row >= B) return;
-  const float* xr = x + static_cast<size_t>(row) * d;
-
+  // rows past B: x_s holds zeros; the global route reads row B - 1
+  const float* xr = x + static_cast<size_t>(min(row0 + lane, B - 1)) * d;
   Acc acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = Acc(0);
 
-  for (int t = 0; t < tc; ++t) {
-    uint32_t leafidx[WMAX];
-#pragma unroll
-    for (int w = 0; w < WMAX; ++w)
-      leafidx[w] = (w < W) ? init_s[t * W + w] : 0u;
-    const int* ft = feat_s + t * N;
-    const float* th = thr_s + t * N;
-    const uint32_t* mt = masks_s + t * N * W;
-    for (int n = 0; n < N; ++n) {
-      // fire = all ones when the row goes right at this node (x > thr;
-      // NaN compares false and goes left, as the gather engine does)
-      const uint32_t keep = (__ldg(xr + ft[n]) > th[n]) ? 0u : 0xFFFFFFFFu;
+  if (n_chunks > 0) stage(0);              // with the x tile's copies
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t* recs = ring + (c % 2) * chunk_words;
+    const int t0 = t_begin + c * chunk;
+    const int tc = min(chunk, t_end - t0);
+    for (int slot = warp; slot < tc; slot += kWarps) {
+      const int t = t0 + slot;
+      uint32_t leafidx[WMAX];
 #pragma unroll
       for (int w = 0; w < WMAX; ++w)
-        if (w < W) leafidx[w] &= mt[n * W + w] | keep;
+        leafidx[w] = w < W ? __ldg(init_idx + static_cast<size_t>(t) * W + w)
+                           : 0u;
+      const uint4* node = reinterpret_cast<const uint4*>(
+          recs + slot * N * R::kWords);
+      int n = 0;
+      for (; n + kUnroll <= N; n += kUnroll) {
+        uint4 rec[kUnroll][R::kVecs];
+        float xv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int v = 0; v < R::kVecs; ++v)
+            rec[u][v] = node[(n + u) * R::kVecs + v];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          xv[u] = kSmemX ? x_s[rec[u][0].x * kXStride + lane]
+                         : __ldg(xr + rec[u][0].x);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          // keep = all ones when the row goes left at this node (x <= thr,
+          // or NaN): the node's mask then clears nothing
+          const uint32_t keep =
+              xv[u] > __uint_as_float(rec[u][0].y) ? 0u : 0xFFFFFFFFu;
+#pragma unroll
+          for (int w = 0; w < WMAX; ++w)
+            if (w < W) leafidx[w] &= word(rec[u], 2 + w) | keep;
+        }
+      }
+      for (; n < N; ++n) {
+        uint4 rec[R::kVecs];
+#pragma unroll
+        for (int v = 0; v < R::kVecs; ++v) rec[v] = node[n * R::kVecs + v];
+        const float xv = kSmemX ? x_s[rec[0].x * kXStride + lane]
+                                : __ldg(xr + rec[0].x);
+        const uint32_t keep =
+            xv > __uint_as_float(rec[0].y) ? 0u : 0xFFFFFFFFu;
+#pragma unroll
+        for (int w = 0; w < WMAX; ++w)
+          if (w < W) leafidx[w] &= word(rec, 2 + w) | keep;
+      }
+      // lowest set bit across words; the lowest nonzero word is assigned
+      // last.  An all-zero leafidx (a padding tree) keeps leaf 0, whose
+      // leaf row is zero.
+      int leaf = 0;
+#pragma unroll
+      for (int w = WMAX - 1; w >= 0; --w)
+        if (w < W && leafidx[w] != 0u) leaf = w * 32 + __ffs(leafidx[w]) - 1;
+      const float* lv = leaf_val + (static_cast<size_t>(t) * L + leaf) * C;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) acc[c] += static_cast<Acc>(__ldg(lv + c));
     }
-    // lowest set bit across words; the lowest nonzero word is assigned
-    // last.  An all-zero leafidx (a padding tree) keeps leaf 0, whose
-    // leaf row is zero.
-    int leaf = 0;
-#pragma unroll
-    for (int w = WMAX - 1; w >= 0; --w)
-      if (w < W && leafidx[w] != 0u) leaf = w * 32 + __ffs(leafidx[w]) - 1;
-    const float* lv =
-        leaf_val + (static_cast<size_t>(t0 + t) * L + leaf) * C;
-#pragma unroll
-    for (int c = 0; c < CMAX; ++c)
-      if (c < C) acc[c] += static_cast<Acc>(__ldg(lv + c));
+    __syncthreads();                       // stage c % 2 is free again
   }
 
-  Acc* out = partial + (static_cast<size_t>(blockIdx.y) * B + row) * C;
+  // the 8 warps' sums per row, added in warp order
+  Acc* part = reinterpret_cast<Acc*>(ring);
 #pragma unroll
   for (int c = 0; c < CMAX; ++c)
-    if (c < C) out[c] = acc[c];
+    if (c < C) part[(warp * kRows + lane) * C + c] = acc[c];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    if (row0 + r >= B) continue;
+    Acc sum = Acc(0);
+    for (int w = 0; w < kWarps; ++w) sum += part[(w * kRows + r) * C + c];
+    partial[(static_cast<size_t>(blockIdx.y) * B + row0 + r) * C + c] = sum;
+  }
 }
 
-// out[i] = sum over chunks k = 0, 1, ... of partial[k, i], in that order.
+// out[i] = sum over groups k = 0, 1, ... of partial[k, i], in that order.
 template <typename Acc>
 __global__ void qs_reduce_kernel(const Acc* __restrict__ partial,
-                                 Acc* __restrict__ out, int n_chunks,
+                                 Acc* __restrict__ out, int n_groups,
                                  int n_out) {
   const int i = blockIdx.x * kReduceThreads + threadIdx.x;
   if (i >= n_out) return;
   Acc s = Acc(0);
-  for (int k = 0; k < n_chunks; ++k)
+  for (int k = 0; k < n_groups; ++k)
     s += partial[static_cast<size_t>(k) * n_out + i];
   out[i] = s;
 }
 
-template <int WMAX, int CMAX, typename Acc>
-cudaError_t launch(const float* x, const int* feat, const float* thr,
-                   const uint32_t* masks, const uint32_t* init_idx,
-                   const float* leaf_val, Acc* partial, Acc* out, int B,
-                   int d, int T, int N, int W, int L, int C, int tree_chunk,
+struct Args {
+  const float* x;
+  const int* feat;
+  const float* thr;
+  const uint32_t* masks;
+  const uint32_t* init_idx;
+  const float* leaf_val;
+  int B, d, T, N, W, L, C, chunk, group_trees, shared;
+};
+
+template <int WMAX, int CMAX, bool kSmemX, typename Acc>
+cudaError_t launch(const Args& a, Acc* partial, Acc* out,
                    cudaStream_t stream) {
-  const int n_chunks = (T + tree_chunk - 1) / tree_chunk;
-  if (n_chunks > 0) {
-    const size_t smem =
-        sizeof(uint32_t) *
-        (static_cast<size_t>(tree_chunk) * N * (2 + W) + tree_chunk * W);
-    const dim3 grid((B + kRowsPerBlock - 1) / kRowsPerBlock, n_chunks);
-    qs_tile_kernel<WMAX, CMAX, Acc><<<grid, kRowsPerBlock, smem, stream>>>(
-        x, feat, thr, masks, init_idx, leaf_val, partial, B, d, T, N, W, L,
-        C, tree_chunk);
-    const cudaError_t err = cudaGetLastError();
+  const int n_groups =
+      a.T > 0 ? (a.T + a.group_trees - 1) / a.group_trees : 0;
+  if (n_groups > 0) {
+    auto kernel = qs_tile_kernel<WMAX, CMAX, kSmemX, Acc>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.shared);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.B + kRows - 1) / kRows, n_groups);
+    kernel<<<grid, kThreads, a.shared, stream>>>(
+        a.x, a.feat, a.thr, a.masks, a.init_idx, a.leaf_val, partial, a.B,
+        a.d, a.T, a.N, a.W, a.L, a.C, a.chunk, a.group_trees);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const int n_out = B * C;
+  const int n_out = a.B * a.C;
   qs_reduce_kernel<Acc>
       <<<(n_out + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-         stream>>>(partial, out, n_chunks, n_out);
+         stream>>>(partial, out, n_groups, n_out);
   return cudaGetLastError();
 }
 
+template <int WMAX, int CMAX, typename Acc>
+cudaError_t dispatch_route(bool smem_x, const Args& a, Acc* partial,
+                           Acc* out, cudaStream_t s) {
+  return smem_x ? launch<WMAX, CMAX, true, Acc>(a, partial, out, s)
+                : launch<WMAX, CMAX, false, Acc>(a, partial, out, s);
+}
+
 template <int WMAX, typename Acc>
-cudaError_t dispatch_classes(int C, const float* x, const int* feat,
-                             const float* thr, const uint32_t* masks,
-                             const uint32_t* init_idx, const float* leaf_val,
-                             Acc* partial, Acc* out, int B, int d, int T,
-                             int N, int W, int L, int tree_chunk,
-                             cudaStream_t s) {
-  if (C <= 1)
-    return launch<WMAX, 1, Acc>(x, feat, thr, masks, init_idx, leaf_val,
-                                partial, out, B, d, T, N, W, L, C,
-                                tree_chunk, s);
-  if (C <= 4)
-    return launch<WMAX, 4, Acc>(x, feat, thr, masks, init_idx, leaf_val,
-                                partial, out, B, d, T, N, W, L, C,
-                                tree_chunk, s);
-  return launch<WMAX, 16, Acc>(x, feat, thr, masks, init_idx, leaf_val,
-                               partial, out, B, d, T, N, W, L, C, tree_chunk,
-                               s);
+cudaError_t dispatch_classes(bool smem_x, const Args& a, Acc* partial,
+                             Acc* out, cudaStream_t s) {
+  if (a.C <= 1)
+    return dispatch_route<WMAX, 1, Acc>(smem_x, a, partial, out, s);
+  if (a.C <= 4)
+    return dispatch_route<WMAX, 4, Acc>(smem_x, a, partial, out, s);
+  return dispatch_route<WMAX, 16, Acc>(smem_x, a, partial, out, s);
 }
 
 template <typename Acc>
-cudaError_t dispatch(const float* x, const int* feat, const float* thr,
-                     const uint32_t* masks, const uint32_t* init_idx,
-                     const float* leaf_val, Acc* partial, Acc* out, int B,
-                     int d, int T, int N, int W, int L, int C,
-                     int tree_chunk, cudaStream_t s) {
-  if (W <= 1)
-    return dispatch_classes<1, Acc>(C, x, feat, thr, masks, init_idx,
-                                    leaf_val, partial, out, B, d, T, N, W, L,
-                                    tree_chunk, s);
-  if (W <= 2)
-    return dispatch_classes<2, Acc>(C, x, feat, thr, masks, init_idx,
-                                    leaf_val, partial, out, B, d, T, N, W, L,
-                                    tree_chunk, s);
-  if (W <= 4)
-    return dispatch_classes<4, Acc>(C, x, feat, thr, masks, init_idx,
-                                    leaf_val, partial, out, B, d, T, N, W, L,
-                                    tree_chunk, s);
-  return dispatch_classes<8, Acc>(C, x, feat, thr, masks, init_idx, leaf_val,
-                                  partial, out, B, d, T, N, W, L, tree_chunk,
-                                  s);
+cudaError_t dispatch(bool smem_x, const Args& a, Acc* partial, Acc* out,
+                     cudaStream_t s) {
+  if (a.W <= 1) return dispatch_classes<1, Acc>(smem_x, a, partial, out, s);
+  if (a.W <= 2) return dispatch_classes<2, Acc>(smem_x, a, partial, out, s);
+  if (a.W <= 4) return dispatch_classes<4, Acc>(smem_x, a, partial, out, s);
+  return dispatch_classes<8, Acc>(smem_x, a, partial, out, s);
 }
 
 }  // namespace
@@ -213,36 +339,40 @@ cudaError_t dispatch(const float* x, const int* feat, const float* thr,
 extern "C" {
 
 // Scores (B, C) into `out` (f32, or int32 when int_accum != 0), using
-// `partial` (ceil(T / tree_chunk), B, C) of the same type as scratch.
-// Every array is contiguous and on the current device; masks and init_idx
-// are uint32 bit patterns.  Returns a cudaError_t: 0 when both kernels
-// were launched.
+// `partial` (ceil(T / group_trees), B, C) of the same type as scratch.
+// A block stages `chunk` trees at a time and walks `group_trees` trees;
+// `smem_x` != 0 stages its 32 rows of x in shared memory; `shared` is the
+// block's dynamic shared bytes, which must equal shared_bytes().  Every
+// array is contiguous and on the current device; masks and init_idx are
+// uint32 bit patterns.  Returns a cudaError_t: 0 when both kernels were
+// launched.
 int qs_forward_launch(const void* x, const void* feat, const void* thr,
                       const void* masks, const void* init_idx,
                       const void* leaf_val, void* partial, void* out, int B,
-                      int d, int T, int N, int W, int L, int C,
-                      int tree_chunk, int int_accum, void* stream) {
-  const size_t smem = sizeof(uint32_t) *
-      (static_cast<size_t>(tree_chunk) * N * (2 + W) + tree_chunk * W);
+                      int d, int T, int N, int W, int L, int C, int chunk,
+                      int group_trees, int smem_x, int shared,
+                      int int_accum, void* stream) {
   if (B < 1 || d < 1 || T < 0 || N < 0 || W < 1 || W > 8 || C < 1 ||
-      C > 16 || L < 1 || L > 32 * W || tree_chunk < 1 ||
-      smem > kMaxSharedBytes ||
-      (T + tree_chunk - 1) / tree_chunk > 65535)
+      C > 16 || L < 1 || L > 32 * W || chunk < 1 || group_trees < chunk ||
+      shared < 0 || static_cast<size_t>(shared) > kMaxSharedBytes ||
+      static_cast<size_t>(shared) !=
+          shared_bytes(N, W, C, d, chunk, smem_x != 0) ||
+      (T + group_trees - 1) / group_trees > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* ft = static_cast<const int*>(feat);
-  const auto* th = static_cast<const float*>(thr);
-  const auto* mk = static_cast<const uint32_t*>(masks);
-  const auto* ii = static_cast<const uint32_t*>(init_idx);
-  const auto* lv = static_cast<const float*>(leaf_val);
+  const Args a{static_cast<const float*>(x), static_cast<const int*>(feat),
+               static_cast<const float*>(thr),
+               static_cast<const uint32_t*>(masks),
+               static_cast<const uint32_t*>(init_idx),
+               static_cast<const float*>(leaf_val), B, d, T, N, W, L, C,
+               chunk, group_trees, shared};
   auto s = static_cast<cudaStream_t>(stream);
   if (int_accum)
-    return static_cast<int>(dispatch<int>(
-        xf, ft, th, mk, ii, lv, static_cast<int*>(partial),
-        static_cast<int*>(out), B, d, T, N, W, L, C, tree_chunk, s));
-  return static_cast<int>(dispatch<float>(
-      xf, ft, th, mk, ii, lv, static_cast<float*>(partial),
-      static_cast<float*>(out), B, d, T, N, W, L, C, tree_chunk, s));
+    return static_cast<int>(dispatch<int>(smem_x != 0, a,
+                                          static_cast<int*>(partial),
+                                          static_cast<int*>(out), s));
+  return static_cast<int>(dispatch<float>(smem_x != 0, a,
+                                          static_cast<float*>(partial),
+                                          static_cast<float*>(out), s));
 }
 
 const char* qs_error_string(int code) {

@@ -15,14 +15,26 @@ it runs ``flash_forward_reference``, the same function in plain torch.
 Nothing falls back from one to the other.  Tile sizes are the kernel's
 own: any Sq and Sk work, the ragged edge is masked in the kernel.
 
-``.launches`` counts the kernel's launches; ``.source`` and ``.replaces``
-name the CUDA source and the TPU kernel.
+The source holds two kernels, chosen by dtype alone (``flash_route``):
+bf16 goes to the tensor cores (``"wgmma"``: wgmma products, TMA copies;
+P rounded to bf16 before the PV product, as SDPA does), f32 to the CUDA
+cores (``"simt"``, whose f32 products hold the reference's 2e-5, which a
+TF32 tensor-core product would not).  TMA cannot address rows under 16
+bytes, so on the wgmma route a head width that is not a multiple of 8 (4)
+is widened with zero columns first (``tma_head_dim``); the kernel's tile
+then zero-fills up to its own width (16, 64 or 128).  Zero columns add
+nothing to q.k and give output columns that are dropped.
+
+``.launches`` counts the kernel's launches and ``.launches_by_route``
+splits them by route; ``.source`` and ``.replaces`` name the CUDA source
+and the TPU kernel.
 """
 from __future__ import annotations
 
 import struct
 
 import torch
+import torch.nn.functional as F
 
 from .launch import check_tensors, launch, library, on_card
 
@@ -30,6 +42,18 @@ NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 64, 96, 128)    # instantiated in flash_forward.cu
 MAX_HEAD_ROWS = 65535                   # BH rides on gridDim.y
 PLAIN_BLOCK = 512                       # q and k chunk of the plain version
+
+
+def flash_route(dtype: torch.dtype) -> str:
+    """The kernel a dtype goes to: ``"wgmma"`` for bf16, ``"simt"`` for
+    f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def tma_head_dim(hd: int) -> int:
+    """The least width >= hd whose bf16 rows are a multiple of 16 bytes,
+    as TMA needs: what the wrapper widens q, k and v to."""
+    return -(-hd // 8) * 8
 
 
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
@@ -109,23 +133,29 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{MAX_HEAD_ROWS}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
-    out = torch.empty_like(q)
     if Sq == 0 or BH == 0:
-        return out
+        return torch.empty_like(q)
     # the scale as the f32 bit pattern of hd ** -0.5, as the plain version
     # rounds it
     scale_bits = struct.unpack("<i", struct.pack("<f", hd ** -0.5))[0]
+    route = flash_route(q.dtype)
+    hd_k = tma_head_dim(hd) if route == "wgmma" else hd
+    if hd_k != hd:
+        q, k, v = (F.pad(t, (0, hd_k - hd)) for t in (q, k, v))
+    out = torch.empty_like(q)
     lib = library("flash_forward", "flash_forward_launch",
                   "flash_error_string", 4, 8)
     launch(lib.flash_forward_launch, lib.flash_error_string,
            "flash_forward", q.device, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd, n_rep,
-           int(causal), int(q.dtype == torch.bfloat16), scale_bits)
+           v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd_k, n_rep,
+           int(causal), int(route == "wgmma"), scale_bits)
     flash_forward.launches += 1
-    return out
+    flash_forward.launches_by_route[route] += 1
+    return out if hd_k == hd else out[..., :hd].contiguous()
 
 
 flash_forward.launches = 0
+flash_forward.launches_by_route = {"wgmma": 0, "simt": 0}
 flash_forward.source = "src/repro_torch/kernels/csrc/flash_forward.cu"
 flash_forward.replaces = "src/repro/kernels/flash_attention_kernel.py:86"
 

@@ -10,9 +10,16 @@ falls back from one to the other.
 
 Each wrapper's ``.launches`` counts its kernel's launches, so a run can
 show that its main path went through the kernel; ``.source`` and
-``.replaces`` name the CUDA source and the TPU kernel.
+``.replaces`` name the CUDA source and the TPU kernel.  ``qs_forward``
+has two routes, chosen by ``qs_layout`` from the row width alone and
+counted in ``qs_forward.launches_by_route``: ``"smem_x"`` stages each
+block's 32 rows of x in shared memory, ``"global_x"`` (rows too wide for
+that) gathers x from global memory.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -25,15 +32,100 @@ MAX_WORDS = 8            # leafidx words a thread keeps in registers (L <= 256)
 
 
 def tree_chunk(n_trees: int, n_nodes: int, n_words: int) -> int:
-    """Trees per block: feat, thr and ``n_words`` words per node plus
-    ``n_words`` per tree, 4 bytes each (the qs kernel's leafidx masks and
-    init words; the bitmm kernel's packed and bias words)."""
+    """Trees per block of the bitmm kernel: feat, thr and ``n_words``
+    packed words per node plus ``n_words`` bias words per tree, 4 bytes
+    each.  (``qs_forward`` has its own layout, ``qs_layout``.)"""
     return trees_per_block(n_trees, 4 * (n_nodes * (2 + n_words) + n_words))
 
 
 # --------------------------------------------------------------------------- #
 # qs_forward — QuickScorer bitvector traversal
 # --------------------------------------------------------------------------- #
+# csrc/qs_forward.cu: a block is QS_ROWS rows (lane = row) x QS_WARPS warps
+# (warp = tree slice); x_s keeps QS_X_STRIDE words per feature
+QS_ROWS, QS_WARPS, QS_X_STRIDE = 32, 8, 33
+QS_MAX_CHUNK = 16        # trees a block stages per ring stage
+SM_SHARED_BYTES = 233472           # shared memory of one SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024        # of it reserved per resident block
+MAX_THREADS_PER_SM = 2048
+H100_SMS = 132
+# The tree groups are sized for a batch of this many rows (ForestServer's
+# largest bucket) whatever the batch, so a row's float sum keeps one order
+QS_GROUP_ROWS = 1024
+
+
+def record_words(n_words: int) -> int:
+    """32-bit words of one node record (feat, thr, ``n_words`` mask words)
+    in 16-byte units: 4 for W <= 2, 8 for W <= 4, 12 for W <= 8."""
+    return 4 if n_words <= 2 else 8 if n_words <= 4 else 12
+
+
+@dataclasses.dataclass(frozen=True)
+class QsLayout:
+    """How ``qs_forward`` cuts its work: ``row_blocks`` x ``n_groups``
+    blocks, each walking ``group_trees`` trees, ``chunk`` at a time through
+    its shared-memory ring, in ``shared_bytes`` of shared memory."""
+    route: str               # "smem_x" or "global_x"
+    chunk: int
+    group_trees: int
+    n_groups: int
+    row_blocks: int
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+def qs_shared_bytes(n_nodes: int, n_words: int, n_classes: int,
+                    n_features: int, chunk: int, smem_x: bool) -> int:
+    """A block's shared bytes, as ``shared_bytes`` in qs_forward.cu: the
+    two-stage ring of node records (reused for the 8 warps' partial sums),
+    plus the feature-major x tile on the ``smem_x`` route."""
+    ring = 2 * chunk * n_nodes * record_words(n_words)
+    part = QS_WARPS * QS_ROWS * n_classes
+    return 4 * (max(ring, part) + (QS_X_STRIDE * n_features if smem_x else 0))
+
+
+def qs_layout(B: int, d: int, T: int, N: int, W: int, C: int,
+              n_sm: int = H100_SMS) -> QsLayout:
+    """The route, ring chunk and tree groups of ``qs_forward`` for B rows
+    of width d over T trees of N nodes (W leafidx words, C classes) on a
+    card of ``n_sm`` SMs.
+
+    x is staged in shared memory when 32 rows of it fit beside a ring of
+    one tree.  The ring then takes as many trees as fit, up to
+    ``QS_MAX_CHUNK``.  The tree groups are as many as one wave of
+    resident blocks can hold at ``QS_GROUP_ROWS`` rows (blocks per SM from
+    the shared bytes), rounded so every group but the last holds the same
+    whole chunks.  Only ``row_blocks`` depends on B: a row's trees are
+    summed in the same order in every batch, so float scores do not
+    change with the batch a row lands in."""
+    smem_x = qs_shared_bytes(N, W, C, d, 1, True) <= MAX_SHARED_BYTES
+    x_bytes = 4 * QS_X_STRIDE * d if smem_x else 0
+    per_tree = 2 * 4 * N * record_words(W)
+    chunk = max(1, min(QS_MAX_CHUNK, T,
+                       (MAX_SHARED_BYTES - x_bytes) // max(per_tree, 1)))
+    shared = qs_shared_bytes(N, W, C, d, chunk, smem_x)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"one tree's node records ({N} nodes x {W} words) "
+                         f"exceed the {MAX_SHARED_BYTES} bytes of shared "
+                         "memory a block may hold")
+    blocks_per_sm = max(1, min(MAX_THREADS_PER_SM // (QS_ROWS * QS_WARPS),
+                               SM_SHARED_BYTES
+                               // (shared + BLOCK_RESERVED_BYTES)))
+    n_chunks = -(-T // chunk)
+    groups = max(1, min(n_chunks,
+                        blocks_per_sm * n_sm * QS_ROWS // QS_GROUP_ROWS))
+    group_trees = max(1, -(-n_chunks // groups)) * chunk
+    return QsLayout(route="smem_x" if smem_x else "global_x", chunk=chunk,
+                    group_trees=group_trees, n_groups=-(-T // group_trees),
+                    row_blocks=-(-B // QS_ROWS), shared_bytes=shared,
+                    blocks_per_sm=blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def qs_forward_reference(x, feat, thr, masks, init_idx, leaf_val, *,
                          out_dtype=torch.float32) -> torch.Tensor:
     """The plain torch version: ``eval_batch``'s arithmetic on the padded
@@ -90,20 +182,23 @@ def qs_forward(x, feat, thr, masks, init_idx, leaf_val, *,
     out = torch.empty((B, C), dtype=out_dtype, device=x.device)
     if B == 0:
         return out
-    tc = tree_chunk(T, N, W)
-    partial = torch.empty((-(-T // tc), B, C), dtype=out_dtype,
+    lay = qs_layout(B, d, T, N, W, C, _sm_count(x.device.index or 0))
+    partial = torch.empty((lay.n_groups, B, C), dtype=out_dtype,
                           device=x.device)
-    lib = library("qs_forward", "qs_forward_launch", "qs_error_string", 8, 9)
+    lib = library("qs_forward", "qs_forward_launch", "qs_error_string", 8, 12)
     launch(lib.qs_forward_launch, lib.qs_error_string, "qs_forward",
            x.device, x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
            masks.data_ptr(), init_idx.data_ptr(), leaf_val.data_ptr(),
-           partial.data_ptr(), out.data_ptr(), B, d, T, N, W, L, C, tc,
-           int(out_dtype == torch.int32))
+           partial.data_ptr(), out.data_ptr(), B, d, T, N, W, L, C,
+           lay.chunk, lay.group_trees, int(lay.route == "smem_x"),
+           lay.shared_bytes, int(out_dtype == torch.int32))
     qs_forward.launches += 1
+    qs_forward.launches_by_route[lay.route] += 1
     return out
 
 
 qs_forward.launches = 0
+qs_forward.launches_by_route = {"smem_x": 0, "global_x": 0}
 qs_forward.source = "src/repro_torch/kernels/csrc/qs_forward.cu"
 qs_forward.replaces = "src/repro/kernels/quickscorer_kernel.py:130"
 

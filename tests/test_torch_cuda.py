@@ -68,9 +68,11 @@ def test_kernel_matches_plain_version(card, T, L, d, C, B):
             np.float32)).to(card)
         out_dtype = ops._out_dtype(f, 8)
         before = qs_forward.launches
+        smem_x = qs_forward.launches_by_route["smem_x"]
         got = qs_forward(x, *arrays, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert qs_forward.launches == before + 1
+        assert qs_forward.launches_by_route["smem_x"] == smem_x + 1
         want = qs_forward_reference(x, *arrays, out_dtype=out_dtype)
         if out_dtype == torch.int32:
             assert torch.equal(got, want)
@@ -79,6 +81,45 @@ def test_kernel_matches_plain_version(card, T, L, d, C, B):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
         # deterministic: no atomics, a fixed reduction order
         assert torch.equal(got, qs_forward(x, *arrays, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("d,route", [(784, "smem_x"), (2000, "global_x")])
+def test_kernel_wide_rows_take_their_route(card, d, route):
+    """The mnist width stages x in shared memory; rows too wide for it
+    gather x from global memory.  Both bit-exact on int16 with int
+    accumulation, a float forest within the reference's tolerance, and the
+    same bits from two launches."""
+    X, forests = _forests(64, 64, d, 10, 300)
+    for f in forests:
+        arrays = [torch.from_numpy(a).to(card) for a in ops._qs_arrays(f, 8)]
+        x = torch.from_numpy(core.quantize_inputs(f, X).astype(
+            np.float32)).to(card)
+        out_dtype = ops._out_dtype(f, 8)
+        before = dict(qs_forward.launches_by_route)
+        got = qs_forward(x, *arrays, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = {k: n + (k == route) for k, n in before.items()}
+        assert qs_forward.launches_by_route == want
+        ref = qs_forward_reference(x, *arrays, out_dtype=out_dtype)
+        if out_dtype == torch.int32:
+            assert torch.equal(got, ref)
+        else:
+            # 64 f32 leaves summed in two orders
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, qs_forward(x, *arrays, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("T,L,d,C", [(1024, 64, 136, 1), (512, 64, 784, 10)])
+def test_kernel_float_sums_do_not_depend_on_the_batch(card, T, L, d, C):
+    """A float forest's rows give the same bits in a batch of 455 rows as
+    in one of 1024: the tree groups do not change with the batch, so each
+    row's f32 sum keeps one order."""
+    X, (forest, _) = _forests(T, L, d, C, 1024)
+    arrays = [torch.from_numpy(a).to(card) for a in ops._qs_arrays(forest, 8)]
+    x = torch.from_numpy(X.astype(np.float32)).to(card)
+    whole = qs_forward(x, *arrays)
+    part = qs_forward(x[:455].contiguous(), *arrays)
+    assert torch.equal(part, whole[:455])
 
 
 @pytest.mark.parametrize("T,L,d,C,B", SHAPES[:5])
@@ -378,13 +419,17 @@ def _flash_inputs(B, Sq, Sk, H, K, hd, card, dtype):
 @pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal", FLASH_SHAPES)
 def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Sk, H, K, hd,
                                             causal):
-    """f32 at the reference's 2e-5, bf16 at its 3e-2; two launches give
-    the same bits."""
+    """f32 (the CUDA-core kernel) at the reference's 2e-5, bf16 (the
+    wgmma kernel) at its 3e-2; two launches give the same bits."""
     q, k, v = _flash_inputs(B, Sq, Sk, H, K, hd, card, getattr(torch, dtype))
     before = flash_forward.launches
+    routes = dict(flash_forward.launches_by_route)
     got = flash_attention_bshd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_forward.launches == before + 1
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    routes[route] += 1
+    assert flash_forward.launches_by_route == routes
     assert got.dtype == q.dtype and got.shape == q.shape
     qh, kh, vh = (t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
                   for t in (q, k, v))
@@ -417,7 +462,8 @@ def _misaligned(card):
 def test_lmserver_on_card_launches_flash_per_attention_layer(card, name):
     """A reduced dense config served on the card: one flash_forward
     launch per attention layer per generate, and the same greedy tokens
-    as backend="torch" (f32 model)."""
+    as backend="torch" (f32 model); in bf16 every launch takes the wgmma
+    route."""
     from repro_torch.configs import get_config
     from repro_torch.inference import LMServer
     from repro_torch.models import Model
@@ -434,4 +480,10 @@ def test_lmserver_on_card_launches_flash_per_attention_layer(card, name):
         outs[backend] = server.generate(prompts, 16)
         want = cfg.n_layers if backend == "cuda" else 0
         assert flash_forward.launches - before == want
+    routes = dict(flash_forward.launches_by_route)
+    model = Model(cfg, torch.bfloat16, backend="cuda")
+    LMServer(model, model.init_params(0), batch=2, max_len=56).generate(
+        prompts, 4)
+    assert flash_forward.launches_by_route == dict(
+        routes, wgmma=routes["wgmma"] + cfg.n_layers)
     np.testing.assert_array_equal(outs["cuda"], outs["torch"])

@@ -46,12 +46,15 @@ def _qkv(B, Sq, Sk, H, K, hd, seed, dtype=np.float32):
             rng.normal(size=(B, Sk, K, hd)).astype(dtype))
 
 
-def _naive(q, k, v, causal):
-    """Softmax attention in float64 numpy, GQA by repeating k/v heads."""
+def _naive(q, k, v, causal, scale=None):
+    """Softmax attention in float64 numpy, GQA by repeating k/v heads;
+    ``scale`` defaults to hd^-½."""
     q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
     rep = q.shape[2] // k.shape[2]
     k, v = np.repeat(k, rep, axis=2), np.repeat(v, rep, axis=2)
-    s = np.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         mask = np.arange(q.shape[1])[:, None] >= np.arange(k.shape[1])
         s = np.where(mask, s, -1e30)
@@ -187,3 +190,41 @@ def test_wrapper_rejects_what_it_cannot_take():
                                 torch.zeros(1, 8, 2, 16),
                                 torch.zeros(1, 8, 2, 16))
     assert fk.flash_forward.launches == 0      # the CPU never launches
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_route_is_chosen_by_dtype(dtype, route):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one; on
+    the CPU neither launches nor counts."""
+    assert fk.flash_route(dtype) == route
+    before = dict(fk.flash_forward.launches_by_route)
+    q = torch.zeros(3, 8, 16, dtype=dtype)
+    fk.flash_forward(q, q[:1].clone(), q[:1].clone(), n_rep=3)
+    assert fk.flash_forward.launches_by_route == before
+
+
+@pytest.mark.parametrize("hd", [4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_zero_padding_is_exact(hd, causal):
+    """What the wgmma route does below 16 columns (the wrapper widens hd 4
+    to 8 for TMA, the kernel's tile zero-fills to 16): the attention over
+    zero-padded q, k, v at hd's own scale, cut back to hd columns, is the
+    attention over the unpadded ones, which the plain version and the
+    Pallas kernel compute."""
+    assert fk.tma_head_dim(hd) == 8
+    B, S, H, K = 1, 24, 4, 2
+    q, k, v = _qkv(B, S, S, H, K, hd, seed=hd)
+    padded = [np.pad(a, ((0, 0), (0, 0), (0, 0), (0, 16 - hd)))
+              for a in (q, k, v)]
+    got = _naive(*padded, causal, scale=hd ** -0.5)
+    assert not got[..., hd:].any()
+    np.testing.assert_allclose(got[..., :hd], _naive(q, k, v, causal),
+                               rtol=1e-12, atol=1e-12)
+    plain = fk.flash_attention_bshd(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(plain.numpy(), got[..., :hd], rtol=2e-5,
+                               atol=2e-5)
+    ref = np.asarray(ref_kernel_bshd(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     block_q=8, block_k=8))
+    np.testing.assert_allclose(ref, got[..., :hd], rtol=2e-5, atol=2e-5)

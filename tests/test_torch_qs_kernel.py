@@ -6,6 +6,8 @@ bucketing, int accumulation, descale); it is held against
 ``repro.kernels.ops.pallas_qs_predictor`` in interpret mode, as
 tests/test_kernels.py runs it.  ``test_torch_cuda.py`` holds the kernel
 itself against its plain version on the card."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -191,3 +193,64 @@ def test_tree_chunk_fits_shared_memory():
         assert 1 <= tc <= min(T, launch.MAX_TREE_CHUNK)
         assert 4 * tc * (N * (2 + W) + W) <= launch.SHARED_BYTES
 
+
+
+# (B, d, T, N, W, C): the MSN forest, the mnist cascade's, and rows too
+# wide for a shared-memory tile
+LAYOUTS = [(1024, 136, 1024, 63, 2, 1), (1024, 784, 512, 63, 2, 10),
+           (300, 2000, 64, 63, 2, 10)]
+
+
+@pytest.mark.parametrize("B,d,T,N,W,C", LAYOUTS)
+def test_qs_layout_fits_shared_memory(B, d, T, N, W, C):
+    lay = quickscorer_kernel.qs_layout(B, d, T, N, W, C, n_sm=132)
+    assert lay.route == ("global_x" if d == 2000 else "smem_x")
+    assert lay.shared_bytes <= launch.MAX_SHARED_BYTES
+    assert lay.shared_bytes == quickscorer_kernel.qs_shared_bytes(
+        N, W, C, d, lay.chunk, lay.route == "smem_x")
+    x_tile = 4 * 33 * d
+    if lay.route == "smem_x":
+        assert lay.shared_bytes >= x_tile
+    else:
+        assert x_tile + 2 * 4 * N * 4 > launch.MAX_SHARED_BYTES
+    assert 1 <= lay.chunk <= quickscorer_kernel.QS_MAX_CHUNK
+
+
+@pytest.mark.parametrize("B", [1, 33, 1024])
+def test_qs_layout_grid(B):
+    """Row blocks of 32, tree groups of whole chunks covering every tree
+    once, and at most one wave of resident blocks; at the MSN batch the
+    blocks fill the 132 SMs at least twice."""
+    T, N, W, C, d = 1024, 63, 2, 1, 136
+    lay = quickscorer_kernel.qs_layout(B, d, T, N, W, C, n_sm=132)
+    assert lay.row_blocks == -(-B // 32)
+    assert lay.group_trees % lay.chunk == 0
+    assert (lay.n_groups - 1) * lay.group_trees < T
+    assert lay.n_groups * lay.group_trees >= T
+    blocks = lay.row_blocks * lay.n_groups
+    assert blocks <= lay.blocks_per_sm * 132
+    if B == 1024:
+        assert blocks >= 2 * 132
+    assert quickscorer_kernel.qs_layout(B, d, 0, N, W, C).n_groups == 0
+
+
+@pytest.mark.parametrize("B,d,T,N,W,C", LAYOUTS)
+def test_qs_layout_groups_do_not_depend_on_the_batch(B, d, T, N, W, C):
+    """Only the row blocks change with B, so a row's trees are summed in
+    one order whatever batch it lands in."""
+    lay = quickscorer_kernel.qs_layout(B, d, T, N, W, C, n_sm=132)
+    for b in (1, 33, 455, 4096):
+        other = quickscorer_kernel.qs_layout(b, d, T, N, W, C, n_sm=132)
+        assert other == dataclasses.replace(lay, row_blocks=-(-b // 32))
+
+
+def test_record_words():
+    assert [quickscorer_kernel.record_words(w) for w in range(1, 9)] == \
+        [4, 4, 8, 8, 12, 12, 12, 12]
+
+
+def test_qs_forward_cpu_counts_no_route(small_forest):
+    args = _kernel_args(tcore.forest_from_reference(vars(small_forest)))
+    before = dict(qs_forward.launches_by_route)
+    qs_forward(*args)
+    assert qs_forward.launches_by_route == before
