@@ -10,9 +10,10 @@ or JAX.  Phases:
  1. the software and the card (``nvidia-smi`` name and power limit);
  2. build every kernel of the path from ``src/repro_torch/kernels/csrc``
     (one ``nvcc`` per source, all started together); print each kernel's
-    ptxas registers, static shared memory and spills, and the HGMMA
-    (wgmma) instructions in the SASS of ``flash_forward``'s bf16 kernels,
-    which must hold some;
+    ptxas registers, static shared memory and spills, the HGMMA (wgmma)
+    instructions in the SASS of ``flash_forward``'s bf16 kernels and the
+    IMMA (int8 mma.sync) instructions in that of ``qs_bitmm_forward``'s and
+    ``gemm_forward``'s tile kernels, which must all hold some;
  3. hold each kernel (``qs_forward``, ``qs_bitmm_forward``,
     ``gemm_forward``) against its plain torch version on the card, at the
     kernel tests' shape sweeps and at the full-width shape, float and
@@ -22,9 +23,9 @@ or JAX.  Phases:
     calibrated on MSN rows, compiled with ``backend="cuda"`` for each of
     the engines ``bitvector``, ``bitmm`` and ``gemm`` and served through
     ``ForestServer(max_batch=1024)``; served output must equal synchronous
-    ``predict``, each engine's kernel launches the batches (``qs_forward``
-    on its shared-memory-x route only), and the three engines' served
-    outputs must be bit-identical.  Then a trained
+    ``predict``, each engine's kernel launches the batches (on its
+    shared-memory-x route only), and the three engines' served outputs
+    must be bit-identical.  Then a trained
     ``magic`` random forest, served quantized, whose accuracy may fall at
     most ``ACCURACY_MARGIN_PP`` below its float forest's;
  5. the cascade slice: hold ``cascade_qs_forward`` against its plain
@@ -37,10 +38,11 @@ or JAX.  Phases:
     backend="cuda", cascade=CascadeSpec((16, 64, 256), fused=...))`` fused
     (one ``cascade_qs_forward`` launch per batch) and staged (one
     ``qs_forward`` launch per stage with survivors, shared-memory-x route
-    only): bit-identical scores
-    and exit counts, served == ``predict``; a disabled gate served fused
-    equals the plain bitvector engine, and ``ScoreBoundGate`` keeps every
-    row's class;
+    only), and the tier-1 fused cascade on ``engine="bitmm"`` and
+    ``"gemm"`` (one ``qs_bitmm_forward`` / ``gemm_forward`` launch per
+    stage with survivors): all four bit-identical, scores and exit counts,
+    served == ``predict``; a disabled gate served fused equals the plain
+    bitvector engine, and ``ScoreBoundGate`` keeps every row's class;
  6. the LM slice: hold ``flash_forward`` against its plain version at the
     reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
     in both, two launches bit-identical; then serve smollm-360m at full
@@ -166,6 +168,9 @@ CASCADE_SWEEP = [
 CASCADE_FOREST = (512, 64)
 CASCADE_STAGES = (16, 64, 256, 512)
 CASCADE_FLOOR_PP = 0.5
+# the tier-1 fused cascade (a device gate around each stage's kernel), on
+# the engines whose kernels have no cascade form of their own
+CASCADE_TIER1_ENGINES = ("bitmm", "gemm")
 # (B, Sq, Sk, H, K, hd, causal) for flash_forward: tests/test_flash_kernel.py
 # :29-35 (MHA, GQA 3:1, MQA, Sq != Sk non-causal, smollm ratios), ragged
 # edges, and the dense configs' head dims 96 and 128
@@ -250,7 +255,7 @@ class Kernel:
             alu = B * T * N * (1 + arrays[2].shape[-1]) + B * T * C
             return alu, alu / ALU_OPS_PER_S
         if self.engine == "bitmm":
-            G = arrays[2].shape[-1]
+            G = arrays[3].shape[-1]                     # bias (T, G)
             mma, alu = 3 * 2 * B * T * N * G, B * T * (N + 5 * G + C)
         else:
             mma, alu = 2 * B * T * N * L, B * T * (N + L + C)
@@ -337,10 +342,15 @@ def reset_launches() -> None:
         k.launch.launches = 0
     cascade_qs_forward.launches = 0
     flash_forward.launches = 0
-    for routes in (qs_forward.launches_by_route,
-                   flash_forward.launches_by_route):
+    for routes in [k.launch.launches_by_route for k in KERNELS] + \
+            [flash_forward.launches_by_route]:
         for route in routes:
             routes[route] = 0
+
+
+def tile_routes() -> dict:
+    """The x-tile routes of the three forest kernels, by engine."""
+    return {k.engine: dict(k.launch.launches_by_route) for k in KERNELS}
 
 
 def launch_counts() -> dict:
@@ -364,7 +374,7 @@ def main_path(forest, X_calib, rows, device, engine="bitvector"):
                                device=device)
     served, server = serve(pred, rows)
     counts = launch_counts()
-    routes = dict(qs_forward.launches_by_route)
+    routes = tile_routes()
     launches = counts.pop(engine)
     if not np.array_equal(served, pred.predict(rows)):
         raise AssertionError("served output != synchronous predict")
@@ -376,20 +386,21 @@ def main_path(forest, X_calib, rows, device, engine="bitvector"):
     if device.type == "cuda" and launches != server.stats.n_batches:
         raise AssertionError(f"{engine}: its kernel launched {launches} "
                              f"times for {server.stats.n_batches} batches")
-    check_qs_route(routes, launches if engine == "bitvector" else 0, engine)
+    check_routes(routes, {engine: launches}, engine)
     if any(counts.values()):
         raise AssertionError(f"{engine}: other kernels launched {counts}")
     return pred, served, server, launches
 
 
-def check_qs_route(routes: dict, launches: int, what: str) -> None:
-    """Every one of ``launches`` ``qs_forward`` launches (``routes``, read
-    with them) staged its rows of x in shared memory: no dataset of the
+def check_routes(routes: dict, launches: dict, what: str) -> None:
+    """Every launch of the forest kernels (``routes``, by engine, read with
+    ``launches``) staged its rows of x in shared memory: no dataset of the
     repo is wide enough for the global-memory route."""
-    want = {"smem_x": launches, "global_x": 0}
+    want = {k.engine: {"smem_x": launches.get(k.engine, 0), "global_x": 0}
+            for k in KERNELS}
     if routes != want:
-        raise AssertionError(f"{what}: qs_forward routes {routes}, "
-                             f"expected {want}")
+        raise AssertionError(f"{what}: x-tile routes {routes}, expected "
+                             f"{want}")
 
 
 def magic_accuracy(device, n_trees=128, max_leaves=64):
@@ -491,12 +502,14 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
     """The cascade slice's main path: quantize → staged cascade →
     ``calibrate`` → serve fused and staged on ``backend="cuda"``.  Each
     served run starts with every launch count at 0 and must launch only
-    its kernel: fused ``cascade_qs_forward`` once per batch, staged
-    ``qs_forward`` once per stage with survivors (none at all on the
-    CPU).  Fused and staged must agree bit for bit, scores and per-batch
-    exit counts, and equal synchronous ``predict``.  Then a disabled gate
-    served fused must equal the plain bitvector engine, and
-    ``ScoreBoundGate`` must keep every row's class."""
+    its kernel: fused ``cascade_qs_forward`` once per batch (tier 2),
+    staged ``qs_forward`` once per stage with survivors, and the tier-1
+    fused cascade on ``engine="bitmm"`` / ``"gemm"`` its engine's kernel
+    once per stage with survivors (none at all on the CPU).  All four must
+    agree bit for bit, scores and per-batch exit counts, and equal
+    synchronous ``predict``.  Then a disabled gate served fused must equal
+    the plain bitvector engine, and ``ScoreBoundGate`` must keep every
+    row's class."""
     on_card = device.type == "cuda"
     qforest = core.quantize_forest(forest, X_train, QUANT)
     staged = core.compile_forest(qforest, engine="bitvector", backend="cuda",
@@ -504,44 +517,56 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
                                  cascade=CascadeSpec(stages))
     cal = calibrate(staged, X_cal, y_cal, floor_pp=CASCADE_FLOOR_PP)
     staged.set_policy(cal.policy)
-    fused = core.compile_forest(qforest, engine="bitvector", backend="cuda",
-                                device=device, cascade=CascadeSpec(
-                                    stages, cal.policy, fused=True))
+    fused = {engine: core.compile_forest(
+        qforest, engine=engine, backend="cuda", device=device,
+        cascade=CascadeSpec(stages, cal.policy, fused=True))
+        for engine in CASCADE_TIER1_ENGINES + ("bitvector",)}
+    for engine in CASCADE_TIER1_ENGINES:
+        if fused[engine].host_syncs != len(stages):
+            raise AssertionError(f"tier-1 fused {engine}: host_syncs "
+                                 f"{fused[engine].host_syncs}")
     runs = {}
-    for name, pred in (("fused", fused), ("staged", staged)):
+    preds = [("fused", fused["bitvector"]), ("staged", staged)] + [
+        (f"fused_{e}", fused[e]) for e in CASCADE_TIER1_ENGINES]
+    for name, pred in preds:
         reset_launches()
         rec = ExitRecorder(pred)
         served, server = serve(rec, rows)
         counts = launch_counts()
-        routes = dict(qs_forward.launches_by_route)
+        routes = tile_routes()
         if not np.array_equal(served, pred.predict(rows)):
             raise AssertionError(f"{name} cascade: served != predict")
         if not np.isfinite(served).all() or \
                 served.shape != (len(rows), forest.n_classes):
             raise AssertionError(f"{name} cascade: served shape "
                                  f"{served.shape} or non-finite values")
+        entered = sum(stages_entered(c) for c in rec.batches)
         want = {"cascade": server.stats.n_batches} if name == "fused" \
-            else {"bitvector": sum(stages_entered(c) for c in rec.batches)}
+            else {"bitvector": entered} if name == "staged" \
+            else {name[len("fused_"):]: entered}
         want = {k: want.get(k, 0) if on_card else 0 for k in counts}
         if counts != want:
             raise AssertionError(f"{name} cascade: kernel launches {counts},"
                                  f" expected {want}")
-        check_qs_route(routes, counts["bitvector"], f"{name} cascade")
+        check_routes(routes, counts, f"{name} cascade")
         if sum(server.stats.stage_exit_counts) != len(rows):
             raise AssertionError(f"{name} cascade: exit counts "
                                  f"{server.stats.stage_exit_counts} for "
                                  f"{len(rows)} rows")
         runs[name] = dict(served=served, batches=rec.batches, server=server,
                           launches=counts)
-    f, st = runs["fused"], runs["staged"]
-    if not np.array_equal(f["served"], st["served"]):
-        raise AssertionError("fused and staged cascades serve different "
-                             "scores")
-    if len(f["batches"]) != len(st["batches"]) or not all(
-            np.array_equal(a, b) for a, b in zip(f["batches"],
-                                                 st["batches"])):
-        raise AssertionError("fused and staged cascades exit rows at "
-                             "different stages")
+    f = runs["fused"]
+    for name, other in runs.items():
+        if not np.array_equal(f["served"], other["served"]):
+            raise AssertionError(f"fused (tier 2) and {name} cascades serve "
+                                 "different scores")
+        if len(f["batches"]) != len(other["batches"]) or not all(
+                np.array_equal(a, b) for a, b in zip(f["batches"],
+                                                     other["batches"])):
+            raise AssertionError(f"fused (tier 2) and {name} cascades exit "
+                                 "rows at different stages")
+    st = runs["staged"]
+    fused = fused["bitvector"]
     plain = core.compile_forest(qforest, engine="bitvector", backend="cuda",
                                 device=device)
     full = plain.predict(rows)
@@ -566,6 +591,8 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         qforest=qforest, policy=fused.policy, calibration=cal,
         stages=fused.stages, launches=f["launches"]["cascade"],
         staged_launches=st["launches"]["bitvector"],
+        tier1_launches={e: runs[f"fused_{e}"]["launches"][e]
+                        for e in CASCADE_TIER1_ENGINES},
         n_batches=f["server"].stats.n_batches,
         mean_batch=f["server"].stats.batch_sizes.mean(),
         exit_fractions=f["server"].stats.summary()["exit_fractions"],
@@ -828,9 +855,9 @@ def ptxas_functions(log: str):
     return out
 
 
-def hgmma_counts(sass: str) -> dict:
-    """HGMMA (wgmma) instructions per kernel in ``cuobjdump -sass``
-    output."""
+def opcode_counts(sass: str, opcode: str) -> dict:
+    """Instructions of ``opcode`` (``HGMMA``: wgmma; ``IMMA``: integer
+    mma.sync) per kernel in ``cuobjdump -sass`` output."""
     names = demangle(re.findall(r"Function : (\S+)", sass))
     counts, name = {}, None
     for line in sass.splitlines():
@@ -838,7 +865,7 @@ def hgmma_counts(sass: str) -> dict:
         if m:
             name = names[m.group(1)]
             counts[name] = 0
-        elif name and "HGMMA" in line:
+        elif name and opcode in line:
             counts[name] += 1
     return counts
 
@@ -919,15 +946,28 @@ def main() -> int:
               f"{max((r for _, r, _, _ in fns), default=0)} registers, "
               f"{sum(sp > 0 for *_, sp in fns)} with spill stores (at most "
               f"{max((sp for *_, sp in fns), default=0)} bytes)")
-    # per function: flash_forward's kernels, and qs_forward's at W <= 2
-    # (the MSN and mnist forests: L = 64, two leafidx words)
-    for name, keep in (("flash_forward", lambda fn: True),
-                       ("qs_forward", lambda fn: "qs_tile_kernel<2," in fn)):
+    # per function: flash_forward's kernels, and the forest kernels' at
+    # W <= 2 / two k-steps (the MSN and mnist forests: L = 64, N = 63)
+    for name, keep in (
+            ("flash_forward", lambda fn: True),
+            ("qs_forward", lambda fn: "qs_tile_kernel<2," in fn),
+            ("qs_bitmm_forward", lambda fn: "bitmm_tile_kernel<2," in fn),
+            ("gemm_forward", lambda fn: "gemm_tile_kernel<2," in fn)):
         for fn, regs, smem, spill in ptxas_functions(build.build_log(name)):
             if keep(fn):
                 print(f"ptxas {name} {fn}: {regs} registers, {smem} bytes "
                       f"static shared memory, {spill} bytes spill stores")
-    hgmma = hgmma_counts(build.sass("flash_forward"))
+    for name in ("qs_bitmm_forward", "gemm_forward"):
+        imma = opcode_counts(build.sass(name), "IMMA")
+        tiles = {fn: n for fn, n in imma.items() if "_tile_kernel" in fn}
+        print(f"SASS {name} (cuobjdump -sass): IMMA instructions in "
+              f"{len(tiles)} tile kernels, {min(tiles.values(), default=0)}"
+              f"-{max(tiles.values(), default=0)} each; at two k-steps "
+              f"{ {fn: n for fn, n in tiles.items() if '<2,' in fn} }")
+        if not tiles or min(tiles.values()) == 0:
+            raise AssertionError(f"{name}'s tile kernels hold no IMMA: "
+                                 f"{imma}")
+    hgmma = opcode_counts(build.sass("flash_forward"), "HGMMA")
     wgmma_fns = {fn: n for fn, n in hgmma.items()
                  if "flash_wgmma_kernel" in fn}
     print(f"SASS flash_forward (cuobjdump -sass): HGMMA instructions "
@@ -1036,20 +1076,27 @@ def main() -> int:
           f"{casc['stages']}, calibrated on {n_cal} rows (floor "
           f"{CASCADE_FLOOR_PP} pp): {cal.policy.tag()}, accuracy "
           f"{cal.accuracy:.4f} vs full {cal.full_accuracy:.4f}")
+    tier1 = casc["tier1_launches"]
     print(f"served {N_REQUESTS} requests in {casc['n_batches']} batches "
           f"(mean {casc['mean_batch']:.1f} rows): fused "
           f"cascade_qs_forward launches {casc['launches']}, qs_forward 0; "
           f"staged qs_forward launches {casc['staged_launches']}, "
-          f"cascade_qs_forward 0; fused == staged bit for bit, scores and "
-          f"per-batch exit counts; served == predict")
+          f"cascade_qs_forward 0; tier-1 fused on engine=bitmm "
+          f"qs_bitmm_forward launches {tier1['bitmm']}, on engine=gemm "
+          f"gemm_forward launches {tier1['gemm']} (each once per stage "
+          f"with survivors); tier-2 fused == staged == tier-1 bitmm == "
+          f"tier-1 gemm bit for bit, scores and per-batch exit counts; "
+          f"served == predict")
     print(f"exit fractions {[round(x, 4) for x in casc['exit_fractions']]},"
           f" mean trees per row {casc['mean_trees']:.2f} of {n_trees}; "
           f"served accuracy gated {casc['acc_gated']:.4f}, full forest "
           f"{casc['acc_full']:.4f}; disabled gate == bitvector engine; "
           f"ScoreBoundGate keeps every class")
+    p50 = casc["compute_p50_ms"]
     print(f"cascade per batch, host clock: predict p50 fused "
-          f"{casc['compute_p50_ms']['fused']:.3f} ms, staged "
-          f"{casc['compute_p50_ms']['staged']:.3f} ms [{card}]")
+          f"{p50['fused']:.3f} ms, staged {p50['staged']:.3f} ms, tier-1 "
+          f"fused bitmm {p50['fused_bitmm']:.3f} ms, gemm "
+          f"{p50['fused_gemm']:.3f} ms [{card}]")
     err_q, _ = compare_cascade(casc["qforest"], casc["stages"],
                                casc["policy"], crows[:B], device, ATOL_FULL)
     err_f, _ = compare_cascade(cforest, casc["stages"], casc["policy"],

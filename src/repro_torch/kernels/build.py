@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``build/lib<name>-<hash>.so`` at the root of the
-checkout, and is loaded with ``ctypes``.  The hash covers the source and
-the flags, so an edited source rebuilds on its next use and an unchanged
-one is reused.  ``build(names)`` starts one ``nvcc`` per missing library,
-all at once, and waits for them all.
+checkout, and is loaded with ``ctypes``.  The hash covers the source,
+the headers of ``csrc/`` and the flags, so an edited source or header
+rebuilds on its next use and an unchanged one is reused.
+``build(names)`` starts one ``nvcc`` per missing library, all at once,
+and waits for them all.
 
 Nothing here runs at import: the kernels build on first use, on a machine
 with the CUDA toolkit.
@@ -45,9 +46,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to under the current flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where ``csrc/<name>.cu`` builds to under the current flags.  The
+    hash covers the source, every header of ``csrc/`` (so a changed
+    header rebuilds the sources that include it) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -24,9 +24,8 @@ import torch
 
 from ..cascade.policy import GATE_SCORE_BOUND
 from ..core.quickscorer import qs_scores
-from .launch import (MAX_CLASSES, SHARED_BYTES, check_out_dtype,
-                     check_tensors, launch, library, on_card)
-from .quickscorer_kernel import MAX_WORDS
+from .launch import (SHARED_BYTES, check_out_dtype, check_tensors,
+                     kernel_limits, launch, library, on_card)
 
 ROWS_PER_BLOCK = 8       # rows of one block (cascade_qs_forward.cu kRows)
 TREE_SLICES = 32         # tree slices of one block (kSlices)
@@ -49,6 +48,14 @@ def tree_chunk(n_nodes: int, n_words: int, n_classes: int) -> int:
     per_tree = 4 * (n_nodes * (2 + n_words) + n_words)
     tc = min(MAX_CHUNK, (SHARED_BYTES - fixed) // per_tree)
     return tc - tc % TREE_SLICES if tc >= TREE_SLICES else tc
+
+
+def cascade_qs_forward_limits(feat, thr, masks, init_idx, leaf_val) -> None:
+    """Raise ``ValueError``, naming ``backend="torch"``, unless the kernel
+    takes these operands (numpy or torch; only their shapes are read): at
+    most ``MAX_WORDS`` leafidx words and ``MAX_CLASSES`` classes."""
+    kernel_limits("cascade_qs_forward", feat.shape[1], leaf_val.shape[-1],
+                  n_words=masks.shape[-1])
 
 
 def cascade_qs_forward_reference(x, valid, feat, thr, masks, init_idx,
@@ -138,10 +145,7 @@ def cascade_qs_forward(x, valid, feat, thr, masks, init_idx, leaf_val, *,
     W = masks.shape[-1]
     L, C = leaf_val.shape[1:]
     K = len(stage_bounds) - 1
-    if W > MAX_WORDS or C > MAX_CLASSES:
-        raise ValueError(f"the kernel takes at most {MAX_WORDS} leafidx "
-                         f"words (L <= {32 * MAX_WORDS}) and {MAX_CLASSES} "
-                         f"classes; got W={W}, C={C}")
+    cascade_qs_forward_limits(feat, thr, masks, init_idx, leaf_val)
     gate = policy.kernel_gate(K)
     consts = gate.operands(inv_scale, x.device)
     want = 5 + (2 * (K - 1) * C if gate.kind == GATE_SCORE_BOUND else 0)

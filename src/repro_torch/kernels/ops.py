@@ -15,8 +15,11 @@ from ..core.quickscorer import (as_bit_pattern, bitmm_full_word,
                                 bitmm_pack_arrays)
 from ..core.registry import BasePredictor, ensure_feature_column, \
     resolve_device
-from .gemm_forest_kernel import gemm_forward, node_masks
-from .quickscorer_kernel import qs_bitmm_forward, qs_forward
+from .gemm_forest_kernel import (gemm_forward, gemm_forward_limits,
+                                 leaf_major)
+from .quickscorer_kernel import (byte_planes, qs_bitmm_forward,
+                                 qs_bitmm_forward_limits, qs_forward,
+                                 qs_forward_limits)
 
 
 def _pad_to(x: np.ndarray, axis: int, mult: int, fill=0) -> np.ndarray:
@@ -63,15 +66,20 @@ class _KernelPredictor(BasePredictor):
     """Kernel-backed predictor on the shared base: overrides the predict
     path for batch bucketing/padding, inherits predict_class/proba.
     ``launch(x, *arrays, out_dtype=)`` is the kernel wrapper; ``arrays``
-    its padded operands, ``feat`` first."""
+    its padded operands, ``feat`` first; ``limits(*arrays)`` the kernel
+    module's limits function, which on a CUDA device must pass before any
+    array is moved there (the plain version on the CPU takes any
+    forest)."""
 
     def __init__(self, forest: Forest, launch, arrays: tuple, out_dtype,
-                 block_b: int, device: torch.device):
+                 block_b: int, device: torch.device, limits=None):
         if forest.flint:
             raise ValueError(
                 "FLInt forests are unsupported on the cuda backend: the "
                 "kernel takes f32 rows, which cannot represent int32 FLInt "
                 "keys (use backend='torch')")
+        if limits is not None and device.type == "cuda":
+            limits(*arrays)
         # no BasePredictor.__init__: the "compiled" state is the host
         # forest + the padded kernel arrays on the device
         self.forest = forest
@@ -136,22 +144,25 @@ def cuda_qs_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     the card; on ``device="cpu"`` the kernel's plain version runs."""
     device = resolve_device(device)
     return _KernelPredictor(forest, qs_forward, _qs_arrays(forest, block_t),
-                            _out_dtype(forest, block_t), block_b, device)
+                            _out_dtype(forest, block_t), block_b, device,
+                            limits=qs_forward_limits)
 
 
 def _bitmm_arrays(forest: Forest, block_t: int):
-    """Bit-matmul kernel arrays (feat, thr, packed, bias, leaf_val) and the
+    """Bit-matmul kernel arrays (feat, thr, planes, bias, leaf_val) and the
     field layout (bits, npack), tree axis padded to ``block_t``.  Padding
     nodes and trees get +inf thresholds (no predicate fires) and zero
     packed rows; padding trees a bias of ``bitmm_full_word`` (every leaf
     cleared → leaf 0) and zero leaf rows.  The packed words are integers
-    below 2^24, so their conversion to int32 is exact."""
+    below 2^24, so they split exactly into the three u8 byte planes the
+    int8 tensor cores read (``byte_planes``: (T, 3, G, Npad), K-major per
+    tree), and the bias converts exactly to int32."""
     packed, bias, bits, npack = bitmm_pack_arrays(forest)
     feat, thr, leaf_val = _node_arrays(forest, block_t, np.inf, np.inf)
-    packed = _pad_to(packed.astype(np.int32), 0, block_t)         # pad: 0
+    planes = byte_planes(_pad_to(packed, 0, block_t))             # pad: 0
     bias = _pad_to(bias.astype(np.int32), 0, block_t,
                    fill=bitmm_full_word(bits, npack))
-    return (feat, thr, packed, bias, leaf_val), bits, npack
+    return (feat, thr, planes, bias, leaf_val), bits, npack
 
 
 def cuda_bitmm_predictor(forest: Forest, block_b: int = 128,
@@ -164,22 +175,23 @@ def cuda_bitmm_predictor(forest: Forest, block_b: int = 128,
     fn = functools.partial(qs_bitmm_forward, bits=bits, npack=npack,
                            n_leaves=forest.n_leaves)
     return _KernelPredictor(forest, fn, arrays, _out_dtype(forest, block_t),
-                            block_b, device)
+                            block_b, device, limits=qs_bitmm_forward_limits)
 
 
 def _gemm_arrays(forest: Forest, block_t: int):
-    """GEMM kernel arrays (feat, thr, plus, minus, Bvec, leaf_val), tree
-    axis padded to ``block_t``.  Padding nodes take thresholds -inf (their
-    rows of A are zero, so S is irrelevant; -inf makes it 0 for finite
-    rows); padding trees zero rows of A and Bvec = L + 1 (no leaf matches),
-    as padding leaves already have.  A travels as its ``node_masks`` (the
-    +1 and -1 nodes of each leaf as bits) and Bvec as int32, both exact."""
+    """GEMM kernel arrays (feat, thr, A, Bvec, leaf_val), tree axis padded
+    to ``block_t``.  Padding nodes take thresholds -inf (their rows of A
+    are zero, so S is irrelevant; -inf makes it 0 for finite rows);
+    padding trees zero rows of A and Bvec = L + 1 (no leaf matches), as
+    padding leaves already have.  A travels as int8 in the layout the
+    int8 tensor cores read (``leaf_major``: (T, L, Npad), K-major per
+    tree) and Bvec as int32, both exact."""
     A, Bvec = gemm_arrays(forest)
     feat, thr, leaf_val = _node_arrays(forest, block_t, -np.inf, -np.inf)
-    plus, minus = node_masks(_pad_to(A, 0, block_t))
+    A = leaf_major(_pad_to(A, 0, block_t))
     Bvec = _pad_to(Bvec.astype(np.int32), 0, block_t,
                    fill=forest.n_leaves + 1)
-    return feat, thr, plus, minus, Bvec, leaf_val
+    return feat, thr, A, Bvec, leaf_val
 
 
 def cuda_gemm_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
@@ -190,7 +202,8 @@ def cuda_gemm_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     device = resolve_device(device)
     return _KernelPredictor(forest, gemm_forward,
                             _gemm_arrays(forest, block_t),
-                            _out_dtype(forest, block_t), block_b, device)
+                            _out_dtype(forest, block_t), block_b, device,
+                            limits=gemm_forward_limits)
 
 
 def cuda_fused_cascade_qs(forest: Forest, stages, policy, block_b: int = 128,
@@ -208,7 +221,7 @@ def cuda_fused_cascade_qs(forest: Forest, stages, policy, block_b: int = 128,
     predictors and this function: the kernel tiles rows itself, and
     ``FusedCascadePredictor`` pads batches to ``block_b`` multiples."""
     from ..cascade.predictor import tree_slice
-    from .cascade_kernel import cascade_qs_forward
+    from .cascade_kernel import cascade_qs_forward, cascade_qs_forward_limits
 
     if forest.flint:
         raise ValueError(
@@ -219,6 +232,8 @@ def cuda_fused_cascade_qs(forest: Forest, stages, policy, block_b: int = 128,
     bounds = (0,) + tuple(stages)
     parts = [_qs_arrays(tree_slice(forest, bounds[k], bounds[k + 1]),
                         block_t) for k in range(len(stages))]
+    if device.type == "cuda":
+        cascade_qs_forward_limits(*parts[0])
     arrays = tuple(torch.from_numpy(np.concatenate([p[i] for p in parts]))
                    .to(device) for i in range(5))
     stage_bounds = (0,) + tuple(

@@ -39,6 +39,7 @@ SHAPES = [
     (3, 16, 5, 1, 1),
     (5, 256, 7, 16, 300),
     (1024, 64, 136, 1, 1024),
+    (8, 16, 6, 1, 64),
 ]
 
 pytestmark = pytest.mark.cuda
@@ -183,9 +184,11 @@ def test_new_kernel_matches_plain_version(card, engine, T, L, d, C, B):
         x = torch.from_numpy(core.quantize_inputs(f, X).astype(
             np.float32)).to(card)
         before = kernel.launches
+        smem_x = kernel.launches_by_route["smem_x"]
         got = kernel(x, *arrays, **kw)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
+        assert kernel.launches_by_route["smem_x"] == smem_x + 1
         want = plain(x, *arrays, **kw)
         if kw["out_dtype"] == torch.int32:
             assert torch.equal(got, want)
@@ -231,6 +234,97 @@ def test_compile_forest_engine_defaults_to_the_card(card, engine):
     before = kernel.launches
     pred.predict(X)
     assert kernel.launches == before + 1
+
+
+# (n_trees, n_leaves, n_features, n_classes, full, seed): tests/test_bitmm.py's
+# forest sweep (deep unbalanced trees, multiclass, stumps, 22 packed groups
+# at L = 128), as chip_smoke.py's FOREST_SWEEP
+FOREST_SWEEP = [
+    (8, 16, 6, 1, True, 0),
+    (6, 64, 8, 1, False, 1),
+    (12, 32, 10, 3, False, 2),
+    (10, 2, 4, 1, True, 3),
+    (4, 128, 5, 2, False, 4),
+]
+
+
+def _kernel_run(engine, f, X, card):
+    """(kernel out, plain out, x, arrays, kw) for forest f on rows X."""
+    kernel, plain, operands, _ = NEW_KERNELS[engine]
+    arrays, kw = operands(f, card)
+    kw["out_dtype"] = ops._out_dtype(f, 8)
+    x = torch.from_numpy(core.quantize_inputs(f, X).astype(
+        np.float32)).to(card)
+    got = kernel(x, *arrays, **kw)
+    torch.cuda.synchronize()
+    return got, plain(x, *arrays, **kw), x, arrays, kw
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("T,L,d,C,full,seed", FOREST_SWEEP)
+def test_new_kernel_forest_sweep_and_nan_rows(card, engine, T, L, d, C,
+                                              full, seed):
+    """Stumps, deep unbalanced trees and 22 packed groups: int16 bit-exact,
+    float within the reference's tolerance, float rows holding NaN (which
+    goes left in bitmm and right in gemm) included; one smem_x launch."""
+    kernel = NEW_KERNELS[engine][0]
+    forest = core.random_forest_ir(T, L, d, n_classes=C, seed=seed,
+                                   full=full)
+    X = np.random.default_rng(seed + 200).normal(0, 1.3, size=(24, d))
+    qf = core.quantize_forest(forest, X, core.QuantSpec(16, int_accum=True))
+    got, want, *_ = _kernel_run(engine, qf, X, card)
+    assert torch.equal(got, want)
+    X[::3, ::2] = np.nan
+    routes = dict(kernel.launches_by_route)
+    got, want, *_ = _kernel_run(engine, forest, X, card)
+    assert kernel.launches_by_route == dict(
+        routes, smem_x=routes["smem_x"] + 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("d,route", [(784, "smem_x"), (2000, "global_x")])
+def test_new_kernel_wide_rows_take_their_route(card, engine, d, route):
+    """The mnist width stages x in shared memory; rows too wide for it
+    gather x from global memory.  Both bit-exact on int16, float within
+    tolerance, the same bits from two launches."""
+    kernel = NEW_KERNELS[engine][0]
+    X, forests = _forests(64, 64, d, 10, 300)
+    for f in forests:
+        before = dict(kernel.launches_by_route)
+        got, want, x, arrays, kw = _kernel_run(engine, f, X, card)
+        assert kernel.launches_by_route == {
+            k: n + (k == route) for k, n in before.items()}
+        if f.int_accum:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, kernel(x, *arrays, **kw))
+
+
+@pytest.mark.parametrize("engine", sorted(NEW_KERNELS))
+@pytest.mark.parametrize("T,L,d,C", [(1024, 64, 136, 1), (512, 64, 784, 10)])
+def test_new_kernel_float_sums_do_not_depend_on_the_batch(card, engine, T, L,
+                                                          d, C):
+    """A float forest's rows give the same bits in a batch of 455 rows as
+    in one of 1024: the tree groups do not change with the batch."""
+    kernel, _, operands, _ = NEW_KERNELS[engine]
+    X, (forest, _) = _forests(T, L, d, C, 1024)
+    arrays, kw = operands(forest, card)
+    x = torch.from_numpy(X.astype(np.float32)).to(card)
+    whole = kernel(x, *arrays, **kw)
+    part = kernel(x[:455].contiguous(), *arrays, **kw)
+    assert torch.equal(part, whole[:455])
+
+
+@pytest.mark.parametrize("engine", ["bitvector", "bitmm", "gemm", "cascade"])
+def test_compile_on_card_rejects_what_the_kernel_cannot_take(card, engine):
+    """Compile, not the first batch, raises for an L = 512 forest."""
+    forest = core.random_forest_ir(2, 512, 4, n_classes=1, seed=0, full=True)
+    kw = dict(engine="bitvector", cascade=CascadeSpec((1, 2), fused=True)) \
+        if engine == "cascade" else dict(engine=engine)
+    with pytest.raises(ValueError, match='at most.*backend="torch"'):
+        core.compile_forest(forest, backend="cuda", **kw)
 
 
 # --------------------------------------------------------------------------- #

@@ -10,6 +10,8 @@ tests/test_bitmm.py run them.  Float forests rtol 1e-5 / atol 1e-6 against
 the reference and 1e-4 / 1e-5 against the numpy oracle; int-accum forests
 bit-exact.  ``test_torch_cuda.py`` holds the kernels themselves against
 their plain versions on the card."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -126,16 +128,21 @@ def test_padding_batch_edge(kernel, small_forest):
 
 def test_bitmm_arrays_padding(class_forest):
     """12 trees padded to 16: +inf thresholds, zero packed rows, a full
-    bias word and zero leaf rows; packed words travel as exact int32."""
+    bias word and zero leaf rows; packed words travel exactly as u8 byte
+    planes (T, 3, G, Npad) and the bias as int32."""
     forest = port(class_forest)
-    (feat, thr, packed, bias, leaf_val), bits, npack = \
+    (feat, thr, planes, bias, leaf_val), bits, npack = \
         ops._bitmm_arrays(forest, 8)
     want_packed, want_bias, _, _ = tcore.quickscorer.bitmm_pack_arrays(forest)
-    assert packed.dtype == bias.dtype == np.int32
+    N, G = want_packed.shape[1:]
+    assert planes.dtype == np.uint8 and bias.dtype == np.int32
+    assert planes.shape == (16, 3, G, launch.node_pad(N))
+    packed = qk.packed_words(torch.from_numpy(planes), N).numpy()
     np.testing.assert_array_equal(packed[:12], want_packed)
     np.testing.assert_array_equal(bias[:12], want_bias)
     assert feat.shape[0] == 16 and np.isinf(thr[12:]).all()
-    assert (packed[12:] == 0).all() and (leaf_val[12:] == 0).all()
+    assert (planes[12:] == 0).all() and (leaf_val[12:] == 0).all()
+    assert not planes[..., N:].any()
     full = tcore.quickscorer.bitmm_full_word(bits, npack)
     assert (bias[12:] == full).all()
     assert np.isposinf(thr[:12][forest.feature < 0]).all()
@@ -143,16 +150,17 @@ def test_bitmm_arrays_padding(class_forest):
 
 def test_gemm_arrays_padding(class_forest):
     """12 trees padded to 16: -inf thresholds for padding nodes and trees,
-    no mask bits for padding trees, Bvec = L + 1 for padding trees and
-    leaves; the masks are A's +1 and -1 nodes."""
+    zero A for padding trees, Bvec = L + 1 for padding trees and leaves; A
+    travels as int8 (T, L, Npad), leaf-major and K-major per tree."""
     forest = port(class_forest)
-    feat, thr, plus, minus, Bvec, leaf_val = ops._gemm_arrays(forest, 8)
-    assert plus.dtype == minus.dtype == Bvec.dtype == np.int32
-    A = gk.node_matrix(torch.from_numpy(plus), torch.from_numpy(minus),
-                       feat.shape[1]).numpy()
+    feat, thr, A8, Bvec, leaf_val = ops._gemm_arrays(forest, 8)
+    N = feat.shape[1]
+    assert A8.dtype == np.int8 and Bvec.dtype == np.int32
+    assert A8.shape == (16, forest.n_leaves, launch.node_pad(N))
+    A = gk.node_matrix(torch.from_numpy(A8), N).numpy()
     np.testing.assert_array_equal(A[:12], tcore.baselines.gemm_arrays(
         forest)[0])
-    assert not (plus & minus).any()
+    assert not A8[..., N:].any()
     L = forest.n_leaves
     assert np.isneginf(thr[12:]).all() and (A[12:] == 0).all()
     assert (Bvec[12:] == L + 1).all() and (leaf_val[12:] == 0).all()
@@ -162,18 +170,33 @@ def test_gemm_arrays_padding(class_forest):
 
 
 @pytest.mark.parametrize("N", [1, 31, 32, 63, 100, 255, 300])
-def test_node_masks_round_trip(N):
-    """Bit j of word k is node 32k + j, for every word width."""
+def test_leaf_major_round_trip(N):
+    """A[t, n, l] lands at [t, l, n] of the int8 operand, nodes padded to
+    whole k-steps of 32 with zeros, for every node count."""
     A = np.random.default_rng(N).integers(-1, 2, size=(3, N, 5)).astype(
         np.float32)
-    plus, minus = gk.node_masks(A)
-    assert plus.shape == (3, 5, gk.fire_words(N)) and plus.dtype == np.int32
-    got = gk.node_matrix(torch.from_numpy(plus), torch.from_numpy(minus), N)
+    A8 = gk.leaf_major(A)
+    assert A8.shape == (3, 5, launch.node_pad(N)) and A8.dtype == np.int8
+    assert A8.shape[-1] % 32 == 0 and not A8[..., N:].any()
+    got = gk.node_matrix(torch.from_numpy(A8), N)
     np.testing.assert_array_equal(got.numpy(), A)
-    words = plus.view(np.uint32)
-    n = N - 1
-    assert bool(words[0, 0, n // 32] >> np.uint32(n % 32) & 1) == \
-        (A[0, n, 0] > 0)
+    assert A8[1, 4, N - 1] == A[1, N - 1, 4]
+
+
+@pytest.mark.parametrize("N,G", [(1, 1), (31, 3), (63, 8), (127, 22),
+                                 (255, 86)])
+def test_byte_planes_round_trip(N, G):
+    """Words below 2^24 split into three u8 planes, byte p of [t, n, g] at
+    [t, p, g, n], and join again exactly; wider words are refused."""
+    w = np.random.default_rng(N).integers(0, 1 << 24, size=(2, N, G))
+    planes = qk.byte_planes(w)
+    assert planes.shape == (2, 3, G, launch.node_pad(N))
+    assert planes.dtype == np.uint8 and not planes[..., N:].any()
+    assert planes[1, 2, G - 1, N - 1] == w[1, N - 1, G - 1] >> 16
+    got = qk.packed_words(torch.from_numpy(planes), N)
+    np.testing.assert_array_equal(got.numpy(), w)
+    with pytest.raises(ValueError, match="2\\^24"):
+        qk.byte_planes(w + (1 << 24))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.int32])
@@ -183,10 +206,10 @@ def test_gemm_plain_version_sums_every_hit(out_dtype):
     x = torch.zeros((3, 2))
     feat = torch.zeros((1, 1), dtype=torch.int32)
     thr = torch.full((1, 1), -float("inf"))
-    plus = torch.zeros((1, 4, 1), dtype=torch.int32)
+    A = torch.zeros((1, 4, 32), dtype=torch.int8)
     Bvec = torch.tensor([[0, 0, 5, 5]], dtype=torch.int32)
     leaf_val = torch.tensor([[[1.0], [2.0], [4.0], [8.0]]])
-    got = gemm_forward(x, feat, thr, plus, plus.clone(), Bvec, leaf_val,
+    got = gemm_forward(x, feat, thr, A, Bvec, leaf_val,
                        out_dtype=out_dtype)
     assert got.dtype == out_dtype
     np.testing.assert_array_equal(got.numpy(), np.full((3, 1), 3))
@@ -276,7 +299,7 @@ def test_bitmm_forward_checks_its_inputs(small_forest):
     args, kw = _bitmm_args(port(small_forest))
     bad = list(args)
     bad[3] = args[3].float()
-    with pytest.raises(TypeError, match="packed: dtype"):
+    with pytest.raises(TypeError, match="planes: dtype"):
         qs_bitmm_forward(*bad, **kw)
     bad = list(args)
     bad[4] = args[4][:, :-1].contiguous()
@@ -300,7 +323,7 @@ def test_gemm_forward_checks_its_inputs(small_forest):
     args = _gemm_args(port(small_forest))
     bad = list(args)
     bad[3] = args[3].float()
-    with pytest.raises(TypeError, match="plus: dtype"):
+    with pytest.raises(TypeError, match="A: dtype"):
         gemm_forward(*bad)
     for i in (4, 5):
         bad = list(args)
@@ -329,23 +352,170 @@ def test_predictor_takes_the_launch_function(small_forest):
     pred = ops._KernelPredictor(forest, fake, ops._gemm_arrays(forest, 8),
                                 torch.float32, 16, torch.device("cpu"))
     out = pred.predict(rows(3, forest.n_features, 0))
-    assert out.shape == (3, 1) and calls == [((16, 6), 6, torch.float32)]
+    assert out.shape == (3, 1) and calls == [((16, 6), 5, torch.float32)]
     with pytest.raises(ValueError, match="width"):
         pred.predict_transformed(np.zeros((3, 1), dtype=np.float32))
 
 
+# (B, d, T, N, G or L, C): the MSN forest, the mnist cascade's, the widest
+# trees the kernels take, and rows too wide for a shared-memory x tile
+TILE_SHAPES = [(1024, 136, 1024, 63, 8, 1), (1024, 784, 512, 63, 64, 10),
+               (300, 136, 5, 255, 86, 16), (300, 2000, 64, 63, 64, 10)]
+
+
 def test_tree_chunks_fit_shared_memory():
-    for T, N, G in [(1024, 63, 8), (4, 127, 22), (5, 255, 43), (3, 0, 1)]:
-        tc = qk.tree_chunk(T, N, G)
-        assert 1 <= tc <= min(max(T, 1), launch.MAX_TREE_CHUNK)
-        assert tc == 1 or 4 * tc * (N * (2 + G) + G) <= launch.SHARED_BYTES
-    # one tree of the widest packing (N=255, bits 8, 86 groups) needs
-    # more than 48 KB, and opts into at most 227 KB
-    assert 4 * (255 * (2 + 86) + 86) <= launch.MAX_SHARED_BYTES
-    for T, N, L in [(1024, 63, 64), (5, 255, 256), (3, 1, 2)]:
-        tc = gk.gemm_tree_chunk(T, N, L)
-        fw = gk.fire_words(N)
-        assert 32 * fw >= N and fw in (1, 2, 4, 8)
-        assert 4 * tc * (2 * N + L * (2 * fw + 1)) <= launch.SHARED_BYTES
-    assert [gk.fire_words(n) for n in (0, 32, 33, 64, 65, 129, 256)] == \
-        [1, 1, 2, 2, 4, 8, 8]
+    """Each kernel's ring of chunk trees and its x tile fit the shared
+    memory of a block, as the sources reckon it; the chunk is one tree a
+    warp at most, the tree groups cover every tree, and only the row blocks
+    change with B."""
+    for B, d, T, N, G, C in TILE_SHAPES:
+        for layout, tree in (
+                (qk.bitmm_layout, launch.tile_tree_bytes(
+                    N, 3 * launch.round_up(G, 8), G)),
+                (gk.gemm_layout, launch.tile_tree_bytes(
+                    N, launch.round_up(G, 8), G))):
+            lay = layout(B, d, T, N, G, C, n_sm=132)
+            assert lay.route == ("global_x" if d == 2000 else "smem_x")
+            assert 1 <= lay.chunk <= min(T, 8)
+            assert lay.shared_bytes == launch.tile_shared_bytes(
+                tree, C, d, lay.chunk, lay.route == "smem_x")
+            assert lay.shared_bytes <= launch.MAX_SHARED_BYTES
+            assert (lay.n_groups - 1) * lay.group_trees < T <= \
+                lay.n_groups * lay.group_trees
+            assert layout(455, d, T, N, G, C, n_sm=132) == \
+                dataclasses.replace(lay, row_blocks=-(-455 // 32))
+    assert launch.tile_tree_bytes(63, 24, 8) == 512 + 24 * 80 + 32
+    assert [launch.node_pad(n) for n in (0, 1, 32, 33, 255, 256)] == \
+        [32, 32, 32, 64, 256, 256]
+
+
+# --------------------------------------------------------------------------- #
+# the operands against the reference's, and the plain versions on them
+# against the Pallas kernels
+# --------------------------------------------------------------------------- #
+OPERAND_FORESTS = [FOREST_SWEEP[0], FOREST_SWEEP[3], FOREST_SWEEP[4]]
+
+
+@pytest.mark.parametrize("T,L,d,C,full,seed", OPERAND_FORESTS)
+def test_bitmm_planes_round_trip_to_reference(T, L, d, C, full, seed):
+    """The byte planes join into the reference's packed words
+    (``repro.core.quickscorer.bitmm_pack_arrays``), with its bias and
+    field layout, tree for tree."""
+    from repro.core.quickscorer import bitmm_pack_arrays
+    forest = rcore.random_forest_ir(T, L, d, n_classes=C, seed=seed,
+                                    full=full)
+    packed, bias, bits, npack = bitmm_pack_arrays(forest)
+    (_, _, planes, tbias, _), tbits, tnpack = ops._bitmm_arrays(port(forest),
+                                                               4)
+    assert (tbits, tnpack) == (bits, npack)
+    got = qk.packed_words(torch.from_numpy(planes), packed.shape[1]).numpy()
+    np.testing.assert_array_equal(got[:T], np.asarray(packed))
+    np.testing.assert_array_equal(tbias[:T], np.asarray(bias))
+
+
+@pytest.mark.parametrize("T,L,d,C,full,seed", OPERAND_FORESTS)
+def test_gemm_operand_round_trips_to_reference(T, L, d, C, full, seed):
+    """The int8 operand is the reference's A (``compile_gemm``) leaf-major,
+    and Bvec is its Bvec, tree for tree."""
+    forest = rcore.random_forest_ir(T, L, d, n_classes=C, seed=seed,
+                                    full=full)
+    g = rcore.compile_gemm(forest)
+    feat, _, A8, Bvec, _ = ops._gemm_arrays(port(forest), 4)
+    A = gk.node_matrix(torch.from_numpy(A8), feat.shape[1]).numpy()
+    np.testing.assert_array_equal(A[:T], np.asarray(g.A))
+    np.testing.assert_array_equal(Bvec[:T], np.asarray(g.Bvec))
+
+
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
+@pytest.mark.parametrize("T,L,d,C,full,seed", OPERAND_FORESTS)
+def test_plain_version_on_new_operands_matches_pallas_kernel(
+        kernel, T, L, d, C, full, seed):
+    """The plain version on the tensor-core operands against the Pallas
+    kernel itself in interpret mode, on the reference's own operands, one
+    block of rows and trees: float within 1e-5 / 1e-6, int16 bit-exact."""
+    from repro.kernels import gemm_forest_kernel as rgk
+    from repro.kernels import ops as rops
+    from repro.kernels import quickscorer_kernel as rqk
+    forest = rcore.random_forest_ir(T, L, d, n_classes=C, seed=seed,
+                                    full=full)
+    X = rows(16, d, seed + 300)
+    for f in (forest, rcore.quantize_forest(forest, X, INT16)):
+        xq = rcore.quantize_inputs(f, X).astype(np.float32)
+        tf = port(f)
+        out_dtype = ops._out_dtype(tf, 8)
+        x = torch.from_numpy(xq)
+        if kernel == "bitmm":
+            arrays, bits, npack = ops._bitmm_arrays(tf, 8)
+            got = qs_bitmm_forward_reference(
+                x, *map(torch.from_numpy, arrays), bits=bits, npack=npack,
+                n_leaves=tf.n_leaves, out_dtype=out_dtype)
+            packed, bias, _, _ = rcore.quickscorer.bitmm_pack_arrays(f)
+            feat, thr, _, _, leaf_val = arrays
+            bias = rops._pad_to(np.asarray(bias), 0, 8, fill=float(
+                rcore.quickscorer.bitmm_full_word(bits, npack)))
+            want = rqk.qs_bitmm_forward(
+                xq, feat, thr, rops._pad_to(np.asarray(packed), 0, 8), bias,
+                leaf_val, bits=bits, npack=npack, n_leaves=f.n_leaves,
+                block_b=16, block_t=8, interpret=True,
+                out_dtype=rops._out_dtype(f, 8))
+        else:
+            arrays = ops._gemm_arrays(tf, 8)
+            got = gemm_forward_reference(x, *map(torch.from_numpy, arrays),
+                                         out_dtype=out_dtype)
+            feat, thr, A8, Bvec, leaf_val = arrays
+            A = gk.node_matrix(torch.from_numpy(A8), feat.shape[1]).numpy()
+            want = rgk.gemm_forward(
+                xq, feat, thr, A, Bvec.astype(np.float32), leaf_val,
+                block_b=16, block_t=8, interpret=True,
+                out_dtype=rops._out_dtype(f, 8))
+        want = np.asarray(want)
+        if f.int_accum:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# kernel limits, checked when the predictor is built
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("engine", ["bitvector", "bitmm", "gemm", "cascade"])
+def test_compile_rejects_what_the_kernel_cannot_take(engine):
+    """An L = 512 forest (511 nodes, 16 leafidx words) compiled for the
+    card raises when it is built, naming the torch backend, and moves
+    nothing there first (a CPU-only torch can make a cuda device, but not
+    a tensor on it); the plain versions on the CPU still take it."""
+    from repro_torch.cascade import CascadeSpec
+    forest = tcore.random_forest_ir(2, 512, 4, n_classes=1, seed=0,
+                                    full=True)
+    kw = dict(engine="bitvector", cascade=CascadeSpec((1, 2), fused=True)) \
+        if engine == "cascade" else dict(engine=engine)
+    with pytest.raises(ValueError, match='at most.*backend="torch"'):
+        tcore.compile_forest(forest, backend="cuda", device="cuda", **kw)
+    X = rows(3, 4, 0)
+    got = tcore.compile_forest(forest, backend="cuda", device="cpu",
+                               **kw).predict(X)
+    want = tcore.compile_forest(forest, backend="torch", device="cpu",
+                                **kw).predict(X)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_limit_functions_name_the_torch_backend():
+    """Each kernel module's limits function reads shapes only and passes
+    what the kernel takes."""
+    from repro_torch.kernels import cascade_kernel as ck
+    small = [np.zeros(s) for s in ((2, 63), (2, 63), (2, 63, 2), (2, 2),
+                                   (2, 64, 16))]
+    for limits in (qk.qs_forward_limits, ck.cascade_qs_forward_limits,
+                   qk.qs_bitmm_forward_limits, gk.gemm_forward_limits):
+        limits(*small)
+        with pytest.raises(ValueError, match='C=17.*backend="torch"'):
+            limits(*small[:4], np.zeros((2, 64, 17)))
+    wide = [np.zeros(s) for s in ((2, 257), (2, 257), (2, 257, 9), (2, 9),
+                                  (2, 258, 1))]
+    for limits, what in ((qk.qs_forward_limits, "W=9"),
+                         (ck.cascade_qs_forward_limits, "W=9"),
+                         (qk.qs_bitmm_forward_limits, "N=257"),
+                         (gk.gemm_forward_limits, "N=257")):
+        with pytest.raises(ValueError, match=what):
+            limits(*wide)

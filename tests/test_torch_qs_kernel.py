@@ -188,10 +188,14 @@ def test_predictor_rejects_narrow_rows(small_forest):
 
 
 def test_tree_chunk_fits_shared_memory():
-    for T, N, W in [(1024, 63, 2), (3, 15, 1), (100, 255, 8)]:
-        tc = quickscorer_kernel.tree_chunk(T, N, W)
-        assert 1 <= tc <= min(T, launch.MAX_TREE_CHUNK)
-        assert 4 * tc * (N * (2 + W) + W) <= launch.SHARED_BYTES
+    """The bit-matmul kernel's ring chunk: at most one tree a warp, and
+    two stages of it beside the x tile fit a block's shared memory."""
+    for T, N, G in [(1024, 63, 2), (3, 15, 1), (100, 255, 8)]:
+        lay = quickscorer_kernel.bitmm_layout(1024, 136, T, N, G, 1)
+        assert 1 <= lay.chunk <= min(T, quickscorer_kernel.BITMM_MAX_CHUNK)
+        tree = launch.tile_tree_bytes(N, 3 * launch.round_up(G, 8), G)
+        assert 2 * lay.chunk * tree + 4 * 33 * 136 == lay.shared_bytes
+        assert lay.shared_bytes <= launch.MAX_SHARED_BYTES
 
 
 
