@@ -10,7 +10,8 @@ or JAX.  Phases:
  1. the software and the card (``nvidia-smi`` name and power limit);
  2. build every kernel of the path from ``src/repro_torch/kernels/csrc``
     (one ``nvcc`` per source, all started together); print each kernel's
-    ptxas registers, static shared memory and spills, the HGMMA (wgmma)
+    ptxas registers, static shared memory and spills (the mnist cascade's
+    ``cascade_qs_forward`` instance must not spill), the HGMMA (wgmma)
     instructions in the SASS of ``flash_forward``'s bf16 kernels and the
     IMMA (int8 mma.sync) instructions in that of ``qs_bitmm_forward``'s and
     ``gemm_forward``'s tile kernels, which must all hold some;
@@ -30,7 +31,8 @@ or JAX.  Phases:
     most ``ACCURACY_MARGIN_PP`` below its float forest's;
  5. the cascade slice: hold ``cascade_qs_forward`` against its plain
     version at a shape sweep (margin, proba and bound gates; logit and
-    vote leaves; float and int16) and at full width; train the reference
+    vote leaves; float and int16; invalid rows; two launches
+    bit-identical) and at full width; train the reference
     benchmark's largest cascade forest (``RandomForest`` 512 trees x 64
     leaves on mnist, d=784, C=10), quantize it int16 with int-accum,
     calibrate the gate on half the test rows and serve the other half,
@@ -41,8 +43,10 @@ or JAX.  Phases:
     only), and the tier-1 fused cascade on ``engine="bitmm"`` and
     ``"gemm"`` (one ``qs_bitmm_forward`` / ``gemm_forward`` launch per
     stage with survivors): all four bit-identical, scores and exit counts,
-    served == ``predict``; a disabled gate served fused equals the plain
-    bitvector engine, and ``ScoreBoundGate`` keeps every row's class;
+    served == ``predict``, every fused launch on the x-tile route; a
+    disabled gate served fused equals the plain bitvector engine, and
+    ``ScoreBoundGate`` keeps every row's class; then one served fused
+    batch's host time split into its steps;
  6. the LM slice: hold ``flash_forward`` against its plain version at the
     reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
     in both, two launches bit-identical; then serve smollm-360m at full
@@ -62,8 +66,9 @@ or JAX.  Phases:
     and ``library_device_ms``; ``flash_forward`` also beside
     ``scaled_dot_product_attention``, at the served shape and at
     ``prefill_32k``'s per-sequence shape, S = 32768, and its f32 route
-    at the served shape; ``qs_forward`` also over the mnist cascade's 512
-    trees).
+    at the served shape; ``cascade_qs_forward`` beside ``qs_forward``
+    over the mnist cascade's 512 trees, with its cluster layout and the
+    share of walked pairs that belong to exited rows).
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -95,13 +100,18 @@ from repro_torch import core  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
                                  ProbaGate, ScoreBoundGate, calibrate)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.engine_select import bucket_batch  # noqa: E402
+from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
+                                       ensure_feature_column)
 from repro_torch.data import datasets  # noqa: E402
 from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
                                      TokenPipelineConfig)
 from repro_torch.inference import ForestServer, LMServer  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.cascade_kernel import (  # noqa: E402
-    cascade_qs_forward, cascade_qs_forward_reference)
+    cascade_layout, cascade_qs_forward, cascade_qs_forward_reference,
+    resident_clusters)
+from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model  # noqa: E402
@@ -153,15 +163,24 @@ ACCURACY_MARGIN_PP = 0.5
 # leaves) for the cascade kernel: logit leaves through the softmax gate,
 # vote leaves through the vote normalization, the bound gate where its
 # later stages are short enough to fire (C = 3 and the C = 1 band), wide
-# leaves and classes, and batches that cross the 8-row tiles
+# leaves and classes, batches that cross the 32-row tiles (the last two
+# rows invalid), a first stage of fewer trees than a cluster has warps, and
+# the mnist cascade's shape on a random forest: every entry of
+# tests/test_torch_cuda.py's CASCADE_SHAPES, two more batches, and a
+# two-word vote forest
 CASCADE_SWEEP = [
     (24, 16, 8, 3, 300, (6, 12, 24), MarginGate(0.3), False),
+    (24, 16, 8, 3, 129, (6, 12, 24), ProbaGate(0.5), True),
     (24, 16, 8, 3, 300, (6, 12, 24), ProbaGate(0.5), True),
     (24, 16, 8, 3, 300, (20, 22, 24), ScoreBoundGate(), True),
+    (24, 16, 8, 1, 77, (20, 22, 24), ScoreBoundGate(0.5, 0.25), False),
     (24, 16, 8, 1, 129, (20, 22, 24), ScoreBoundGate(0.5, 0.25), False),
-    (16, 64, 10, 2, 77, (4, 16), MarginGate(0.2), True),
     (12, 256, 7, 16, 33, (3, 12), MarginGate(0.1), False),
+    (24, 16, 8, 3, 77, (3, 12, 24), MarginGate(0.3), False),
+    (512, 64, 784, 10, 1024, (16, 64, 256, 512), MarginGate(0.3), False),
+    (16, 64, 10, 2, 77, (4, 16), MarginGate(0.2), True),
 ]
+CASCADE_INVALID = 2              # rows of each sweep batch with valid False
 # benchmarks/bench_cascade.py:53-60, its largest case: mnist, a random
 # forest of 512 trees x 64 leaves, stages (16, 64, 256), calibrated to
 # within half a percentage point of the full forest (:75-85)
@@ -343,7 +362,8 @@ def reset_launches() -> None:
     cascade_qs_forward.launches = 0
     flash_forward.launches = 0
     for routes in [k.launch.launches_by_route for k in KERNELS] + \
-            [flash_forward.launches_by_route]:
+            [cascade_qs_forward.launches_by_route,
+             flash_forward.launches_by_route]:
         for route in routes:
             routes[route] = 0
 
@@ -450,32 +470,37 @@ def stages_entered(counts) -> int:
     return int((reach > 0).sum())
 
 
-def cascade_operands(forest, stages, policy, X, device):
+def cascade_operands(forest, stages, policy, X, device, n_invalid=0):
     """``cascade_qs_forward``'s operands for ``forest``, a prepared
-    ``policy`` and rows ``X``: (x, valid, arrays, keyword arguments)."""
+    ``policy`` and rows ``X``, the last ``n_invalid`` rows marked invalid:
+    (x, valid, arrays, keyword arguments)."""
     fn = ops.cuda_fused_cascade_qs(forest, stages, policy, block_t=BLOCK_T,
                                    device=device)
     xq = core.quantize_inputs(forest, np.asarray(X)).astype(np.float32)
     x = torch.from_numpy(xq).to(device)
-    valid = torch.ones(len(X), dtype=torch.bool, device=device)
+    valid = torch.arange(len(X), device=device) < len(X) - n_invalid
     kw = dict(stage_bounds=fn.stage_bounds, policy=policy,
               inv_scale=1.0 / core.leaf_scale(forest),
               out_dtype=fn.out_dtype)
     return x, valid, fn.arrays, kw
 
 
-def compare_cascade(forest, stages, policy, X, device, atol: float):
+def compare_cascade(forest, stages, policy, X, device, atol: float,
+                    n_invalid=0):
     """``cascade_qs_forward`` vs its plain version on the same operands,
-    ``policy`` prepared anew for ``forest``: the exit stages must be
-    identical, the scores bit-exact on int-accum forests and within rtol
-    / ``atol`` otherwise.  Returns (max |diff| of the scores, per-stage
-    exit counts)."""
+    ``policy`` prepared anew for ``forest``, the last ``n_invalid`` rows
+    invalid: the exit stages must be identical, the scores bit-exact on
+    int-accum forests and within rtol / ``atol`` otherwise, invalid rows
+    0 at the last stage, and a second launch must give the same bits.
+    Returns (max |diff| of the scores, per-stage exit counts of the valid
+    rows)."""
     policy = copy.copy(policy)
     policy.prepare(forest, stages)
     x, valid, arrays, kw = cascade_operands(forest, stages, policy, X,
-                                            device)
+                                            device, n_invalid)
     got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
     want, want_exit = cascade_qs_forward_reference(x, valid, *arrays, **kw)
+    again, again_exit = cascade_qs_forward(x, valid, *arrays, **kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     err = float((got.double() - want.double()).abs().max())
@@ -493,7 +518,12 @@ def compare_cascade(forest, stages, policy, X, device, atol: float):
     elif not torch.allclose(got, want, rtol=RTOL, atol=atol):
         raise AssertionError(f"cascade {tag}: max |diff| {err} > atol "
                              f"{atol}")
-    counts = torch.bincount(got_exit.long(), minlength=len(stages))
+    if got[~valid].any() or (got_exit[~valid] != len(stages) - 1).any():
+        raise AssertionError(f"cascade {tag}: an invalid row scored or "
+                             "exited early")
+    if not (torch.equal(got, again) and torch.equal(got_exit, again_exit)):
+        raise AssertionError(f"cascade {tag}: two launches differ")
+    counts = torch.bincount(got_exit[valid].long(), minlength=len(stages))
     return err, counts.cpu().numpy()
 
 
@@ -534,6 +564,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         served, server = serve(rec, rows)
         counts = launch_counts()
         routes = tile_routes()
+        cascade_routes = dict(cascade_qs_forward.launches_by_route)
         if not np.array_equal(served, pred.predict(rows)):
             raise AssertionError(f"{name} cascade: served != predict")
         if not np.isfinite(served).all() or \
@@ -549,12 +580,16 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
             raise AssertionError(f"{name} cascade: kernel launches {counts},"
                                  f" expected {want}")
         check_routes(routes, counts, f"{name} cascade")
+        if cascade_routes != {"smem_x": counts["cascade"], "global_x": 0}:
+            raise AssertionError(
+                f"{name} cascade: cascade_qs_forward routes "
+                f"{cascade_routes}, expected {counts['cascade']} smem_x")
         if sum(server.stats.stage_exit_counts) != len(rows):
             raise AssertionError(f"{name} cascade: exit counts "
                                  f"{server.stats.stage_exit_counts} for "
                                  f"{len(rows)} rows")
         runs[name] = dict(served=served, batches=rec.batches, server=server,
-                          launches=counts)
+                          launches=counts, routes=cascade_routes)
     f = runs["fused"]
     for name, other in runs.items():
         if not np.array_equal(f["served"], other["served"]):
@@ -588,8 +623,9 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         raise AssertionError(f"gated accuracy {acc_gated:.4f} more than 2 pp"
                              f" below the full forest's {acc_full:.4f}")
     return dict(
-        qforest=qforest, policy=fused.policy, calibration=cal,
+        qforest=qforest, policy=fused.policy, calibration=cal, fused=fused,
         stages=fused.stages, launches=f["launches"]["cascade"],
+        routes=f["routes"],
         staged_launches=st["launches"]["bitvector"],
         tier1_launches={e: runs[f"fused_{e}"]["launches"][e]
                         for e in CASCADE_TIER1_ENGINES},
@@ -622,6 +658,68 @@ def cascade_bound(x, valid, arrays, kw, exit_stage, stages):
     t_ops, t_bytes = n_ops / ALU_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops, reach
+
+
+def exited_pair_share(valid, exit_stage, stage_bounds) -> float:
+    """The share of the (row, tree) pairs ``cascade_qs_forward`` walks
+    that belong to rows already exited: a 32-row tile walks a stage's
+    (padded) trees for all its rows while any of them is still active."""
+    ex = np.where(valid.cpu().numpy(), exit_stage.cpu().numpy(), -1)
+    ex = np.pad(ex, (0, -len(ex) % TILE_ROWS), constant_values=-1)
+    tiles = ex.reshape(-1, TILE_ROWS)
+    trees = np.diff(stage_bounds)
+    walked = needed = 0
+    for k, t in enumerate(trees):
+        live = (tiles >= k).any(axis=1)
+        walked += int(live.sum()) * TILE_ROWS * int(t)
+        needed += int((tiles >= k).sum()) * int(t)
+    return 1.0 - needed / walked if walked else 0.0
+
+
+def host_split(pred, X, device, reps: int = 20) -> dict:
+    """Host milliseconds (median of ``reps``) of each part of one served
+    fused batch: ``FusedCascadePredictor.predict`` on the kernel tier
+    done step by step, with a synchronize after each step that reaches
+    the card.  The result must equal ``pred.predict(X)``."""
+    fn = ops.cuda_fused_cascade_qs(pred.forest, pred.stages, pred.policy,
+                                   device=device, **pred.engine_kw)
+    K = len(pred.stages)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    times = {k: [] for k in ("quantize", "pad", "h2d", "kernel",
+                             "exit_counts", "d2h")}
+    for _ in range(reps):
+        t = [time.perf_counter()]
+        feed = ensure_feature_column(np.asarray(pred.transform_inputs(X)))
+        feed = feed.astype(np.float32)
+        t.append(time.perf_counter())
+        n, mult = feed.shape[0], pred._row_mult
+        bucket = mult * bucket_batch(-(-n // mult))
+        Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
+        Xp[:n] = feed
+        t.append(time.perf_counter())
+        xt = as_input_tensor(Xp, device)
+        sync()
+        t.append(time.perf_counter())
+        valid = torch.arange(bucket, device=device) < n
+        scores, exit_stage = fn(xt, valid)
+        sync()
+        t.append(time.perf_counter())
+        stages = torch.arange(K, dtype=torch.int32, device=device)
+        hot = (exit_stage[:, None] == stages[None, :]) & valid[:, None]
+        counts = hot.sum(dim=0).cpu().numpy()
+        t.append(time.perf_counter())
+        out = scores[:n].cpu().numpy()
+        t.append(time.perf_counter())
+        for key, a, b in zip(times, t, t[1:]):
+            times[key].append((b - a) * 1e3)
+    if not np.array_equal(out, pred.predict(X)) or \
+            not np.array_equal(counts, pred.last_exit_counts):
+        raise AssertionError("host split: the steps disagree with predict")
+    return {k: float(np.median(v)) for k, v in times.items()} | {
+        "bucket": bucket}
 
 
 def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
@@ -952,11 +1050,20 @@ def main() -> int:
             ("flash_forward", lambda fn: True),
             ("qs_forward", lambda fn: "qs_tile_kernel<2," in fn),
             ("qs_bitmm_forward", lambda fn: "bitmm_tile_kernel<2," in fn),
-            ("gemm_forward", lambda fn: "gemm_tile_kernel<2," in fn)):
+            ("gemm_forward", lambda fn: "gemm_tile_kernel<2," in fn),
+            ("cascade_qs_forward", lambda fn: "cascade_kernel<2,16," in fn)):
         for fn, regs, smem, spill in ptxas_functions(build.build_log(name)):
             if keep(fn):
                 print(f"ptxas {name} {fn}: {regs} registers, {smem} bytes "
                       f"static shared memory, {spill} bytes spill stores")
+    # the mnist cascade's instance (W = 2, C = 10 in CMAX 16, x tile,
+    # int32) must not spill
+    mnist_fns = [(fn, spill) for fn, _, _, spill in ptxas_functions(
+        build.build_log("cascade_qs_forward"))
+        if re.fullmatch(r"cascade_kernel<2,16,(1|true),int>", fn)]
+    if len(mnist_fns) != 1 or mnist_fns[0][1]:
+        raise AssertionError(f"cascade_qs_forward's mnist instance: "
+                             f"{mnist_fns} (expected one, no spills)")
     for name in ("qs_bitmm_forward", "gemm_forward"):
         imma = opcode_counts(build.sass(name), "IMMA")
         tiles = {fn: n for fn, n in imma.items() if "_tile_kernel" in fn}
@@ -1046,14 +1153,19 @@ def main() -> int:
             forest = dataclasses.replace(
                 forest, leaf_value=np.abs(forest.leaf_value))
         X = np.random.default_rng(B_).normal(0, 1.3, size=(B_, d_))
-        err, _ = compare_cascade(forest, st, gate, X, device, ATOL)
+        # up to 512 f32 leaves summed in two orders (ATOL_FULL above)
+        atol = ATOL if T_ <= 64 else ATOL_FULL
+        err, _ = compare_cascade(forest, st, gate, X, device, atol,
+                                 CASCADE_INVALID)
         worst_cascade = max(worst_cascade, err)
         _, counts = compare_cascade(core.quantize_forest(forest, X, QUANT),
-                                    st, gate, X, device, ATOL)
+                                    st, gate, X, device, atol,
+                                    CASCADE_INVALID)
         print(f"cascade_qs_forward T={T_} L={L_} d={d_} C={C_} B={B_} "
-              f"stages={st} {gate.tag()} {'votes' if votes else 'logits'}: "
-              f"exit stages identical, int16 bit-exact (exits "
-              f"{counts.tolist()}), float max|diff| {err:.3g}")
+              f"stages={st} {gate.tag()} {'votes' if votes else 'logits'} "
+              f"(last {CASCADE_INVALID} rows invalid): exit stages "
+              f"identical, int16 bit-exact (exits {counts.tolist()}), float "
+              f"max|diff| {err:.3g}, two launches bit-identical")
     mnist = datasets.make_mnist()
     n_trees, max_leaves = CASCADE_FOREST
     t0 = time.perf_counter()
@@ -1105,7 +1217,17 @@ def main() -> int:
           f"d={cforest.n_features} C={cforest.n_classes} B={B}: exit "
           f"stages identical; int16 bit-exact ({err_q}); float max|diff| "
           f"{err_f:.3g} (atol {ATOL_FULL}); sweep float max|diff| "
-          f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL})")
+          f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL}, {ATOL_FULL} at "
+          f"512 trees)")
+    split = host_split(casc["fused"], crows[:round(casc["mean_batch"])],
+                       device)
+    print(f"one served fused mnist batch of {round(casc['mean_batch'])} rows "
+          f"(bucket {split['bucket']}), host clock with a synchronize "
+          f"after each step, median of 20: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()
+                      if k != "bucket")
+          + f"; sum {sum(v for k, v in split.items() if k != 'bucket'):.3f}"
+          f" ms [{card}]")
 
     # 6. the LM slice: flash_forward against its plain version, then
     # smollm-360m served at full width
@@ -1158,9 +1280,7 @@ def main() -> int:
     # 7. timings at the main paths' full-width kernel shapes.  ms and
     # library_ms: an eager loop of calls (cuda_ms), the host's work per
     # call included.  device_ms and library_device_ms: the same calls
-    # replayed from one CUDA graph (graph_ms), the device's time alone;
-    # null for the cascade kernel, whose wrapper copies its gate constants
-    # to the card per call, which a graph cannot capture
+    # replayed from one CUDA graph (graph_ms), the device's time alone
     records = []
     for k in KERNELS:
         x, arrays, kw = kernel_inputs(k, qfull, rows[:B], device)
@@ -1187,12 +1307,29 @@ def main() -> int:
 
     x, valid, arrays, kw = cascade_operands(
         casc["qforest"], casc["stages"], casc["policy"], crows[:B], device)
+    shape = (x.shape[1], arrays[0].shape[1], arrays[2].shape[-1],
+             arrays[-1].shape[1], arrays[-1].shape[-1],
+             int(kw["out_dtype"] == torch.int32))
+    held = {g: resident_clusters(dataclasses.replace(
+        cascade_layout(*shape[:3], shape[4]), cluster=g), *shape)
+        for g in range(1, 9)}
+    lay = cascade_layout(*shape[:3], shape[4], sm_count(0),
+                         lambda lay: held[lay.cluster])
+    print(f"cascade_qs_forward layout at the mnist shape: clusters of "
+          f"G={lay.cluster} blocks per 32-row tile, route {lay.route}, ring "
+          f"chunk {lay.chunk} trees, {lay.shared_bytes} shared bytes, "
+          f"{lay.blocks_per_sm} block(s) per SM; the card holds clusters of "
+          f"G blocks at once (cudaOccupancyMaxActiveClusters) {held}; the "
+          f"served fused run's launches by route {casc['routes']}")
     ms = cuda_ms(lambda: cascade_qs_forward(x, valid, *arrays, **kw), 200)
+    device_ms = graph_ms(lambda: cascade_qs_forward(x, valid, *arrays, **kw),
+                         200)
     plain_ms = cuda_ms(
         lambda: cascade_qs_forward_reference(x, valid, *arrays, **kw), 10)
     _, exit_stage = cascade_qs_forward(x, valid, *arrays, **kw)
     bound_ms, bound_by, nbytes, n_ops, reach = cascade_bound(
         x, valid, arrays, kw, exit_stage, casc["stages"])
+    exited = exited_pair_share(valid, exit_stage, kw["stage_bounds"])
     qx, qarrays, qkw = kernel_inputs(KERNELS[0], casc["qforest"], crows[:B],
                                      device)
     qs_ms = cuda_ms(lambda: qs_forward(qx, *qarrays, **qkw), 200)
@@ -1201,18 +1338,21 @@ def main() -> int:
     print(f"cascade_qs_forward B={B} T={n_trees} L={max_leaves} "
           f"d={cforest.n_features} C={cforest.n_classes} int16/int32-accum, "
           f"{casc['policy'].tag()}, rows reaching each stage {reach}: "
-          f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+          f"kernel {ms:.4f} ms (eager loop; on the device by graph replay "
+          f"{device_ms:.4f} ms), plain torch {plain_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {n_ops} ops); "
-          f"qs_forward over all {n_trees} trees {qs_ms:.4f} ms (on the "
-          f"device by graph replay {qs_device_ms:.4f} ms; bound "
-          f"{qs_bound_ms:.5f} ms by {qs_by}, {qs_ops} ops); no single "
-          f"PyTorch call computes this function [{card}]")
+          f"{exited:.1%} of the (row, tree) pairs walked are exited rows' "
+          f"(32-row tiles, no compaction); qs_forward over all {n_trees} "
+          f"trees {qs_ms:.4f} ms (on the device by graph replay "
+          f"{qs_device_ms:.4f} ms; bound {qs_bound_ms:.5f} ms by {qs_by}, "
+          f"{qs_ops} ops); no single PyTorch call computes this function "
+          f"[{card}]")
     records.append({
         "name": "cascade_qs_forward", "route": "cuda",
         "source": cascade_qs_forward.source,
         "replaces": cascade_qs_forward.replaces,
         "launches": casc["launches"],
-        "max_abs_err": max(err_q, err_f), "ms": ms, "device_ms": None,
+        "max_abs_err": max(err_q, err_f), "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library_device_ms": None})
 

@@ -33,13 +33,16 @@
 //     record each, {feat, thr, mask words}, 16 bytes for W <= 2 (32 for
 //     W <= 4, 48 for W <= 8); all lanes of a warp read the same record, a
 //     broadcast.  A chunk of `chunk` trees is staged by cp.async into a
-//     two-stage ring while the previous chunk is traversed.
-//   * The node loop is unrolled by kUnroll: the records of kUnroll nodes
-//     are loaded, then their x values, then the compares and ANDs, so the
-//     dependent pair of shared-memory loads of several nodes is in flight
-//     at once.  leafidx lives in registers (W <= 8, so L <= 256), updated
-//     branch-free: leafidx &= mask | keep.  The exit leaf is __ffs of the
-//     lowest nonzero word.
+//     two-stage ring while the previous chunk is traversed, each tree's
+//     run padded with never-firing records to a multiple of 8 nodes, so
+//     the walk has no tail of single nodes.
+//   * The node loop is unrolled by kQsUnroll: the records of kQsUnroll
+//     nodes are loaded, then their x values, then the compares and ANDs,
+//     so the dependent pair of shared-memory loads of several nodes is in
+//     flight at once.  leafidx lives in registers (W <= 8, so L <= 256),
+//     updated branch-free: leafidx &= mask | keep.  The exit leaf is __ffs
+//     of the lowest nonzero word.  The records, the x tile and this walk
+//     are tile_common.cuh's, shared with cascade_qs_forward.cu.
 //   * Grid: ceil(B/32) row blocks x tree groups; the wrapper
 //     (quickscorer_kernel.qs_layout) picks the group size so that a batch
 //     of 1024 rows fills the SMs in one wave, and never from B.  Each block
@@ -58,53 +61,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_common.cuh"
+
 namespace {
 
-constexpr int kRows = 32;                 // rows of a block: lane = row
-constexpr int kWarps = 8;                 // tree slices: warp = slice
-constexpr int kThreads = kRows * kWarps;
-constexpr int kXStride = kRows + 1;       // words per feature in x_s
-constexpr int kUnroll = 4;                // nodes whose loads overlap
-constexpr int kReduceThreads = 256;
-constexpr size_t kMaxSharedBytes = 232448;   // 227 KB
-
-// Words of one node record: feat, thr and W mask words, rounded up to
-// 16-byte units (W <= 8).
-constexpr int record_words(int W) { return W <= 2 ? 4 : (W <= 4 ? 8 : 12); }
-
-template <int WMAX>
-struct Record {
-  static constexpr int kWords = record_words(WMAX);
-  static constexpr int kVecs = kWords / 4;
-};
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Word i of a record held as 16-byte vectors (i is a constant after
-// unrolling, so this folds to a register).
-template <int V>
-__device__ __forceinline__ uint32_t word(const uint4 (&r)[V], int i) {
-  const uint4 q = r[i / 4];
-  switch (i % 4) {
-    case 0: return q.x;
-    case 1: return q.y;
-    case 2: return q.z;
-    default: return q.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using tile::kRows;
+using tile::kThreads;
+using tile::kWarps;
+using tile::kXStride;
+using tile::qs_node_pad;
+using tile::record_words;
 
 // Shared bytes of a block: the ring (or, after the tree loop, the 8 warps'
 // partial sums) and, for kSmemX, the x tile.  The wrapper passes what
@@ -112,7 +78,7 @@ __device__ __forceinline__ void cp_async_wait() {
 inline size_t shared_bytes(int N, int W, int C, int d, int chunk,
                            bool smem_x) {
   const size_t ring =
-      2 * static_cast<size_t>(chunk) * N * record_words(W);
+      2 * static_cast<size_t>(chunk) * qs_node_pad(N) * record_words(W);
   const size_t part = static_cast<size_t>(kWarps) * kRows * C;
   return 4 * ((ring > part ? ring : part) +
               (smem_x ? static_cast<size_t>(kXStride) * d : 0));
@@ -127,10 +93,11 @@ qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                const float* __restrict__ leaf_val, Acc* __restrict__ partial,
                int B, int d, int T, int N, int W, int L, int C, int chunk,
                int group_trees) {
-  using R = Record<WMAX>;
+  using R = tile::Record<WMAX>;
   extern __shared__ uint4 smem[];
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
-  const int chunk_words = chunk * N * R::kWords;
+  const int tree_words = qs_node_pad(N) * R::kWords;
+  const int chunk_words = chunk * tree_words;
   const int ring_words = max(2 * chunk_words, kWarps * kRows * C);
   float* x_s = reinterpret_cast<float*>(ring + ring_words);
 
@@ -140,32 +107,15 @@ qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   const int t_end = min(T, t_begin + group_trees);
   const int n_chunks = (t_end - t_begin + chunk - 1) / chunk;
 
-  if (kSmemX) {
-    // x_s[f * 33 + r] = x[row0 + r, f]: consecutive threads read
-    // consecutive features of a row and write banks f + r, all different
-    for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-      const int r = i / d, f = i % d;
-      if (row0 + r < B)
-        cp_async4(x_s + f * kXStride + r,
-                  x + static_cast<size_t>(row0 + r) * d + f);
-      else
-        x_s[f * kXStride + r] = 0.f;
-    }
-  }
+  if (kSmemX) tile::stage_x(x_s, x, row0, B, d);
+  tile::pad_records(ring, 2 * chunk, N, R::kWords);
   // chunk c's records into ring stage c % 2
   auto stage = [&](int c) {
     const int t0 = t_begin + c * chunk;
-    const int n_nodes = min(chunk, t_end - t0) * N;
-    uint32_t* dst = ring + (c % 2) * chunk_words;
-    const size_t node0 = static_cast<size_t>(t0) * N;
-    for (int i = threadIdx.x; i < n_nodes; i += kThreads) {
-      uint32_t* rec = dst + i * R::kWords;
-      cp_async4(rec, feat + node0 + i);
-      cp_async4(rec + 1, thr + node0 + i);
-      for (int w = 0; w < W; ++w)
-        cp_async4(rec + 2 + w, masks + (node0 + i) * W + w);
-    }
-    cp_async_commit();
+    tile::stage_records(ring + (c % 2) * chunk_words, t0,
+                        min(chunk, t_end - t0), N, W, R::kWords, feat, thr,
+                        masks);
+    tile::cp_async_commit();
   };
 
   // rows past B: x_s holds zeros; the global route reads row B - 1
@@ -178,9 +128,9 @@ qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   for (int c = 0; c < n_chunks; ++c) {
     if (c + 1 < n_chunks) {
       stage(c + 1);
-      cp_async_wait<1>();
+      tile::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      tile::cp_async_wait<0>();
     }
     __syncthreads();
     const uint32_t* recs = ring + (c % 2) * chunk_words;
@@ -188,56 +138,9 @@ qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     const int tc = min(chunk, t_end - t0);
     for (int slot = warp; slot < tc; slot += kWarps) {
       const int t = t0 + slot;
-      uint32_t leafidx[WMAX];
-#pragma unroll
-      for (int w = 0; w < WMAX; ++w)
-        leafidx[w] = w < W ? __ldg(init_idx + static_cast<size_t>(t) * W + w)
-                           : 0u;
-      const uint4* node = reinterpret_cast<const uint4*>(
-          recs + slot * N * R::kWords);
-      int n = 0;
-      for (; n + kUnroll <= N; n += kUnroll) {
-        uint4 rec[kUnroll][R::kVecs];
-        float xv[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-          for (int v = 0; v < R::kVecs; ++v)
-            rec[u][v] = node[(n + u) * R::kVecs + v];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          xv[u] = kSmemX ? x_s[rec[u][0].x * kXStride + lane]
-                         : __ldg(xr + rec[u][0].x);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          // keep = all ones when the row goes left at this node (x <= thr,
-          // or NaN): the node's mask then clears nothing
-          const uint32_t keep =
-              xv[u] > __uint_as_float(rec[u][0].y) ? 0u : 0xFFFFFFFFu;
-#pragma unroll
-          for (int w = 0; w < WMAX; ++w)
-            if (w < W) leafidx[w] &= word(rec[u], 2 + w) | keep;
-        }
-      }
-      for (; n < N; ++n) {
-        uint4 rec[R::kVecs];
-#pragma unroll
-        for (int v = 0; v < R::kVecs; ++v) rec[v] = node[n * R::kVecs + v];
-        const float xv = kSmemX ? x_s[rec[0].x * kXStride + lane]
-                                : __ldg(xr + rec[0].x);
-        const uint32_t keep =
-            xv > __uint_as_float(rec[0].y) ? 0u : 0xFFFFFFFFu;
-#pragma unroll
-        for (int w = 0; w < WMAX; ++w)
-          if (w < W) leafidx[w] &= word(rec, 2 + w) | keep;
-      }
-      // lowest set bit across words; the lowest nonzero word is assigned
-      // last.  An all-zero leafidx (a padding tree) keeps leaf 0, whose
-      // leaf row is zero.
-      int leaf = 0;
-#pragma unroll
-      for (int w = WMAX - 1; w >= 0; --w)
-        if (w < W && leafidx[w] != 0u) leaf = w * 32 + __ffs(leafidx[w]) - 1;
+      const int leaf = tile::qs_exit_leaf<WMAX, kSmemX>(
+          reinterpret_cast<const uint4*>(recs + slot * tree_words),
+          init_idx + static_cast<size_t>(t) * W, N, W, x_s, xr, lane);
       const float* lv = leaf_val + (static_cast<size_t>(t) * L + leaf) * C;
 #pragma unroll
       for (int c = 0; c < CMAX; ++c)
@@ -247,31 +150,8 @@ qs_tile_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   }
 
   // the 8 warps' sums per row, added in warp order
-  Acc* part = reinterpret_cast<Acc*>(ring);
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c)
-    if (c < C) part[(warp * kRows + lane) * C + c] = acc[c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    if (row0 + r >= B) continue;
-    Acc sum = Acc(0);
-    for (int w = 0; w < kWarps; ++w) sum += part[(w * kRows + r) * C + c];
-    partial[(static_cast<size_t>(blockIdx.y) * B + row0 + r) * C + c] = sum;
-  }
-}
-
-// out[i] = sum over groups k = 0, 1, ... of partial[k, i], in that order.
-template <typename Acc>
-__global__ void qs_reduce_kernel(const Acc* __restrict__ partial,
-                                 Acc* __restrict__ out, int n_groups,
-                                 int n_out) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i >= n_out) return;
-  Acc s = Acc(0);
-  for (int k = 0; k < n_groups; ++k)
-    s += partial[static_cast<size_t>(k) * n_out + i];
-  out[i] = s;
+  tile::write_partial<CMAX, Acc>(acc, reinterpret_cast<Acc*>(ring), partial,
+                                 blockIdx.y, row0, B, C);
 }
 
 struct Args {
@@ -301,11 +181,7 @@ cudaError_t launch(const Args& a, Acc* partial, Acc* out,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const int n_out = a.B * a.C;
-  qs_reduce_kernel<Acc>
-      <<<(n_out + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-         stream>>>(partial, out, n_groups, n_out);
-  return cudaGetLastError();
+  return tile::reduce_groups(partial, out, n_groups, a.B * a.C, stream);
 }
 
 template <int WMAX, int CMAX, typename Acc>
@@ -354,7 +230,7 @@ int qs_forward_launch(const void* x, const void* feat, const void* thr,
                       int int_accum, void* stream) {
   if (B < 1 || d < 1 || T < 0 || N < 0 || W < 1 || W > 8 || C < 1 ||
       C > 16 || L < 1 || L > 32 * W || chunk < 1 || group_trees < chunk ||
-      shared < 0 || static_cast<size_t>(shared) > kMaxSharedBytes ||
+      shared < 0 || static_cast<size_t>(shared) > tile::kMaxSharedBytes ||
       static_cast<size_t>(shared) !=
           shared_bytes(N, W, C, d, chunk, smem_x != 0) ||
       (T + group_trees - 1) / group_trees > 65535)

@@ -1,17 +1,18 @@
-// What the bit-matmul and GEMM forest kernels share on Hopper (sm_90a):
-// the block's shape, the feature-major x tile, cp.async staging, the
-// condition words of a tree (lane = row), their expansion into the A
-// fragments of an int8 mma.sync m16n8k32, the per-row partial sums and the
-// in-order sum over tree groups.
+// What the row-tile forest kernels share on Hopper (sm_90a): the block's
+// shape, the feature-major x tile, cp.async staging, the QuickScorer node
+// records and the walk of one tree (qs_forward, cascade_qs_forward), the
+// condition words of a tree (lane = row) and their expansion into the A
+// fragments of an int8 mma.sync m16n8k32 (qs_bitmm_forward, gemm_forward),
+// the per-row partial sums and the in-order sum over tree groups.
 //
 // A block is kRows = 32 rows x kWarps = 8 warps: lane = row, warp = tree
 // slice.  Its 32 rows of x sit in shared memory feature-major,
 // x_s[f * 33 + r], so a warp's read of one feature over its rows touches
-// 32 consecutive banks.  The tree's node records {feat, thr} are 8 bytes
-// each, read by all lanes at once (broadcasts).
+// 32 consecutive banks.  A tree's node records are read by all lanes at
+// once (broadcasts).
 //
-// Included by csrc/qs_bitmm_forward.cu and csrc/gemm_forward.cu;
-// kernels/build.py hashes this header into both libraries' names.
+// Included by every csrc/*.cu but flash_forward.cu; kernels/build.py
+// hashes this header into every library's name.
 
 #pragma once
 
@@ -107,6 +108,131 @@ struct FastDiv {
     return static_cast<int>(__umulhi(static_cast<uint32_t>(n), m));
   }
 };
+
+// ---- QuickScorer node records (qs_forward.cu, cascade_qs_forward.cu) ----
+
+constexpr int kQsUnroll = 4;              // nodes whose loads overlap
+constexpr int kQsNodeMultiple = 8;        // a tree's records in a ring
+static_assert(kQsNodeMultiple % kQsUnroll == 0, "whole node groups");
+
+// Words of one node record: feat, thr and W mask words, rounded up to
+// 16-byte units (W <= 8).
+__host__ __device__ constexpr int record_words(int W) {
+  return W <= 2 ? 4 : (W <= 4 ? 8 : 12);
+}
+
+// Records of one tree in a ring: N rounded up to kQsNodeMultiple.  The
+// records past N (feature 0 against an infinite threshold: they never
+// fire) are written once per block by pad_records and never by staging,
+// so a walk runs whole groups of kQsUnroll nodes.
+__host__ __device__ constexpr int qs_node_pad(int N) {
+  return round_up(N, kQsNodeMultiple);
+}
+
+template <int WMAX>
+struct Record {
+  static constexpr int kWords = record_words(WMAX);
+  static constexpr int kVecs = kWords / 4;
+};
+
+// Word i of a record held as 16-byte vectors (i is a constant after
+// unrolling, so this folds to a register).
+template <int V>
+__device__ __forceinline__ uint32_t word(const uint4 (&r)[V], int i) {
+  const uint4 q = r[i / 4];
+  switch (i % 4) {
+    case 0: return q.x;
+    case 1: return q.y;
+    case 2: return q.z;
+    default: return q.w;
+  }
+}
+
+// The padding records of the `slots` tree slots of a ring.
+__device__ __forceinline__ void pad_records(uint32_t* ring, int slots, int N,
+                                            int words) {
+  const int npad = qs_node_pad(N), pad = npad - N;
+  for (int i = threadIdx.x; i < slots * pad; i += kThreads) {
+    const int s = i / pad;
+    uint32_t* rec = ring + (s * npad + N + i - s * pad) * words;
+    rec[0] = 0u;
+    rec[1] = 0x7F800000u;                 // +inf
+  }
+}
+
+// The records of the tc trees from t0 of the (T, N) node arrays into the
+// tree slots at dst, qs_node_pad(N) records of `words` (record_words(W))
+// words each, by cp.async; the caller commits.
+__device__ __forceinline__ void stage_records(
+    uint32_t* dst, int t0, int tc, int N, int W, int words,
+    const int* __restrict__ feat, const float* __restrict__ thr,
+    const uint32_t* __restrict__ masks) {
+  if (N == 0) return;
+  const int npad = qs_node_pad(N);
+  const FastDiv by_tree(N);
+  const size_t node0 = static_cast<size_t>(t0) * N;
+  for (int i = threadIdx.x; i < tc * N; i += kThreads) {
+    const int t = N == 1 ? i : by_tree(i);     // FastDiv needs d >= 2
+    uint32_t* rec = dst + (t * npad + i - t * N) * words;
+    cp_async4(rec, feat + node0 + i);
+    cp_async4(rec + 1, thr + node0 + i);
+    for (int w = 0; w < W; ++w)
+      cp_async4(rec + 2 + w, masks + (node0 + i) * W + w);
+  }
+}
+
+// The exit leaf of one tree for this lane's row: the nodes whose
+// predicate x[feat] > thr fires (NaN does not) AND their masks into the
+// W-word leafidx, from the tree's init_idx; the leaf is its lowest set
+// bit.  `node` holds the tree's qs_node_pad(N) records in shared memory;
+// x comes from the x tile (kSmemX) or the row xr in global memory.  The
+// node loop is unrolled by kQsUnroll: the records of kQsUnroll nodes are
+// loaded, then their x values, then the compares and ANDs, so the
+// dependent pair of shared-memory loads of several nodes is in flight at
+// once.
+template <int WMAX, bool kSmemX>
+__device__ __forceinline__ int qs_exit_leaf(const uint4* node,
+                                            const uint32_t* __restrict__ init,
+                                            int N, int W, const float* x_s,
+                                            const float* __restrict__ xr,
+                                            int lane) {
+  using R = Record<WMAX>;
+  uint32_t leafidx[WMAX];
+#pragma unroll
+  for (int w = 0; w < WMAX; ++w) leafidx[w] = w < W ? __ldg(init + w) : 0u;
+  const int npad = qs_node_pad(N);
+  for (int n = 0; n < npad; n += kQsUnroll) {
+    uint4 rec[kQsUnroll][R::kVecs];
+    float xv[kQsUnroll];
+#pragma unroll
+    for (int u = 0; u < kQsUnroll; ++u)
+#pragma unroll
+      for (int v = 0; v < R::kVecs; ++v)
+        rec[u][v] = node[(n + u) * R::kVecs + v];
+#pragma unroll
+    for (int u = 0; u < kQsUnroll; ++u)
+      xv[u] = kSmemX ? x_s[rec[u][0].x * kXStride + lane]
+                     : __ldg(xr + rec[u][0].x);
+#pragma unroll
+    for (int u = 0; u < kQsUnroll; ++u) {
+      // keep = all ones when the row goes left at this node (x <= thr, or
+      // NaN): the node's mask then clears nothing
+      const uint32_t keep =
+          xv[u] > __uint_as_float(rec[u][0].y) ? 0u : 0xFFFFFFFFu;
+#pragma unroll
+      for (int w = 0; w < WMAX; ++w)
+        if (w < W) leafidx[w] &= word(rec[u], 2 + w) | keep;
+    }
+  }
+  // lowest set bit across words; the lowest nonzero word is assigned last.
+  // An all-zero leafidx (a padding tree) keeps leaf 0, whose leaf row is
+  // zero.
+  int leaf = 0;
+#pragma unroll
+  for (int w = WMAX - 1; w >= 0; --w)
+    if (w < W && leafidx[w] != 0u) leaf = w * 32 + __ffs(leafidx[w]) - 1;
+  return leaf;
+}
 
 // Zero node records past N in every tree slot of the two ring stages,
 // once per block: staging never writes them.

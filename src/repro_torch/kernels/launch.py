@@ -15,7 +15,6 @@ from . import build
 MAX_NODES = 256          # nodes per tree whose conditions fit 8 bit words
 MAX_WORDS = 8            # leafidx words a thread keeps in registers (L <= 256)
 MAX_CLASSES = 16         # class accumulators a thread keeps in registers
-SHARED_BYTES = 48 * 1024           # shared memory a block uses by default
 MAX_SHARED_BYTES = 232448          # 227 KB: the most a block may opt into
 
 # The row-tile kernels (csrc/qs_forward.cu, and csrc/tile_common.cuh's

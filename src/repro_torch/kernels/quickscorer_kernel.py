@@ -36,6 +36,7 @@ from .launch import (H100_SMS, TileLayout, check_out_dtype, check_tensors,
 # qs_forward — QuickScorer bitvector traversal
 # --------------------------------------------------------------------------- #
 QS_MAX_CHUNK = 16        # trees a block stages per ring stage
+QS_NODE_MULTIPLE = 8     # a tree's records in a ring (tile_common.cuh)
 
 
 def record_words(n_words: int) -> int:
@@ -44,12 +45,19 @@ def record_words(n_words: int) -> int:
     return 4 if n_words <= 2 else 8 if n_words <= 4 else 12
 
 
+def qs_tree_bytes(n_nodes: int, n_words: int) -> int:
+    """Bytes of one tree's node records in the ring of ``qs_forward`` and
+    ``cascade_qs_forward``: its nodes rounded up to ``QS_NODE_MULTIPLE``
+    (``qs_node_pad`` in tile_common.cuh), one record each."""
+    return 4 * round_up(n_nodes, QS_NODE_MULTIPLE) * record_words(n_words)
+
+
 def qs_shared_bytes(n_nodes: int, n_words: int, n_classes: int,
                     n_features: int, chunk: int, smem_x: bool) -> int:
     """A block's shared bytes, as ``shared_bytes`` in qs_forward.cu: the
     two-stage ring of node records (reused for the 8 warps' partial sums),
     plus the feature-major x tile on the ``smem_x`` route."""
-    return tile_shared_bytes(4 * n_nodes * record_words(n_words), n_classes,
+    return tile_shared_bytes(qs_tree_bytes(n_nodes, n_words), n_classes,
                              n_features, chunk, smem_x)
 
 
@@ -59,7 +67,7 @@ def qs_layout(B: int, d: int, T: int, N: int, W: int, C: int,
     of width d over T trees of N nodes (W leafidx words, C classes) on a
     card of ``n_sm`` SMs (``launch.tile_layout``, trees of one node record
     per node, up to ``QS_MAX_CHUNK`` a stage)."""
-    return tile_layout(B, d, T, C, 4 * N * record_words(W), QS_MAX_CHUNK,
+    return tile_layout(B, d, T, C, qs_tree_bytes(N, W), QS_MAX_CHUNK,
                        f"one tree's node records ({N} nodes x {W} words)",
                        n_sm)
 

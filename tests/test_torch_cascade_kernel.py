@@ -14,6 +14,7 @@ the kernel itself against its plain version on the card.
 """
 import copy
 import dataclasses
+import inspect
 
 import pytest
 
@@ -28,6 +29,7 @@ from repro_torch import cascade as tc  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.cascade import policy as tpolicy  # noqa: E402
 from repro_torch.kernels import cascade_kernel as ck  # noqa: E402
+from repro_torch.kernels import launch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 INT16 = rcore.QuantSpec(16, int_accum=True)
@@ -298,10 +300,76 @@ def test_fused_cascade_glue():
         ops.cuda_fused_cascade_qs(flint, (4, 8), pol, device="cpu")
 
 
-@pytest.mark.parametrize("N,W,C,want", [(63, 2, 10, 32), (15, 1, 3, 64),
-                                        (255, 8, 16, 3), (63, 2, 1, 32)])
-def test_tree_chunk(N, W, C, want):
-    assert ck.tree_chunk(N, W, C) == want
+# (d, N, W, C) → (route, chunk, cluster, shared bytes).  Shared bytes: the
+# ring 2·chunk·4·⌈N⌉₈·words(W) (nodes rounded up to 8; 4 words a record at
+# W <= 2, 12 at W = 8); the
+# sums 4·⌈(11·32·C + 65) / 4⌉·4; the x tile 4·33·d on the smem_x route.
+# The cluster: the largest power of two <= 8 whose blocks for 1024 rows
+# (32 tiles) fit one wave of the 132 SMs at the blocks an SM holds.
+LAYOUTS = [
+    # the mnist cascade: 32,768 + 14,352 + 103,488; one block an SM, so
+    # 4 x 32 = 128 blocks by the estimate (the card holds 30 clusters of 4
+    # but 39 of 3: test_cascade_layout_asks_the_card)
+    (784, 63, 2, 10, ("smem_x", 16, 4, 150608)),
+    # narrow rows: 8,192 + 4,496 + 1,056; eight blocks an SM
+    (8, 15, 1, 3, ("smem_x", 16, 8, 13744)),
+    # the kernel's limits: 196,608 (8 trees of 12,288 bytes) + 22,800 +
+    # 924
+    (7, 255, 8, 16, ("smem_x", 8, 4, 220332)),
+    # one class: 32,768 + 1,680 + 17,952; four blocks an SM
+    (136, 63, 2, 1, ("smem_x", 16, 8, 52400)),
+    # rows too wide for a 32-row x tile: x from global memory
+    (2000, 63, 2, 10, ("global_x", 16, 8, 47120)),
+]
+
+
+@pytest.mark.parametrize("d,N,W,C,want", LAYOUTS)
+def test_cascade_layout(d, N, W, C, want):
+    lay = ck.cascade_layout(d, N, W, C)
+    assert (lay.route, lay.chunk, lay.cluster, lay.shared_bytes) == want
+    assert lay.shared_bytes == ck.cascade_shared_bytes(
+        N, W, C, d, lay.chunk, lay.route == "smem_x")
+    assert lay.shared_bytes <= launch.MAX_SHARED_BYTES
+    assert 1024 // launch.TILE_ROWS * lay.cluster \
+        <= lay.blocks_per_sm * launch.H100_SMS
+
+
+def test_cascade_layout_asks_the_card():
+    """On the card the wrapper counts resident clusters with
+    cudaOccupancyMaxActiveClusters.  An H100 80GB HBM3 at the mnist shape
+    (one block an SM) holds 132 clusters of 1, 66 of 2, 39 of 3, 30 of 4,
+    22 of 5, 17 of 6 and 15 of 7 or 8 (scripts/torch_forest_tiles.py's
+    layout line): 32 tiles of 4 would take two waves, so the cluster is 3.
+    A card that holds none raises."""
+    held = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+    asked = []
+
+    def resident(lay):
+        asked.append(lay.cluster)
+        return held[lay.cluster]
+    lay = ck.cascade_layout(784, 63, 2, 10, resident=resident)
+    assert lay.cluster == 3 and asked[:6] == [8, 7, 6, 5, 4, 3]
+    assert lay == dataclasses.replace(ck.cascade_layout(784, 63, 2, 10),
+                                      cluster=3)
+    # fewer than 32 clusters of any size: one block a tile, several waves
+    assert ck.cascade_layout(784, 63, 2, 10,
+                             resident=lambda lay: 16 // lay.cluster
+                             ).cluster == 1
+    with pytest.raises(RuntimeError, match="no cluster"):
+        ck.cascade_layout(784, 63, 2, 10, resident=lambda lay: 0)
+
+
+def test_cascade_layout_never_depends_on_the_batch():
+    """The layout takes no batch size: a row's trees are split over the
+    cluster, and summed in one order, alike in every batch."""
+    assert list(inspect.signature(ck.cascade_layout).parameters) == \
+        ["d", "N", "W", "C", "n_sm", "resident"]
+    # the route changes where 32 rows of x stop fitting, whatever B is
+    widest = max(d for d in range(1500, 1800)
+                 if ck.cascade_layout(d, 63, 2, 10).route == "smem_x")
+    assert ck.cascade_layout(widest + 1, 63, 2, 10).route == "global_x"
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.cascade_layout(8, 4000, 8, 16)
 
 
 def test_kernel_tier_on_cpu_uses_the_plain_version():

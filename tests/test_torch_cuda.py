@@ -333,13 +333,16 @@ def test_compile_on_card_rejects_what_the_kernel_cannot_take(card, engine):
 # (n_trees, n_leaves, n_features, n_classes, batch, stages, gate, vote
 # leaves): logit leaves through the expf softmax, vote leaves, the bound
 # gate where it fires (C = 3, and the C = 1 band), wide leaves and classes,
-# batches across the 8-row tiles, and the mnist cascade's width
+# batches across the 32-row tiles (the last two rows invalid), a first
+# stage of fewer trees than a cluster has warps, and the mnist cascade's
+# width
 CASCADE_SHAPES = [
     (24, 16, 8, 3, 300, (6, 12, 24), MarginGate(0.3), False),
     (24, 16, 8, 3, 129, (6, 12, 24), ProbaGate(0.5), True),
     (24, 16, 8, 3, 300, (20, 22, 24), ScoreBoundGate(), True),
     (24, 16, 8, 1, 77, (20, 22, 24), ScoreBoundGate(0.5, 0.25), False),
     (12, 256, 7, 16, 33, (3, 12), MarginGate(0.1), False),
+    (24, 16, 8, 3, 77, (3, 12, 24), MarginGate(0.3), False),
     (512, 64, 784, 10, 1024, (16, 64, 256, 512), MarginGate(0.3), False),
 ]
 CASCADE_IDS = [f"{s[0]}x{s[1]}-C{s[3]}-B{s[4]}-{s[6].tag()}"
@@ -446,6 +449,75 @@ def test_cascade_gate_that_never_fires_is_qs_forward(card, T, L, d, C, B):
     want = qs_forward(x, *qs, out_dtype=kw["out_dtype"])
     assert torch.equal(got, want)
     assert (exit_stage == len(stages) - 1).all()
+
+
+def _check_cascade(got, got_exit, want, want_exit, int_accum, atol):
+    assert torch.equal(got_exit, want_exit)
+    if int_accum:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("votes", [False, True])
+@pytest.mark.parametrize("gate", [MarginGate(0.3), ProbaGate(0.5),
+                                  ScoreBoundGate()],
+                         ids=lambda g: g.tag())
+def test_cascade_every_gate_matches_plain_version(card, gate, votes):
+    """Every built-in gate on logit and vote leaves: exit stages identical
+    to the plain version's, int16 bit-exact, float within the reference's
+    rtol 1e-5 / atol 1e-6 (24 f32 leaves summed in two orders)."""
+    X, forests = _cascade_forests(24, 16, 8, 3, 300, votes)
+    for f in forests:
+        x, valid, arrays, kw = _cascade_operands(f, (6, 12, 24), gate, X,
+                                                 card)
+        got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
+        want, want_exit = cascade_qs_forward_reference(x, valid, *arrays,
+                                                       **kw)
+        _check_cascade(got, got_exit, want, want_exit, f.int_accum, 1e-6)
+
+
+@pytest.mark.parametrize("d,route", [(784, "smem_x"), (2000, "global_x")])
+def test_cascade_wide_rows_take_their_route(card, d, route):
+    """At the mnist cascade's leaves and classes (W = 2, C = 10), the mnist
+    width stages x in shared memory; rows too wide for it gather x from
+    global memory.  Both match the plain version and give the same bits
+    from two launches."""
+    from repro_torch.kernels import cascade_kernel as ck
+    X, forests = _cascade_forests(64, 64, d, 10, 300, False)
+    stages = (8, 32, 64)
+    for f in forests:
+        x, valid, arrays, kw = _cascade_operands(f, stages, MarginGate(0.3),
+                                                 X, card)
+        lay = ck.cascade_layout(d, arrays[0].shape[1], arrays[2].shape[-1],
+                                10)
+        assert lay.route == route
+        before = dict(cascade_qs_forward.launches_by_route)
+        got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
+        torch.cuda.synchronize()
+        assert cascade_qs_forward.launches_by_route == {
+            k: n + (k == route) for k, n in before.items()}
+        want, want_exit = cascade_qs_forward_reference(x, valid, *arrays,
+                                                       **kw)
+        _check_cascade(got, got_exit, want, want_exit, f.int_accum, 1e-5)
+        again = cascade_qs_forward(x, valid, *arrays, **kw)
+        assert torch.equal(got, again[0]) and torch.equal(got_exit, again[1])
+
+
+def test_cascade_rows_do_not_depend_on_the_batch(card):
+    """A float forest at the mnist cascade's shape: a row's scores and exit
+    stage have the same bits in a batch of 1024 rows and in one of 33
+    (each stage's trees are split over the cluster by the forest alone)."""
+    X, (forest, _) = _cascade_forests(512, 64, 784, 10, 1024, False)
+    x, valid, arrays, kw = _cascade_operands(
+        forest, (16, 64, 256, 512), MarginGate(0.3), X, card)
+    valid = torch.ones_like(valid)
+    whole, whole_exit = cascade_qs_forward(x, valid, *arrays, **kw)
+    part, part_exit = cascade_qs_forward(x[:33].contiguous(), valid[:33],
+                                         *arrays, **kw)
+    assert torch.equal(part, whole[:33])
+    assert torch.equal(part_exit, whole_exit[:33])
+    assert (whole_exit < 3).any()          # the gate fired
 
 
 class _NumpyOnlyGate(GatePolicy):

@@ -49,6 +49,19 @@ res = chip_smoke.cascade_path(
     ds.X_test[:60], ds.y_test[:60], ds.X_test[60:], ds.y_test[60:],
     torch.device("cpu"), stages=(4, 8, 16))
 assert res["launches"] == 0 and sum(res["exit_fractions"]) > 0.999
+split = chip_smoke.host_split(res["fused"], ds.X_test[60:100],
+                              torch.device("cpu"), reps=2)
+assert split["bucket"] == 128 and min(split.values()) >= 0
+err, counts = chip_smoke.compare_cascade(
+    res["qforest"], (4, 8, 16), res["policy"], ds.X_test[:40],
+    torch.device("cpu"), 0.0, n_invalid=2)
+assert err == 0 and counts.sum() == 38
+# two tiles: rows 0-31 exit at 0 but row 3 (stage 2), rows 32-33 at 1
+share = chip_smoke.exited_pair_share(
+    torch.ones(34, dtype=torch.bool),
+    torch.tensor([0, 0, 0, 2] + [0] * 28 + [1, 1]), (0, 8, 16, 32))
+walked = 2 * 32 * 8 + 2 * 32 * 8 + 32 * 16
+assert share == 1 - (34 * 8 + 3 * 8 + 16) / walked
 from repro_torch.configs import get_config
 cfg = get_config(chip_smoke.LM_ARCH).reduced()
 lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,
