@@ -47,7 +47,20 @@ or JAX.  Phases:
     disabled gate served fused equals the plain bitvector engine, and
     ``ScoreBoundGate`` keeps every row's class; then one served fused
     batch's host time split into its steps;
- 6. the LM slice: hold ``flash_forward`` against its plain version at the
+ 6. the compile slice: the MSN int16 forest written with
+    ``io.save_forest`` and compiled from the file at -O2 (``compile_plan(
+    path, opt="O2")``) on ``backend="cuda"`` for each kernel engine, served
+    (one launch per batch, no other kernel) bit-identical to the -O0
+    in-memory compile and to plain torch at -O2; the host ms of each compile
+    pass at O0, O1 and O2 and of each optimizer pass; the trained mnist
+    forest written as sklearn-shim JSON, compiled int16 at -O2 into a fused
+    cascade with a calibrated gate and served (one ``cascade_qs_forward``
+    launch per batch) bit-identical to the staged -O2 cascade in plain
+    torch, its full -O2 forest equal to -O0; the six golden model files of
+    ``tests/fixtures`` on every kernel engine; and ``ForestServer.save`` /
+    ``load`` of torch-engine predictors (load → first prediction against
+    compile → first prediction), with saving a ``cuda`` predictor refused;
+ 7. the LM slice: hold ``flash_forward`` against its plain version at the
     reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
     in both, two launches bit-identical; then serve smollm-360m at full
     width (32 layers, d 960, 15/5 heads, vocab 49152; seeded random
@@ -59,7 +72,7 @@ or JAX.  Phases:
     ``torch`` give the same greedy tokens and close prefill logits, so do
     the bf16 prefill logits, and teacher-forced ``decode_step`` matches
     ``Model.forward``;
- 7. time each kernel and its plain version with CUDA events, as an
+ 8. time each kernel and its plain version with CUDA events, as an
     eager loop of calls, beside the least time the card could take for
     the same work (the kernels and SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
@@ -84,6 +97,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,10 +110,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
-from repro_torch import core  # noqa: E402
+from repro_torch import core, io, optim  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
                                  ProbaGate, ScoreBoundGate, calibrate)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.engine_select import bucket_batch  # noqa: E402
 from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
                                        ensure_feature_column)
@@ -190,6 +205,17 @@ CASCADE_FLOOR_PP = 0.5
 # the tier-1 fused cascade (a device gate around each stage's kernel), on
 # the engines whose kernels have no cascade form of their own
 CASCADE_TIER1_ENGINES = ("bitmm", "gemm")
+# the compile slice: the forests above compiled from model files through
+# the optimizer middle-end (O0 is the unoptimized compile), the golden model
+# files and their tolerance (tests/test_importers.py:50), and the engines
+# whose predictors save and load (plain torch: cuda predictors are rebuilt
+# from the forest)
+OPT_LEVELS = ("O0", "O1", "O2")
+SERVED_OPT = "O2"
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+FIXTURE_RTOL, FIXTURE_ATOL = 1e-5, 1e-6
+SAVED_ENGINES = ("bitvector", "gemm")
 # (B, Sq, Sk, H, K, hd, causal) for flash_forward: tests/test_flash_kernel.py
 # :29-35 (MHA, GQA 3:1, MQA, Sq != Sk non-causal, smollm ratios), ragged
 # edges, and the dense configs' head dims 96 and 128
@@ -722,6 +748,265 @@ def host_split(pred, X, device, reps: int = 20) -> dict:
         "bucket": bucket}
 
 
+def pass_times(path, device, X_calib, **plan_kw):
+    """Host milliseconds of each compile pass for the model file ``path``:
+    ``core.pipeline``'s passes run one by one as ``compile_plan`` runs
+    them, with a synchronize after each.  Returns (ms by pass, predictor).
+    """
+    plan = pipeline.CompilePlan(device=device, **plan_kw)
+    ctx = {"X_calib": X_calib, "n_features": None, "n_classes": 1,
+           "load_kw": None, "opt_cache": None}
+    obj, ms = path, {}
+    for name in pipeline.PIPELINE:
+        t0 = time.perf_counter()
+        obj = pipeline.PASSES[name](obj, plan, ctx)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    return ms, obj
+
+
+def opt_pass_times(forest, X_calib, level=SERVED_OPT) -> dict:
+    """Host milliseconds of each optimizer pass of ``level`` and of the
+    oracle-equivalence check, run one by one on ``forest`` as
+    ``optim.optimize`` runs them."""
+    names, _ = optim.resolve_opt(level)
+    ms, out = {}, forest
+    for name in names:
+        t0 = time.perf_counter()
+        out = optim.OPT_PASSES[name].fn(out, {"X_calib": X_calib})
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    optim.verify_equivalence(forest, out)
+    ms["verify"] = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def opt_summary(before, after) -> str:
+    """Nodes, leaves L, trees, features and unique thresholds of two IRs."""
+    b, a = optim.ForestStats.of(before), optim.ForestStats.of(after)
+    return (f"nodes {b.n_nodes}→{a.n_nodes}, L {b.n_leaves}→{a.n_leaves}, "
+            f"trees {b.n_trees}→{a.n_trees}, features {b.n_features}→"
+            f"{a.n_features}, unique thresholds {b.n_unique_splits}→"
+            f"{a.n_unique_splits}, depth {b.max_depth}→{a.max_depth}")
+
+
+def packed_path(qforest, X_calib, rows, device, tmpdir,
+                engines=tuple(k.engine for k in KERNELS)) -> dict:
+    """The compile slice's first path: ``qforest`` written with
+    ``io.save_forest``, compiled from the file at ``SERVED_OPT`` for each
+    engine on ``backend="cuda"`` and served through ``ForestServer``.
+    Every launch count is set to 0 just before each engine's compile and
+    read just after its serve: its kernel once per batch (none on the
+    CPU), on the x-tile route, no other kernel.  The served scores must
+    equal, bit for bit, the in-memory -O0 compile on the same device and
+    the plain torch engine compiled from the file at ``SERVED_OPT``, and
+    each other."""
+    path = os.path.join(tmpdir, "msn.repro.npz")
+    io.save_forest(qforest, path)
+    on_card = device.type == "cuda"
+    out = {}
+    for engine in engines:
+        reset_launches()
+        pred = core.compile_plan(path, engine=engine, backend="cuda",
+                                 opt=SERVED_OPT, X_calib=X_calib,
+                                 device=device)
+        served, server = serve(pred, rows)
+        counts = launch_counts()
+        routes = tile_routes()
+        launches = counts.pop(engine)
+        if on_card and launches != server.stats.n_batches:
+            raise AssertionError(f"{engine} from {path}: {launches} "
+                                 f"launches for {server.stats.n_batches} "
+                                 "batches")
+        if any(counts.values()):
+            raise AssertionError(f"{engine} from {path}: other kernels "
+                                 f"launched {counts}")
+        check_routes(routes, {engine: launches}, f"{engine} from {path}")
+        o0 = core.compile_forest(qforest, engine=engine, backend="cuda",
+                                 device=device).predict(rows)
+        plain = core.compile_plan(path, engine=engine, backend="torch",
+                                  opt=SERVED_OPT, X_calib=X_calib,
+                                  device=device).predict(rows)
+        if not (np.array_equal(served, o0) and np.array_equal(served, plain)):
+            raise AssertionError(
+                f"{engine} {SERVED_OPT} from {path}: served scores differ "
+                f"from -O0 in memory ({np.abs(served - o0).max()}) or from "
+                f"plain torch {SERVED_OPT} ({np.abs(served - plain).max()})")
+        out[engine] = dict(pred=pred, served=served, launches=launches,
+                           n_batches=server.stats.n_batches)
+    for engine, r in out.items():
+        if not np.array_equal(r["served"], out[engines[0]]["served"]):
+            raise AssertionError(f"{engine} {SERVED_OPT} serves other scores"
+                                 f" than {engines[0]}")
+    return out
+
+
+def shim_json(rf, n_features: int) -> dict:
+    """A trained ``RandomForest``'s CART trees as the sklearn-shim JSON of
+    ``tests/fixtures/sklearn_rf_classifier.json``: per tree, preorder node
+    arrays (leaves: children -1, feature -2, threshold -2.0) and each
+    node's class values (a leaf's class distribution; zeros inside)."""
+    C = rf.n_classes
+    estimators = []
+    for tree in rf.trees:
+        arr = {k: [] for k in ("children_left", "children_right", "feature",
+                               "threshold", "value")}
+
+        def walk(nd) -> int:
+            i = len(arr["feature"])
+            arr["children_left"].append(-1)
+            arr["children_right"].append(-1)
+            if nd.is_leaf:
+                arr["feature"].append(-2)
+                arr["threshold"].append(-2.0)
+                arr["value"].append([[float(v) for v in nd.value]])
+                return i
+            arr["feature"].append(int(nd.feature))
+            arr["threshold"].append(float(nd.threshold))
+            arr["value"].append([[0.0] * C])
+            arr["children_left"][i] = walk(nd.left)
+            arr["children_right"][i] = walk(nd.right)
+            return i
+
+        walk(tree.root)
+        estimators.append(arr)
+    return {"n_features": n_features, "n_classes": C,
+            "estimators": estimators}
+
+
+def model_file_cascade(rf, n_features, X_train, X_cal, y_cal, rows, y_rows,
+                       device, tmpdir, stages=CASCADE_STAGES) -> dict:
+    """The compile slice's cascade: ``rf`` written as sklearn-shim JSON,
+    compiled from the file (int16 int-accum, ``SERVED_OPT``) into a staged
+    cascade in plain torch, whose gate ``calibrate`` fits, and into the
+    fused kernel cascade with that gate, served through ``ForestServer``.
+    Launch counts are set to 0 just before the fused compile and read just
+    after its serve: ``cascade_qs_forward`` once per batch, no other kernel
+    (none on the CPU).  Scores and per-batch exit counts must equal the
+    staged ``SERVED_OPT`` cascade's bit for bit, and the full
+    ``SERVED_OPT`` forest must equal -O0 on the same rows."""
+    path = os.path.join(tmpdir, "mnist_rf.json")
+    with open(path, "w") as f:
+        json.dump(shim_json(rf, n_features), f)
+    kw = dict(engine="bitvector", quant=QUANT, X_calib=X_train,
+              device=device)
+    staged = core.compile_plan(path, backend="torch", opt=SERVED_OPT,
+                               cascade=CascadeSpec(stages), **kw)
+    cal = calibrate(staged, X_cal, y_cal, floor_pp=CASCADE_FLOOR_PP)
+    staged.set_policy(cal.policy)
+    reset_launches()
+    fused = core.compile_plan(path, backend="cuda", opt=SERVED_OPT,
+                              cascade=CascadeSpec(stages, cal.policy,
+                                                  fused=True), **kw)
+    rec = ExitRecorder(fused)
+    served, server = serve(rec, rows)
+    counts = launch_counts()
+    routes = dict(cascade_qs_forward.launches_by_route)
+    want = {k: 0 for k in counts}
+    if device.type == "cuda":
+        want["cascade"] = server.stats.n_batches
+    if counts != want or routes != {"smem_x": want["cascade"],
+                                    "global_x": 0}:
+        raise AssertionError(f"cascade from {path}: launches {counts} "
+                             f"(routes {routes}), expected {want}")
+    srec = ExitRecorder(staged)
+    staged_served, _ = serve(srec, rows)
+    if not np.array_equal(served, staged_served) or not all(
+            np.array_equal(a, b) for a, b in zip(rec.batches,
+                                                 srec.batches)):
+        raise AssertionError(f"fused {SERVED_OPT} cascade from {path} != "
+                             f"the staged {SERVED_OPT} cascade in plain torch")
+    full = {lvl: core.compile_plan(path, backend="cuda", opt=lvl,
+                                   **kw).predict(rows)
+            for lvl in (SERVED_OPT, "O0")}
+    if not np.array_equal(full[SERVED_OPT], full["O0"]):
+        raise AssertionError(f"the full {SERVED_OPT} forest from {path} != "
+                             "-O0")
+    exits = np.asarray(server.stats.stage_exit_counts)
+    return dict(path=path, fused=fused, policy=cal.policy,
+                launches=counts["cascade"], n_batches=server.stats.n_batches,
+                imported=io.load_model(path), mean_trees=float(
+                    (exits * np.asarray(fused.stages)).sum() / exits.sum()),
+                acc=float((served.argmax(axis=1) == y_rows).mean()),
+                acc_full=float((full["O0"].argmax(axis=1) == y_rows).mean()))
+
+
+def fixture_path(device) -> list:
+    """Each golden model file of ``tests/fixtures`` compiled with
+    ``backend="cuda"`` on every kernel engine: one launch per predict (on
+    the card) and the expected predictions within the reference test's
+    tolerance.  Returns (fixture, engine, max |diff|) rows."""
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    out = []
+    for name, exp in sorted(expected.items()):
+        X, want = np.asarray(exp["X"]), np.asarray(exp["predict"])
+        for k in KERNELS:
+            pred = core.compile_plan(os.path.join(FIXTURES, name + ".json"),
+                                     engine=k.engine, backend="cuda",
+                                     device=device, load_kw=exp["kw"])
+            before = k.launch.launches
+            got = pred.predict(X)
+            if device.type == "cuda" and k.launch.launches != before + 1:
+                raise AssertionError(f"fixture {name}: {k.source_name} did "
+                                     "not launch")
+            np.testing.assert_allclose(got, want, rtol=FIXTURE_RTOL,
+                                       atol=FIXTURE_ATOL,
+                                       err_msg=f"fixture {name}/{k.engine}")
+            out.append((name, k.engine, float(np.abs(got - want).max())))
+    return out
+
+
+def save_load_path(qforest, rows, device, tmpdir) -> dict:
+    """``ForestServer.save`` / ``load`` of torch-engine predictors of
+    ``qforest``: loaded with ``device=None`` (the card; the CPU rehearsal
+    names its device), bit-identical predictions, and the host ms from
+    compile (or load) to the first predicted batch, each after an
+    untimed compile and predict warmed the same operations.  Saving a
+    ``cuda`` predictor must raise ``ValueError``."""
+    load_device = None if device.type == "cuda" else device
+    batch = rows[:MAX_BATCH]
+    out = {}
+    for engine in SAVED_ENGINES:
+        core.compile_forest(qforest, engine=engine, backend="torch",
+                            device=device).predict(batch)
+        t0 = time.perf_counter()
+        pred = core.compile_forest(qforest, engine=engine, backend="torch",
+                                   device=device)
+        first = pred.predict(batch)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(tmpdir, f"{engine}.srv.npz")
+        ForestServer(pred, max_batch=MAX_BATCH).save(path)
+        t0 = time.perf_counter()
+        server = ForestServer.load(path, device=load_device)
+        loaded_first = server.predictor.predict(batch)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if server.predictor.device.type != device.type or \
+                server.batcher.max_batch != MAX_BATCH:
+            raise AssertionError(f"{engine}: loaded on "
+                                 f"{server.predictor.device}, max_batch "
+                                 f"{server.batcher.max_batch}")
+        if not (np.array_equal(first, loaded_first) and np.array_equal(
+                pred.predict(rows), server.predictor.predict(rows))):
+            raise AssertionError(f"{engine}: the loaded server predicts "
+                                 "other scores")
+        out[engine] = dict(compile_ms=compile_ms, load_ms=load_ms,
+                           bytes=os.path.getsize(path))
+    cuda_pred = core.compile_forest(qforest, engine="bitvector",
+                                    backend="cuda", device=device)
+    path = os.path.join(tmpdir, "cuda.srv.npz")
+    try:
+        ForestServer(cuda_pred).save(path)
+    except ValueError as e:
+        out["cuda_error"] = str(e)
+    else:
+        raise AssertionError("saving a cuda predictor did not raise")
+    if os.path.exists(path):
+        raise AssertionError("a refused save left a file behind")
+    return out
+
+
 def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
     """Seeded head-major q (B*H, Sq, hd) and k/v (B*K, Sk, hd), made on
     ``device``."""
@@ -1229,7 +1514,76 @@ def main() -> int:
           + f"; sum {sum(v for k, v in split.items() if k != 'bucket'):.3f}"
           f" ms [{card}]")
 
-    # 6. the LM slice: flash_forward against its plain version, then
+    # 6. the compile slice: model files and the packed format, through the
+    # optimizer middle-end, onto the forest kernels
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        packed = packed_path(qfull, msn.X_train, rows, device, tmpdir)
+        wall = time.perf_counter() - t0
+        opt_pred = packed["bitvector"]["pred"]
+        print(f"compile slice: MSN int16 forest saved with io.save_forest, "
+              f"compiled from the file at {SERVED_OPT} on backend=cuda "
+              f"({opt_summary(qfull, opt_pred.forest)}) and served "
+              f"{N_REQUESTS} requests per engine: "
+              + ", ".join(f"{e} {r['launches']} launches for "
+                          f"{r['n_batches']} batches"
+                          for e, r in packed.items())
+              + f"; no other kernel; served == -O0 in memory == plain torch "
+              f"{SERVED_OPT} from the file, bit for bit, on every engine "
+              f"({wall:.1f} s host wall)")
+        print("compile slice: " + " → ".join(
+            f"{r.name}[{r.detail}]" for r in opt_pred.plan.records
+            if r.name.startswith("opt") or r.name == "deserialize"))
+        path = os.path.join(tmpdir, "msn.repro.npz")
+        for lvl in OPT_LEVELS:
+            ms, _ = pass_times(path, device, msn.X_train, engine="bitvector",
+                               backend="cuda", opt=lvl)
+            print(f"compile passes, MSN file → bitvector/cuda at {lvl}, host "
+                  f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+                  + f"; total {sum(ms.values()):.2f} ms [{card}]")
+        ms = opt_pass_times(qfull, msn.X_train)
+        print(f"optimizer passes of {SERVED_OPT} on the MSN forest, host ms: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" [{card}]")
+
+        t0 = time.perf_counter()
+        mf = model_file_cascade(rf, cforest.n_features, mnist.X_train,
+                                mnist.X_test[:n_cal], mnist.y_test[:n_cal],
+                                crows, cy, device, tmpdir)
+        wall = time.perf_counter() - t0
+        qimported = core.quantize_forest(mf["imported"], mnist.X_train, QUANT)
+        print(f"compile slice: mnist RF {n_trees}x{max_leaves} written as "
+              f"sklearn-shim JSON ({os.path.getsize(mf['path'])} bytes), "
+              f"compiled with quant int16 int-accum, opt={SERVED_OPT}, "
+              f"cascade stages {mf['fused'].stages} fused, gate "
+              f"{mf['policy'].tag()}: d {mf['imported'].n_features} → "
+              f"{mf['fused'].forest.n_features} after drop_unused_features "
+              f"({opt_summary(qimported, mf['fused'].forest)}); served "
+              f"{N_REQUESTS} requests in {mf['n_batches']} batches, "
+              f"cascade_qs_forward launches {mf['launches']}, no other "
+              f"kernel; scores and exit counts == the staged {SERVED_OPT} "
+              f"cascade in plain torch; full {SERVED_OPT} forest == -O0; "
+              f"mean trees per row {mf['mean_trees']:.2f}, accuracy gated "
+              f"{mf['acc']:.4f}, full {mf['acc_full']:.4f} ({wall:.1f} s "
+              f"host wall)")
+        fixtures = fixture_path(device)
+        print(f"compile slice: {len({n for n, _, _ in fixtures})} golden "
+              f"model files (tests/fixtures) on backend=cuda, engines "
+              f"{sorted({e for _, e, _ in fixtures})}: expected predictions "
+              f"within rtol {FIXTURE_RTOL} atol {FIXTURE_ATOL}, max|diff| "
+              f"{max(d for *_, d in fixtures):.3g}, one launch per predict")
+        saved = save_load_path(qfull, rows, device, tmpdir)
+        print("compile slice: ForestServer.save → ForestServer.load("
+              "device=None) of the MSN int16 forest, bit-identical "
+              "predictions; first batch of "
+              f"{MAX_BATCH} rows, host ms: " + "; ".join(
+                  f"{e}/torch compile→first prediction "
+                  f"{saved[e]['compile_ms']:.2f}, load→first prediction "
+                  f"{saved[e]['load_ms']:.2f} ({saved[e]['bytes']} bytes)"
+                  for e in SAVED_ENGINES)
+              + f"; saving a cuda predictor raises ValueError ("
+              f"{saved['cuda_error'][:60]}...) [{card}]")
+
+    # 7. the LM slice: flash_forward against its plain version, then
     # smollm-360m served at full width
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in FLASH_SWEEP:
@@ -1277,7 +1631,7 @@ def main() -> int:
           f"{lm['times_cold']['decode_ms'] / LM_NEW:.3f} ms per token "
           f"[{card}]")
 
-    # 7. timings at the main paths' full-width kernel shapes.  ms and
+    # 8. timings at the main paths' full-width kernel shapes.  ms and
     # library_ms: an eager loop of calls (cuda_ms), the host's work per
     # call included.  device_ms and library_device_ms: the same calls
     # replayed from one CUDA graph (graph_ms), the device's time alone
@@ -1355,6 +1709,23 @@ def main() -> int:
         "max_abs_err": max(err_q, err_f), "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library_device_ms": None})
+    # the same kernel on the compile slice's -O2 cascade (reordered trees,
+    # its own calibrated gate) on the same rows
+    ofused = mf["fused"]
+    x, valid, arrays, kw = cascade_operands(
+        ofused.forest, ofused.stages, ofused.policy, crows[:B], device)
+    o2_device_ms = graph_ms(
+        lambda: cascade_qs_forward(x, valid, *arrays, **kw), 200)
+    _, exit_stage = cascade_qs_forward(x, valid, *arrays, **kw)
+    o2_bound_ms, o2_by, _, _, o2_reach = cascade_bound(
+        x, valid, arrays, kw, exit_stage, ofused.stages)
+    print(f"cascade_qs_forward B={B} on the {SERVED_OPT} mnist cascade from "
+          f"the model file ({ofused.policy.tag()}), rows reaching each stage "
+          f"{o2_reach}: on the device by graph replay {o2_device_ms:.4f} ms "
+          f"(-O0 cascade above {device_ms:.4f} ms), bound {o2_bound_ms:.5f}"
+          f" ms by {o2_by}; "
+          f"{exited_pair_share(valid, exit_stage, kw['stage_bounds']):.1%} "
+          f"of the walked pairs are exited rows' [{card}]")
 
     flash_ms = {}
     for name, (B_, S_) in (("served", (LM_BATCH, LM_PROMPT)),

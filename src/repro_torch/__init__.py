@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch + CUDA port of ``repro`` for NVIDIA Hopper.
 
-The same packages as ``repro`` (``trees``, ``data``, ``core``, ``optim``,
+The same packages as ``repro`` (``trees``, ``data``, ``core``, ``optim``, ``io``,
 ``cascade``, ``kernels``, ``inference``, and for the LM stack ``models``
 and ``configs``), so each module's counterpart sits at the same path.
 The port imports ``torch`` and numpy, never ``jax`` and nothing of

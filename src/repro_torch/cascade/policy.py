@@ -365,8 +365,15 @@ def policy_to_header(policy: GatePolicy) -> dict:
     return {"class": f"{t.__module__}:{t.__qualname__}", "config": cfg}
 
 
+# the module a reference artifact names for its built-in gates: the port
+# resolves those names among its own gates and never imports the path
+_REFERENCE_POLICY_MODULE = "repro.cascade.policy"
+
+
 def policy_from_header(h: dict) -> GatePolicy:
     mod, attr = h["class"].split(":")
+    if mod == _REFERENCE_POLICY_MODULE:
+        mod = __name__
     cls = getattr(importlib.import_module(mod), attr)
     if not (isinstance(cls, type) and issubclass(cls, GatePolicy)):
         raise ValueError(f"{h['class']!r} is not a GatePolicy subclass")

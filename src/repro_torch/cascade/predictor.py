@@ -16,9 +16,9 @@ scale).
 
 ``CascadePredictor`` satisfies the ``core.registry.Predictor`` protocol
 and serves through ``ForestServer`` (per-stage exit counts land in
-``ServerStats``).  Packed cascade artifacts wait for ``repro_torch.io``
-(ROADMAP Queue A item 6) and ``trace_cache_size`` for ``repro_torch.obs``
-(item 9).
+``ServerStats``).  ``repro_torch.io.save_predictor`` writes it as a packed
+cascade artifact.  ``trace_cache_size`` waits for ``repro_torch.obs``
+(ROADMAP Queue A item 9).
 """
 from __future__ import annotations
 

@@ -63,9 +63,12 @@ def compile_forest(forest: Forest, engine: str = "bitvector",
     the card: without CUDA that raises, and only an explicit
     ``device="cpu"`` selects the CPU (where the cuda backend runs its
     kernel's plain version).  ``cascade=CascadeSpec(...)`` builds a staged
-    or fused cascade predictor (``repro_torch.cascade``).  ``tune=`` raises
-    until the autotuner is ported; ``opt`` other than O0 raises in the
-    pipeline likewise.
+    or fused cascade predictor (``repro_torch.cascade``).  ``opt=`` runs
+    the optimizer middle-end (``repro_torch.optim``) on the IR first: a
+    level (``0``/``1``/``2`` or ``"O2"``) or an explicit pass-name tuple;
+    the result is always oracle-equivalence checked.  For
+    quantization-as-a-pass or a model file use ``core.compile_plan``
+    directly.  ``tune=`` raises until the autotuner is ported.
     """
     if tune is not None:
         raise NotImplementedError(

@@ -22,12 +22,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from .forest import Forest
 from .quantize import leaf_scale, quantize_inputs
 from .quickscorer import acc_dtype_for, forest_acc_bits
-from .registry import BasePredictor, register_engine, resolve_device
+from .registry import (BasePredictor, CompiledModule, register_engine,
+                       resolve_device)
 
 # budget for one tree chunk's (B, Tc, ·) intermediates in gemm_scores
 _CHUNK_BYTES = 64 << 20
@@ -36,8 +36,11 @@ _CHUNK_BYTES = 64 << 20
 # --------------------------------------------------------------------------- #
 # NATIVE / IF-ELSE: per-level traversal
 # --------------------------------------------------------------------------- #
-class CompiledNative(nn.Module):
+class CompiledNative(CompiledModule):
     """Child-array traversal tables, registered as buffers on ``device``."""
+
+    SCALARS = ("max_depth", "leaf_scale", "acc_bits")
+    INDEX = ("feat", "left", "right")
 
     def __init__(self, forest: Forest, device: torch.device):
         super().__init__()
@@ -117,8 +120,11 @@ def gemm_arrays(forest: Forest):
     return A, Bvec
 
 
-class CompiledGEMM(nn.Module):
+class CompiledGEMM(CompiledModule):
     """Dense traversal matrices, registered as buffers on ``device``."""
+
+    SCALARS = ("leaf_scale", "compute_dtype", "acc_bits")
+    INDEX = ("feat",)
 
     def __init__(self, forest: Forest, compute_dtype: torch.dtype,
                  device: torch.device):
@@ -229,16 +235,21 @@ def _gemm_layout(forest: Forest, plan) -> str:
             f"dtype={getattr(dt, '__name__', dt) or 'f32'}")
 
 
+_NATIVE_ARRAYS = ("feat", "thr", "left", "right", "leaf_val", "single_leaf")
 register_engine(
     "native", backend="torch", tune_name="native", compile=compile_native,
     evaluate=eval_native, predictor_cls=BaselinePredictor,
+    serial_arrays=_NATIVE_ARRAYS, restore=CompiledNative.restore,
     doc="per-level pointer-chasing traversal (loop over depth)")
 register_engine(
     "unrolled", backend="torch", tune_name="unrolled",
     compile=compile_native, evaluate=eval_unrolled,
     predictor_cls=BaselinePredictor,
+    serial_arrays=_NATIVE_ARRAYS, restore=CompiledNative.restore,
     doc="native under the IF-ELSE name (eager torch: the same loop)")
 register_engine(
     "gemm", backend="torch", tune_name="gemm", compile=compile_gemm,
     evaluate=eval_gemm, predictor_cls=BaselinePredictor, layout=_gemm_layout,
+    serial_arrays=("feat", "thr", "valid", "A", "Bvec", "leaf_val"),
+    restore=CompiledGEMM.restore,
     doc="Hummingbird tensor traversal (two matmuls per tree block)")

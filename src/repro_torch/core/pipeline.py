@@ -1,14 +1,16 @@
-"""Pass-based forest compiler: canonicalize → quantize → layout → lower.
+"""Pass-based forest compiler: deserialize → canonicalize → quantize →
+optimize → flint → layout → lower.
 
 The port's counterpart of ``repro.core.pipeline``: the same ``PIPELINE``
 of named passes, each appending a ``PassRecord`` to the ``CompilePlan`` so
 a compiled predictor can explain how it was built
-(``pred.plan.describe()``).
+(``pred.plan.describe()``).  A model file compiles like an in-memory
+forest (``compile_plan("model.json", ...)``, through ``repro_torch.io``),
+and ``opt=`` runs the optimizer middle-end (``repro_torch.optim``), each
+of its passes recorded as ``opt.<name>``.
 
-Passes whose machinery belongs to a later slice of the port raise
-``NotImplementedError`` naming it instead of skipping silently: loading a
-model file (``deserialize``), the optimizer levels (``optimize``) and
-tree-sharded execution (``lower``).
+Tree-sharded execution (``n_devices > 1`` in ``lower``) belongs to a
+later slice of the port and raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ class CompilePlan:
     device: object = None
     quant: Optional[QuantSpec] = None     # None → keep the forest's dtypes
     flint: bool = False                   # FLInt int32-key traversal pass
-    opt: object = None                    # optimizer level; only O0 here
+    opt: object = None                    # optim level (0/1/2, "O2") or
+    #                                       pass-name tuple; None → O0
     n_devices: int = 1
     cascade: Optional[object] = None
     engine_kw: dict = field(default_factory=dict)
@@ -71,14 +74,19 @@ def forest_pass(name: str):
 
 @forest_pass("deserialize")
 def deserialize(obj, plan: CompilePlan, ctx: dict):
-    """Entry pass: in-memory objects pass through; model files need the
-    importers and packed format, which the port does not have yet."""
-    if isinstance(obj, (str, os.PathLike)):
-        raise NotImplementedError(
-            "compiling from a model file needs repro_torch.io, ported in "
-            "the ingestion slice (ROADMAP Queue A item 6)")
-    plan.record("deserialize", "skipped (in-memory object)")
-    return obj
+    """Entry pass: a path (str/PathLike to a model file) becomes an
+    in-memory forest via ``repro_torch.io`` — XGBoost/LightGBM JSON dumps,
+    sklearn-shim JSON, or a packed ``.repro.npz`` forest all compile with
+    ``compile_plan("model.json", engine=...)``.  In-memory objects pass
+    through untouched."""
+    if not isinstance(obj, (str, os.PathLike)):
+        plan.record("deserialize", "skipped (in-memory object)")
+        return obj
+    from .. import io
+    path = os.fspath(obj)
+    forest = io.load_model(path, **ctx.get("load_kw") or {})
+    plan.record("deserialize", f"loaded {path}")
+    return forest
 
 
 @forest_pass("canonicalize")
@@ -134,22 +142,57 @@ def quantize(forest: Forest, plan: CompilePlan, ctx: dict) -> Forest:
     return qf
 
 
-def _is_o0(opt) -> bool:
-    if opt is None or (isinstance(opt, (int, np.integer))
-                       and not isinstance(opt, bool) and int(opt) == 0):
-        return True
-    return isinstance(opt, str) and opt.lstrip("-") in ("O0", "o0", "0")
+def _optimize_cached(forest: Forest, opt, opt_cache: Optional[dict],
+                     X_calib=None):
+    """Run (or reuse) the optimizer middle-end for one (forest, opt-tag)
+    point.  ``opt_cache`` — a dict the caller owns, keyed by
+    ``(id(forest), tag)`` — is the shared-IR mechanism: repeated compiles
+    of the same IR at the same level see the same optimized forest, and
+    the optimizer (with its oracle-equivalence check) runs once.  Returns
+    ``None`` when the level resolves to no passes."""
+    from .. import optim
+    names, tag = optim.resolve_opt(opt)
+    if not names:
+        return None
+    key = (id(forest), tag)
+    if opt_cache is not None and key in opt_cache:
+        return opt_cache[key]
+    res = optim.optimize(forest, opt, ctx={"X_calib": X_calib})
+    if opt_cache is not None:
+        opt_cache[key] = res
+    return res
+
+
+def optimized_forest(forest: Forest, opt,
+                     opt_cache: Optional[dict] = None,
+                     X_calib=None) -> Forest:
+    """The IR the optimize pass would hand downstream for ``opt``, through
+    the same shared cache."""
+    res = _optimize_cached(forest, opt, opt_cache, X_calib)
+    return forest if res is None else res.forest
 
 
 @forest_pass("optimize")
 def optimize(forest: Forest, plan: CompilePlan, ctx: dict) -> Forest:
-    """The optimizer middle-end: only ``-O0`` until it is ported."""
-    if not _is_o0(plan.opt):
-        raise NotImplementedError(
-            f"opt={plan.opt!r} needs the optimizer middle-end, ported in "
-            "the optimizer slice (ROADMAP Queue A item 5)")
-    plan.record("optimize", "skipped (O0)")
-    return forest
+    """The optimizer middle-end (``repro_torch.optim``): run the level /
+    pass list named by ``plan.opt`` on the (possibly quantized) IR.  Each
+    optimizer pass appends its own ``opt.<name>`` record with before/after
+    node / unique-threshold stats, followed by one ``optimize`` summary
+    record; the run is always oracle-equivalence checked
+    (``optim.OptimizationError`` on divergence).  With an ``opt_cache`` in
+    the ctx the result is computed once per (forest, tag) point and
+    replayed, records included."""
+    from .. import optim
+    names, tag = optim.resolve_opt(plan.opt)
+    if not names:
+        plan.record("optimize", f"skipped ({tag})")
+        return forest
+    res = _optimize_cached(forest, plan.opt, ctx.get("opt_cache"),
+                           X_calib=ctx.get("X_calib"))
+    for st in res.stats:
+        plan.record(f"opt.{st.name}", st.detail())
+    plan.record("optimize", res.describe())
+    return res.forest
 
 
 @forest_pass("flint")
@@ -232,22 +275,30 @@ def lower(forest: Forest, plan: CompilePlan, ctx: dict):
 def compile_plan(obj, plan: Optional[CompilePlan] = None, *,
                  X_calib: Optional[np.ndarray] = None,
                  n_features: Optional[int] = None, n_classes: int = 1,
+                 load_kw: Optional[dict] = None,
+                 opt_cache: Optional[dict] = None,
                  **plan_kw):
-    """Run the full pipeline on ``obj`` (Forest / trainer / trees).
+    """Run the full pipeline on ``obj`` (path / Forest / trainer / trees).
 
     Either pass a ``CompilePlan`` or keyword fields for one::
 
         pred = compile_plan(forest, backend="cuda", quant=QuantSpec(16))
+        pred = compile_plan("model.json", engine="bitvector", opt="O2")
 
-    ``X_calib`` feeds the quantize pass's feature ranges; ``n_features`` /
-    ``n_classes`` are only needed when ``obj`` is a bare tree list.
+    ``X_calib`` feeds the quantize pass's feature ranges and the
+    ``reorder_trees`` pass; ``n_features`` / ``n_classes`` are only needed
+    when ``obj`` is a bare tree list; ``load_kw`` forwards to
+    ``io.load_model`` when ``obj`` is a path; ``opt_cache`` (a dict the
+    caller owns) lets repeated compiles of the same IR at the same opt
+    level share one optimizer run — see ``_optimize_cached``.
     """
     if plan is None:
         plan = CompilePlan(**plan_kw)
     elif plan_kw:
         raise TypeError("pass either a CompilePlan or plan kwargs, not both")
     ctx = {"X_calib": X_calib, "n_features": n_features,
-           "n_classes": n_classes}
+           "n_classes": n_classes, "load_kw": load_kw,
+           "opt_cache": opt_cache}
     for name in PIPELINE:
         obj = PASSES[name](obj, plan, ctx)
     return obj

@@ -26,11 +26,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from .forest import WORD, Forest
 from .quantize import accum_bits, leaf_scale, quantize_inputs
-from .registry import BasePredictor, register_engine, resolve_device
+from .registry import (BasePredictor, CompiledModule, register_engine,
+                       resolve_device)
 
 # budget for the (B, Tc, N, W) int32 select tensor of one tree chunk
 _CHUNK_BYTES = 64 << 20
@@ -58,8 +58,13 @@ def as_bit_pattern(words: np.ndarray) -> torch.Tensor:
         np.ascontiguousarray(words, dtype=np.uint32).view(np.int32))
 
 
-class CompiledQS(nn.Module):
+class CompiledQS(CompiledModule):
     """Flattened QuickScorer arrays, registered as buffers on ``device``."""
+
+    SCALARS = ("n_leaves", "n_classes", "n_features", "leaf_scale",
+               "acc_bits")
+    INDEX = ("feat",)
+    BITS = ("masks", "init_idx")
 
     def __init__(self, forest: Forest, device: torch.device):
         super().__init__()
@@ -200,7 +205,7 @@ class QSPredictor(BasePredictor):
 # --------------------------------------------------------------------------- #
 # Bit-matmul QuickScorer — the node-axis AND-reduction as one contraction
 # --------------------------------------------------------------------------- #
-class CompiledBitMM(nn.Module):
+class CompiledBitMM(CompiledModule):
     """Packed clear-count arrays for the bit-matmul engine, as buffers.
 
     Layout: leaf ``l`` owns a ``bits``-wide field of packed word
@@ -212,6 +217,10 @@ class CompiledBitMM(nn.Module):
     2^24.  ``bias`` marks padding leaves (``l >= n_leaves_per_tree``) as
     permanently cleared.  The tree axis is padded to a multiple of
     ``tree_chunk`` with inert trees."""
+
+    SCALARS = ("bits", "npack", "n_leaves", "n_classes", "n_features",
+               "n_trees", "tree_chunk", "leaf_scale", "acc_bits")
+    INDEX = ("feat",)
 
     def __init__(self, forest: Forest, tree_chunk: Optional[int],
                  device: torch.device):
@@ -493,9 +502,13 @@ def bitmm_cuda_layout(forest: Forest, plan) -> str:
 register_engine(
     "bitvector", backend="torch", tune_name="qs", compile=compile_qs,
     evaluate=eval_batch, predictor_cls=QSPredictor,
+    serial_arrays=("feat", "thr", "valid", "masks", "init_idx", "leaf_val"),
+    restore=CompiledQS.restore,
     doc="QuickScorer: predicated interval-mask AND-reduction over nodes")
 register_engine(
     "bitmm", backend="torch", tune_name="qs-bitmm", compile=compile_qs_bitmm,
     evaluate=eval_batch_bitmm, predictor_cls=BitMMPredictor,
     layout=_bitmm_layout,
+    serial_arrays=("feat", "thr", "valid", "packed", "bias", "leaf_val"),
+    restore=CompiledBitMM.restore,
     doc="bit-matmul QuickScorer: packed clear-count contraction")

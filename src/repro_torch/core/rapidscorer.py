@@ -10,21 +10,26 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from .forest import Forest
 from .quickscorer import (_CHUNK_BYTES, CompiledQS, acc_dtype_for,
                           exit_leaf, mask_reduce)
-from .registry import BasePredictor, register_engine, resolve_device
+from .registry import (BasePredictor, CompiledModule, register_engine,
+                       resolve_device)
 
 
-class CompiledRS(nn.Module):
+class CompiledRS(CompiledModule):
     """The QuickScorer arrays (``qs``) plus the unique-node table and the
-    node → unique-id map, as buffers on ``device``."""
+    node → unique-id map, as buffers on ``device``.  The host IR lives on
+    ``qs``, as in the reference."""
+
+    SCALARS = ("n_unique",)
+    INDEX = ("u_feat", "inv")
 
     def __init__(self, forest: Forest, device: torch.device):
         super().__init__()
         self.device = device
+        self.forest = None
         self.qs = CompiledQS(forest, device)
         u_feat, u_thr, inv, n_unique = merge_nodes(forest)
         self.n_unique = n_unique
@@ -35,6 +40,20 @@ class CompiledRS(nn.Module):
 
     def transform_inputs(self, X: np.ndarray) -> np.ndarray:
         return self.qs.transform_inputs(X)
+
+    @classmethod
+    def restore(cls, arrays: dict, scalars: dict, forest,
+                device: torch.device) -> "CompiledRS":
+        """The nested ``qs`` module from its ``qs.``-prefixed arrays and
+        ``scalars["qs"]``, then this module's own buffers around it."""
+        qs = CompiledQS.restore(
+            {k[3:]: v for k, v in arrays.items() if k.startswith("qs.")},
+            {"": scalars.get("qs", {})}, forest, device)
+        rs = super().restore(
+            {k: v for k, v in arrays.items() if "." not in k},
+            scalars, None, device)
+        rs.qs = qs
+        return rs
 
 
 def merge_nodes(forest: Forest):
@@ -91,4 +110,7 @@ class RSPredictor(BasePredictor):
 register_engine(
     "rapidscorer", backend="torch", tune_name="rapidscorer",
     compile=compile_rs, evaluate=eval_batch, predictor_cls=RSPredictor,
+    serial_arrays=("u_feat", "u_thr", "inv", "qs.feat", "qs.thr",
+                   "qs.valid", "qs.masks", "qs.init_idx", "qs.leaf_val"),
+    restore=CompiledRS.restore,
     doc="RapidScorer: node-merged QuickScorer (shared thresholds collapse)")

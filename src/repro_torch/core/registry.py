@@ -12,6 +12,10 @@ The port's counterpart of ``repro.core.registry``:
     ``predict`` / ``predict_class`` / ``predict_proba``).  Where the
     reference wraps the evaluator in ``jax.jit``, the port calls it
     eagerly on tensors on the predictor's device and returns numpy.
+  * ``CompiledModule`` — the base of the engines' compiled ``nn.Module``s:
+    what ``io.packed`` saves of one (its scalar config and buffers, in
+    the reference's on-disk dtypes) and how it is rebuilt from them on a
+    device without compiling again.
 
 Backends: ``"torch"`` is the reference's ``"jax"`` (the engine in plain
 torch), ``"cuda"`` its ``"pallas"`` (the hand-written kernel).
@@ -24,6 +28,7 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,6 +52,62 @@ def as_input_tensor(X: np.ndarray, device: torch.device) -> torch.Tensor:
     if np.issubdtype(X.dtype, np.floating):
         X = X.astype(np.float32, copy=False)
     return torch.as_tensor(np.ascontiguousarray(X), device=device)
+
+
+# --------------------------------------------------------------------------- #
+# Compiled engine state
+# --------------------------------------------------------------------------- #
+class CompiledModule(nn.Module):
+    """Base of the compiled engine modules: buffers on ``device``, the host
+    IR (``forest``) and a scalar config.
+
+    ``io.packed`` saves a module as the reference saves its compiled
+    dataclass: the scalars named by ``SCALARS`` in the header and the
+    buffers an ``EngineSpec.serial_arrays`` names as arrays, in the
+    reference's dtypes.  Buffers in ``INDEX`` are int64 here and int32 on
+    disk; buffers in ``BITS`` are int32 bit patterns here and uint32 on
+    disk.  ``restore`` is the inverse: the buffers a fresh compile gives
+    (same dtypes, same values) on ``device``, with no compile step."""
+
+    SCALARS: tuple = ()
+    INDEX: tuple = ()
+    BITS: tuple = ()
+
+    def scalar_config(self) -> dict:
+        return {k: getattr(self, k) for k in self.SCALARS}
+
+    def saved_array(self, name: str) -> np.ndarray:
+        a = getattr(self, name).cpu().numpy()
+        if name in self.INDEX:
+            return a.astype(np.int32)
+        if name in self.BITS:
+            return a.view(np.uint32)
+        return a
+
+    @classmethod
+    def restore(cls, arrays: dict, scalars: dict, forest,
+                device: torch.device) -> "CompiledModule":
+        """Rebuild from ``arrays`` (buffer name → saved numpy array) and
+        ``scalars`` (nesting prefix → scalar config; this module's is
+        ``scalars[""]``) on ``device``."""
+        mod = cls.__new__(cls)
+        nn.Module.__init__(mod)
+        mod.device = device
+        mod.forest = forest
+        cfg = scalars.get("", {})
+        missing = [k for k in cls.SCALARS if k not in cfg]
+        if missing:
+            raise ValueError(f"{cls.__name__}: saved config lacks {missing}")
+        for k in cls.SCALARS:
+            setattr(mod, k, cfg[k])
+        for name, a in arrays.items():
+            if name in cls.INDEX:
+                a = a.astype(np.int64)
+            elif name in cls.BITS:
+                a = a.view(np.int32)
+            mod.register_buffer(name, torch.from_numpy(
+                np.ascontiguousarray(a)).to(device))
+        return mod
 
 
 # --------------------------------------------------------------------------- #
@@ -170,6 +231,13 @@ class EngineSpec:
     predictor_cls: type = BasePredictor
     layout: Optional[Callable] = None     # (forest, plan) -> detail string;
     #                                       pipeline layout-pass hook
+    serial_arrays: tuple = ()             # compiled buffers io.packed may
+    #                                       serialize (dotted for nested
+    #                                       modules); empty → artifact not
+    #                                       serializable, rebuild from the
+    #                                       forest instead
+    restore: Optional[Callable] = None    # (arrays, scalars, forest, device)
+    #                                       -> compiled, with no compile
     deferred: Optional[str] = None        # "module:attr" lazy build target
     doc: str = ""
 

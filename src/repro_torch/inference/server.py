@@ -16,9 +16,10 @@ ever subtracts timestamps.
   * ``LMServer`` — batch LM completion over ``repro_torch.models.Model``:
     one trunk pass fills the KV cache from the prompt, then greedy decode.
 
-Not yet ported: ``ForestServer.from_forest`` (the autotuner), ``save`` /
-``load`` (``io``), ``obs=`` (``obs``) and ``LMServer(kv_quant=True)`` (the
-int8 KV cache); each raises ``NotImplementedError``.
+``ForestServer.save`` / ``load`` persist a serving artifact through
+``repro_torch.io``.  Not yet ported: ``ForestServer.from_forest`` (the
+autotuner), ``obs=`` (``obs``) and ``LMServer(kv_quant=True)`` (the int8 KV
+cache); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -234,6 +235,7 @@ class ForestServer:
         self.batcher = MicroBatcher(max_batch, max_wait_ms)
         self.stats = ServerStats()
         self._rid = 0
+        self.engine_choice = None          # the engine's name after load()
 
     @classmethod
     def from_forest(cls, forest, **kw) -> "ForestServer":
@@ -243,15 +245,36 @@ class ForestServer:
             "with core.compile_forest and pass it to ForestServer")
 
     def save(self, path) -> None:
-        raise NotImplementedError(
-            "ForestServer.save needs repro_torch.io, ported in the "
-            "ingestion slice (ROADMAP Queue A item 6)")
+        """Persist the compiled serving artifact (docs/FORMATS.md): the
+        engine's buffers + the serving config, so a cold restart skips
+        recompilation.  The predictor must come from a serializable engine
+        (``EngineSpec.serial_arrays``: the ``torch`` engines; a ``cuda``
+        predictor raises ``ValueError`` — keep the forest and recompile).
+        Cascade predictors persist as kind=cascade artifacts."""
+        from .. import io
+        # engine_choice is a bare name string after load(): persist it
+        # through a load → save cycle
+        extra = {"server": {"max_batch": self.batcher.max_batch,
+                            "max_wait_ms": self.batcher.max_wait_ms,
+                            "engine_choice": getattr(self.engine_choice,
+                                                     "engine",
+                                                     self.engine_choice)}}
+        io.save_predictor(self.predictor, path, extra=extra)
 
     @classmethod
-    def load(cls, path) -> "ForestServer":
-        raise NotImplementedError(
-            "ForestServer.load needs repro_torch.io, ported in the "
-            "ingestion slice (ROADMAP Queue A item 6)")
+    def load(cls, path, device=None) -> "ForestServer":
+        """Cold-start a server from a ``save()`` artifact (or one the
+        reference wrote) on ``device`` (``None`` → the card): predictions
+        are bit-identical to the saved predictor's, no recompile.
+        ``engine_choice`` is the saved engine's *name*."""
+        from .. import io
+        pred, header = io.load_predictor(path, device=device,
+                                         return_header=True)
+        scfg = header.get("server") or {}
+        srv = cls(pred, max_batch=int(scfg.get("max_batch", 256)),
+                  max_wait_ms=float(scfg.get("max_wait_ms", 2.0)))
+        srv.engine_choice = scfg.get("engine_choice")
+        return srv
 
     def predict_proba(self, X: np.ndarray) -> np.ndarray:
         """Normalized class scores (paper §4) from the serving engine —

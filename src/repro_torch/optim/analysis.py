@@ -1,4 +1,4 @@
-"""Forest IR analysis shared by RapidScorer and, later, the optimizer — the
+"""Forest IR analysis shared by RapidScorer and the optimizer — the
 port's copy of ``repro.optim.analysis`` (numpy only).
 
 ``unique_splits`` is RapidScorer's equivalent-node merging (Ye et al.

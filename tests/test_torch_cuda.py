@@ -366,8 +366,9 @@ def _cascade_operands(f, stages, gate, X, card):
     policy = copy.copy(gate)
     policy.prepare(f, stages)
     fn = ops.cuda_fused_cascade_qs(f, stages, policy, device=card)
-    x = torch.from_numpy(core.quantize_inputs(f, X).astype(
-        np.float32)).to(card)
+    # a feat_map's column gather can leave the rows column-major
+    x = torch.from_numpy(np.ascontiguousarray(core.quantize_inputs(
+        f, X), dtype=np.float32)).to(card)
     valid = torch.arange(len(X), device=card) < len(X) - 2
     kw = dict(stage_bounds=fn.stage_bounds, policy=policy,
               inv_scale=1.0 / core.leaf_scale(f), out_dtype=fn.out_dtype)
@@ -653,3 +654,113 @@ def test_lmserver_on_card_launches_flash_per_attention_layer(card, name):
     assert flash_forward.launches_by_route == dict(
         routes, wgmma=routes["wgmma"] + cfg.n_layers)
     np.testing.assert_array_equal(outs["cuda"], outs["torch"])
+
+
+# --------------------------------------------------------------------------- #
+# optimized and packed forests on the card
+# --------------------------------------------------------------------------- #
+def _optimizable(T=64, L=32, d=784, C=3, B=150, seed=0):
+    """An int16 int-accum forest every -O2 pass changes: every other
+    tree's root-left child repeats the root's split at a higher threshold
+    (dedup: ragged trees), trees 2 and 5 have all-zero leaves (merged to
+    constants, dropped by compact), every tree's two rightmost leaves agree
+    (merge: ``L`` shrinks), 64 trees of 31 nodes read part of 784 columns
+    (drop: ``d`` shrinks), and leaf spreads differ (reorder)."""
+    import dataclasses
+    f = core.random_forest_ir(T, L, d, n_classes=C, seed=seed)
+    feature, threshold = f.feature.copy(), f.threshold.copy()
+    feature[::2, 1] = feature[::2, 0]
+    threshold[::2, 1] = threshold[::2, 0] + 1.0
+    lv = f.leaf_value.copy()
+    lv[:, -1] = lv[:, -2]
+    lv[[2, 5]] = 0.0
+    lv *= np.linspace(0.2, 3.0, T)[:, None, None].astype(np.float32)
+    f = dataclasses.replace(f, feature=feature, threshold=threshold,
+                            leaf_value=lv)
+    X = np.random.default_rng(B).normal(0, 1.3, size=(B, d))
+    return core.quantize_forest(f, X, core.QuantSpec(16, int_accum=True)), X
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_optimized_forest_runs_bit_exact_through_every_kernel(card, level):
+    """-O1 / -O2 forests (fewer trees, smaller L, ragged trees, and at -O2
+    fewer columns behind ``feat_map``) through ``qs_forward``,
+    ``qs_bitmm_forward``, ``gemm_forward`` and the fused
+    ``cascade_qs_forward``: bit-exact against their plain versions, and
+    the compiled -O predictors equal -O0 on the card."""
+    from repro_torch import optim
+    qf, X = _optimizable()
+    of = optim.optimize(qf, level, ctx={"X_calib": X}).forest
+    assert of.n_trees < qf.n_trees and of.n_leaves < qf.n_leaves
+    assert (of.n_nodes < of.n_leaves - 1).any()
+    assert (of.n_features < qf.n_features) == (level == 2)
+    x = torch.from_numpy(np.ascontiguousarray(core.quantize_inputs(
+        of, X), dtype=np.float32)).to(card)
+    assert x.shape[1] == of.n_features
+    kernels = {"bitvector": (qs_forward, qs_forward_reference,
+                             lambda f, c: ([torch.from_numpy(a).to(c)
+                                            for a in ops._qs_arrays(f, 8)],
+                                           {}))}
+    kernels.update({e: v[:3] for e, v in NEW_KERNELS.items()})
+    for engine, (kernel, plain, operands) in kernels.items():
+        arrays, kw = operands(of, card)
+        kw["out_dtype"] = ops._out_dtype(of, 8)
+        before = kernel.launches
+        got = kernel(x, *arrays, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, engine
+        assert torch.equal(got, plain(x, *arrays, **kw)), engine
+    stages = (8, 24, of.n_trees)
+    xc, valid, arrays, kw = _cascade_operands(of, stages, MarginGate(0.3),
+                                              X, card)
+    got, got_exit = cascade_qs_forward(xc, valid, *arrays, **kw)
+    want, want_exit = cascade_qs_forward_reference(xc, valid, *arrays, **kw)
+    assert torch.equal(got, want) and torch.equal(got_exit, want_exit)
+    base = core.compile_forest(qf, engine="bitvector", backend="torch",
+                               device=card).predict(X)
+    for engine in kernels:
+        np.testing.assert_array_equal(core.compile_forest(
+            qf, engine=engine, backend="cuda", device=card,
+            opt=level).predict(X), base, err_msg=engine)
+
+
+def test_optimized_fused_cascade_on_card_matches_staged(card):
+    """A -O2 cascade served fused on the card (one ``cascade_qs_forward``
+    launch) equals the -O2 staged cascade in plain torch: scores and exit
+    counts; the stage boundaries clamp to the compacted forest."""
+    qf, X = _optimizable()
+    spec = dict(stages=(16, 48, 64), policy=MarginGate(0.3))
+    fused = core.compile_plan(qf, engine="bitvector", backend="cuda",
+                              device=card, opt=2, X_calib=X,
+                              cascade=CascadeSpec(**spec, fused=True))
+    staged = core.compile_plan(qf, engine="bitvector", backend="torch",
+                               device=card, opt=2, X_calib=X,
+                               cascade=CascadeSpec(**spec))
+    assert fused.stages[-1] == fused.forest.n_trees < qf.n_trees
+    before = cascade_qs_forward.launches
+    got = fused.predict(X)
+    assert cascade_qs_forward.launches == before + 1
+    np.testing.assert_array_equal(got, staged.predict(X))
+    np.testing.assert_array_equal(fused.last_exit_counts,
+                                  staged.last_exit_counts)
+
+
+@pytest.mark.parametrize("engine", ["bitvector", "bitmm", "gemm"])
+def test_packed_file_compiles_to_the_in_memory_forest(card, engine,
+                                                      tmp_path):
+    """A forest written with ``io.save_forest`` and compiled from the file
+    at -O2 gives the same kernel operands and the same bits as the forest
+    compiled in memory."""
+    from repro_torch import io
+    qf, X = _optimizable(seed=1)
+    path = str(tmp_path / "forest.repro.npz")
+    io.save_forest(qf, path)
+    from_file = core.compile_plan(path, engine=engine, backend="cuda",
+                                  device=card, opt=2, X_calib=X)
+    in_memory = core.compile_plan(qf, engine=engine, backend="cuda",
+                                  device=card, opt=2, X_calib=X)
+    assert len(from_file.arrays) == len(in_memory.arrays)
+    for a, b in zip(from_file.arrays, in_memory.arrays):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(from_file.predict(X),
+                                  in_memory.predict(X))

@@ -62,6 +62,24 @@ share = chip_smoke.exited_pair_share(
     torch.tensor([0, 0, 0, 2] + [0] * 28 + [1, 1]), (0, 8, 16, 32))
 walked = 2 * 32 * 8 + 2 * 32 * 8 + 32 * 16
 assert share == 1 - (34 * 8 + 3 * 8 + 16) / walked
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    out = chip_smoke.packed_path(want, X, X, torch.device("cpu"), tmp)
+    assert [r["launches"] for r in out.values()] == [0, 0, 0]
+    ms, p = chip_smoke.pass_times(f"{tmp}/msn.repro.npz", torch.device("cpu"),
+                                  X, engine="gemm", backend="cuda", opt="O1")
+    assert list(ms) == list(chip_smoke.pipeline.PIPELINE)
+    np.testing.assert_array_equal(p.predict(X), pred.predict(X))
+    assert "verify" in chip_smoke.opt_pass_times(want, X)
+    mf = chip_smoke.model_file_cascade(
+        rf, ds.X_train.shape[1], ds.X_train, ds.X_test[:60], ds.y_test[:60],
+        ds.X_test[60:], ds.y_test[60:], torch.device("cpu"), tmp,
+        stages=(4, 8, 16))
+    assert mf["launches"] == 0
+    assert mf["fused"].forest.n_features < mf["imported"].n_features
+    assert len(chip_smoke.fixture_path(torch.device("cpu"))) == 18
+    saved = chip_smoke.save_load_path(want, X, torch.device("cpu"), tmp)
+    assert "save the forest" in saved["cuda_error"]
 from repro_torch.configs import get_config
 cfg = get_config(chip_smoke.LM_ARCH).reduced()
 lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,

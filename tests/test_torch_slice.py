@@ -104,30 +104,20 @@ def test_compile_plan_quantizes_as_the_reference(trained_rf, port_rf,
             [r.detail for r in ref.plan.records if r.name == name]
 
 
-def test_unported_parts_raise(forests, tmp_path):
+def test_unported_parts_raise(forests):
     _, port_forest = forests
     with pytest.raises(NotImplementedError, match="autotuner"):
         tcore.compile_forest(port_forest, tune="-Os", device="cpu")
-    with pytest.raises(NotImplementedError, match="optimizer"):
-        tcore.compile_forest(port_forest, opt=2, device="cpu")
     # the cascade is ported; what it still waits for raises
     from repro_torch.cascade import CascadeSpec
     casc = tcore.compile_forest(port_forest, device="cpu",
                                 cascade=CascadeSpec((2,)))
     with pytest.raises(NotImplementedError, match="obs"):
         casc.trace_cache_size()
-    with pytest.raises(NotImplementedError, match="io"):
-        TServer(casc).save(tmp_path / "casc.npz")
     with pytest.raises(NotImplementedError, match="sharding"):
         tcore.compile_plan(port_forest, device="cpu", n_devices=2)
-    with pytest.raises(NotImplementedError, match="io"):
-        tcore.compile_plan(str(tmp_path / "model.json"), device="cpu")
     pred = tcore.compile_forest(port_forest, opt="O0", device="cpu")
     with pytest.raises(NotImplementedError):
         TServer.from_forest(port_forest)
-    with pytest.raises(NotImplementedError):
-        TServer(pred).save(tmp_path / "srv.npz")
-    with pytest.raises(NotImplementedError):
-        TServer.load(tmp_path / "srv.npz")
     with pytest.raises(NotImplementedError):
         TServer(pred, obs=True)
