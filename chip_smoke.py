@@ -60,7 +60,23 @@ or JAX.  Phases:
     ``tests/fixtures`` on every kernel engine; and ``ForestServer.save`` /
     ``load`` of torch-engine predictors (load → first prediction against
     compile → first prediction), with saving a ``cuda`` predictor refused;
- 7. the LM slice: hold ``flash_forward`` against its plain version at the
+ 7. the autotuner (``core.engine_select``): ``choose`` on the MSN int16
+    forest at batch 1024 over the nine engines (six torch engines and the
+    three kernels) as-is and at -O2, 18 candidates timed by the host
+    clock around ``predict`` (each ``cuda-*`` kernel must launch in the
+    sweep; the winner equals plain torch bit for bit); a second process
+    loads the forest from its file and must answer from the same cache
+    file with no sweep; ``ForestServer.from_forest`` serves the 4096 rows
+    from the cache, bit-identical to phase 4, and
+    ``compile_forest(tune="measure")`` builds the same engine; the mnist
+    cascade's candidates (cuda-qs and qs, as-is, staged and fused with
+    the calibrated gate; ``cascade_qs_forward`` and ``qs_forward`` launch)
+    and a winner serving as phase 5 did; measured sweeps over a ladder of
+    random shapes, a cost model trained from the cache
+    (``tune.train_from_cache``) and ``choose(mode="-Os")`` on two held-out
+    shapes, the winner bit-exact against plain torch.  Every candidate's
+    time is printed beside the card's name and power limit;
+ 8. the LM slice: hold ``flash_forward`` against its plain version at the
     reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
     in both, two launches bit-identical; then serve smollm-360m at full
     width (32 layers, d 960, 15/5 heads, vocab 49152; seeded random
@@ -72,7 +88,7 @@ or JAX.  Phases:
     ``torch`` give the same greedy tokens and close prefill logits, so do
     the bf16 prefill logits, and teacher-forced ``decode_step`` matches
     ``Model.forward``;
- 8. time each kernel and its plain version with CUDA events, as an
+ 9. time each kernel and its plain version with CUDA events, as an
     eager loop of calls, beside the least time the card could take for
     the same work (the kernels and SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
@@ -110,11 +126,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
-from repro_torch import core, io, optim  # noqa: E402
+from repro_torch import core, io, optim, tune  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
                                  ProbaGate, ScoreBoundGate, calibrate)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import engine_select, pipeline  # noqa: E402
 from repro_torch.core.engine_select import bucket_batch  # noqa: E402
 from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
                                        ensure_feature_column)
@@ -130,6 +146,8 @@ from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.obs import (MetricsRegistry, get_registry,  # noqa: E402
+                             set_default_registry)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
@@ -216,6 +234,40 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "fixtures")
 FIXTURE_RTOL, FIXTURE_ATOL = 1e-5, 1e-6
 SAVED_ENGINES = ("bitvector", "gemm")
+# the autotuner (phase 7): the MSN forest swept over every engine (the six
+# torch engines and the three kernels) as-is and at -O2; the mnist cascade
+# raced staged and fused on cuda-qs and qs; a ladder of random int16 shapes
+# (T 64..1024, L 16 or 64, d 16..784, C 1 or 10) at batch 256 trains the
+# -Os cost model, asked on two held-out shapes, the first at the default
+# confidence threshold and the second at 0 (always the zero-shot path)
+AUTOTUNE_OPT = (2,)
+TUNE_KERNELS = {"cuda-qs": "bitvector", "cuda-bitmm": "bitmm",
+                "cuda-gemm": "gemm"}
+CASCADE_TUNE_ENGINES = ("cuda-qs", "qs")
+PREDICT_ENGINES = ("cuda-qs", "cuda-bitmm", "cuda-gemm", "qs", "gemm")
+PREDICT_BATCH = 256
+PREDICT_LADDER = [(64, 16, 16, 1), (128, 64, 136, 1), (256, 16, 784, 10),
+                  (512, 64, 64, 10), (1024, 16, 136, 1), (96, 64, 784, 1),
+                  (768, 64, 32, 10), (192, 16, 300, 1)]
+PREDICT_HELD_OUT = [(384, 64, 100, 1), (160, 16, 500, 10)]
+PREDICT_THRESHOLDS = (0.8, 0.0)
+# run by a second process: the same choose() on the forest loaded from its
+# file, against the same cache file
+CACHE_HIT_CHILD = r"""
+import json, sys
+src, forest_path, cache, batch, device = sys.argv[1:6]
+sys.path.insert(0, src)
+from repro_torch import io
+from repro_torch.core import engine_select
+from repro_torch.obs import get_registry
+choice = engine_select.choose(
+    io.load_forest(forest_path), int(batch), device=device,
+    engines=engine_select.default_engines(True, device),
+    opt_levels=(2,), cache_path=cache)
+print(json.dumps({"from_cache": choice.from_cache, "engine": choice.engine,
+                  "sweeps": get_registry().get(
+                      "repro_autotune_sweeps_total").value}))
+"""
 # (B, Sq, Sk, H, K, hd, causal) for flash_forward: tests/test_flash_kernel.py
 # :29-35 (MHA, GQA 3:1, MQA, Sq != Sk non-causal, smollm ratios), ragged
 # edges, and the dense configs' head dims 96 and 128
@@ -650,6 +702,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
                              f" below the full forest's {acc_full:.4f}")
     return dict(
         qforest=qforest, policy=fused.policy, calibration=cal, fused=fused,
+        served=f["served"], full=full,
         stages=fused.stages, launches=f["launches"]["cascade"],
         routes=f["routes"],
         staged_launches=st["launches"]["bitvector"],
@@ -1005,6 +1058,191 @@ def save_load_path(qforest, rows, device, tmpdir) -> dict:
     if os.path.exists(path):
         raise AssertionError("a refused save left a file behind")
     return out
+
+
+def check_tuned_launches(choice, counts: dict, what: str, device) -> None:
+    """On the card every ``cuda-*`` candidate the sweep timed launched its
+    kernel, and no kernel outside the sweep's candidates launched."""
+    timed = {TUNE_KERNELS[c.split("@")[0]] for c in choice.timings
+             if c.split("@")[0] in TUNE_KERNELS}
+    fused = any(c.startswith("cuda-qs@cascade-fused") for c in choice.timings)
+    for engine, n in counts.items():
+        want = device.type == "cuda" and (engine in timed or (
+            engine == "cascade" and fused))
+        if bool(n) != want:
+            raise AssertionError(f"{what}: {engine} launched {n} times")
+
+
+def tuned_engine(pred) -> tuple:
+    """What a predictor compiles: (engine, backend, opt, cascade tag)."""
+    plan = pred.plan
+    return (plan.engine, plan.backend, plan.opt,
+            plan.cascade.tag() if plan.cascade is not None else None)
+
+
+def autotune_sweep(qforest, rows, device, cache, batch=MAX_BATCH) -> dict:
+    """Phase 7 step 1: ``choose`` over the nine engines as-is and at -O2
+    (18 candidates, one optimize pass through the shared IR), every launch
+    count at 0 just before and read just after; the winner's output on
+    ``rows`` must equal plain torch bit for bit."""
+    engines = engine_select.default_engines(True, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    choice = engine_select.choose(qforest, batch, device=device,
+                                  engines=engines, opt_levels=AUTOTUNE_OPT,
+                                  cache_path=cache)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_tuned_launches(choice, counts, "autotune sweep", device)
+    if len(choice.timings) != 2 * len(engines) or choice.from_cache:
+        raise AssertionError(f"autotune sweep: {sorted(choice.timings)}, "
+                             f"from_cache {choice.from_cache}")
+    plain = core.compile_forest(qforest, engine="bitvector", backend="torch",
+                                device=device).predict(rows)
+    if not np.array_equal(choice.predict(rows), plain):
+        raise AssertionError(f"autotune winner {choice.engine} != plain "
+                             "torch")
+    return dict(choice=choice, launches=counts, wall=wall)
+
+
+def autotune_second_process(qforest, device, cache, tmpdir,
+                            batch=MAX_BATCH) -> dict:
+    """Phase 7 step 2: a second process loads the forest from its file
+    and asks the same question of the same cache file; returns what it
+    reports (``from_cache``, ``engine``, ``sweeps``)."""
+    path = os.path.join(tmpdir, "tune.repro.npz")
+    io.save_forest(qforest, path)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    out = subprocess.run(
+        [sys.executable, "-c", CACHE_HIT_CHILD, src, path, cache,
+         str(batch), device.type], capture_output=True, text=True,
+        check=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def autotune_server(qforest, rows, served, device, cache,
+                    batch=MAX_BATCH) -> dict:
+    """Phase 7 step 3: ``ForestServer.from_forest`` answers from the cache
+    and serves ``rows`` (all at once: ``len(rows) / batch`` batches), bit
+    for bit ``served``; a kernel winner launches once per batch, and
+    nothing else launches.  Then ``compile_forest(tune="measure")`` builds
+    the same engine from the cache, with no sweep."""
+    sweeps = get_registry().get("repro_autotune_sweeps_total")
+    n_sweeps = sweeps.value
+    srv = ForestServer.from_forest(qforest, max_batch=batch, device=device,
+                                   cache_path=cache)
+    if not srv.engine_choice.from_cache:
+        raise AssertionError("from_forest swept again")
+    reset_launches()
+    for row in rows:
+        srv.submit(row, arrival_s=0.0)
+    done = srv.flush(now_s=1.0)
+    counts = launch_counts()
+    out = np.stack([r.result for r in done])
+    if not np.array_equal(out, served):
+        raise AssertionError("from_forest served another output than "
+                             "phase 4")
+    n_batches = srv.stats.n_batches
+    engine = TUNE_KERNELS.get(srv.engine_choice.engine.split("@")[0])
+    want = {k: (n_batches if k == engine and device.type == "cuda" else 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"from_forest: launches {counts}, expected "
+                             f"{want}")
+    pred = core.compile_forest(qforest, tune="measure", tune_batch=batch,
+                               device=device, cache_path=cache)
+    if tuned_engine(pred) != tuned_engine(srv.predictor) or \
+            sweeps.value != n_sweeps:
+        raise AssertionError(f"compile_forest(tune=) built "
+                             f"{tuned_engine(pred)}, from_forest "
+                             f"{tuned_engine(srv.predictor)}")
+    return dict(server=srv, launches=counts, n_batches=n_batches)
+
+
+def autotune_cascade(qforest, stages, policy, rows, fused_served, full,
+                     device, cache, batch=MAX_BATCH) -> dict:
+    """Phase 7 step 4: ``choose`` over cuda-qs and qs, each as-is, staged
+    and fused with the calibrated gate (the fused cuda-qs candidate
+    launches ``cascade_qs_forward``, the staged one ``qs_forward``); the
+    winner serves ``rows`` bit for bit as phase 5 did: a cascade winner
+    ``fused_served``, a plain one the whole forest's ``full``."""
+    specs = (CascadeSpec(stages, policy), CascadeSpec(stages, policy,
+                                                      fused=True))
+    reset_launches()
+    choice = engine_select.choose(qforest, batch, device=device,
+                                  engines=CASCADE_TUNE_ENGINES,
+                                  cascade_specs=specs, cache_path=cache)
+    counts = launch_counts()
+    check_tuned_launches(choice, counts, "cascade sweep", device)
+    reset_launches()
+    out, _ = serve(choice.predictor, rows, max_batch=batch)
+    served_launches = launch_counts()
+    want = fused_served if "@cascade" in choice.engine else full
+    if not np.array_equal(out, want):
+        raise AssertionError(f"cascade autotune winner {choice.engine} "
+                             "serves other scores than phase 5")
+    # the gate decides what a cascade candidate costs: its exits on the
+    # sweep's rows (N(0, 1), as choose times them) against the served rows
+    fused = core.compile_forest(qforest, engine="bitvector", backend="cuda",
+                                device=device, cascade=specs[1])
+    exits = {}
+    for name, X in (("sweep", engine_select._bench_rows(
+            qforest, bucket_batch(batch), 0)), ("served", rows)):
+        fused.reset_exit_stats()
+        fused.predict(X)
+        exits[name] = fused.exit_fractions
+    return dict(choice=choice, launches=counts,
+                served_launches=served_launches, exits=exits)
+
+
+def ladder_forest(T, L, d, C, seed):
+    """A random int16 int-accum forest of the -Os ladder."""
+    forest = core.random_forest_ir(T, L, d, n_classes=C, seed=seed)
+    X = np.random.default_rng(seed).normal(size=(512, d))
+    return core.quantize_forest(forest, X, QUANT)
+
+
+def autotune_predict(device, cache, model_path, ladder=PREDICT_LADDER,
+                     held_out=PREDICT_HELD_OUT, batch=PREDICT_BATCH) -> dict:
+    """Phase 7 step 5: measured sweeps over the ladder, ``train_from_cache``
+    of the whole cache, then ``choose(mode="predict")`` on each held-out
+    shape (thresholds ``PREDICT_THRESHOLDS``), whose winner must equal
+    plain torch bit for bit, and of whose candidates (the predicted one,
+    or the top-k of a fallback) exactly the kernels launched.  Returns
+    the ladder's choices, the model and per held-out shape (choice,
+    relative error read from ``repro_autotune_predict_last_rel_error``)."""
+    sweeps = []
+    for i, (T, L, d, C) in enumerate(ladder):
+        f = ladder_forest(T, L, d, C, seed=100 + i)
+        sweeps.append(((T, L, d, C), engine_select.choose(
+            f, batch, device=device, engines=PREDICT_ENGINES,
+            cache_path=cache)))
+    model = tune.train_from_cache(cache, save_to=model_path)
+    asked = []
+    for i, ((T, L, d, C), thr) in enumerate(zip(held_out,
+                                                PREDICT_THRESHOLDS)):
+        f = ladder_forest(T, L, d, C, seed=200 + i)
+        reset_launches()
+        choice = engine_select.choose(
+            f, batch, device=device, engines=PREDICT_ENGINES, mode="-Os",
+            cost_model=model_path, confidence_threshold=thr,
+            cache_path=cache)
+        check_tuned_launches(choice, launch_counts(), "-Os", device)
+        X = np.random.default_rng(i).normal(size=(batch, d))
+        plain = core.compile_forest(f, engine="bitvector", backend="torch",
+                                    device=device).predict(X)
+        if not np.array_equal(choice.predict(X), plain):
+            raise AssertionError(f"-Os winner {choice.engine} at "
+                                 f"{(T, L, d, C)} != plain torch")
+        rel = None
+        if choice.predicted:
+            rel = get_registry().get(
+                "repro_autotune_predict_last_rel_error").labels(
+                    key=choice.key).value
+        asked.append(((T, L, d, C), thr, choice, rel))
+    if not asked[-1][2].predicted:
+        raise AssertionError("-Os at threshold 0 did not predict")
+    return dict(sweeps=sweeps, model=model, asked=asked)
 
 
 def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
@@ -1583,7 +1821,99 @@ def main() -> int:
               + f"; saving a cuda predictor raises ValueError ("
               f"{saved['cuda_error'][:60]}...) [{card}]")
 
-    # 7. the LM slice: flash_forward against its plain version, then
+    # 7. the autotuner on the card: the MSN forest swept, the decision
+    # replayed by a second process, served by from_forest, the mnist
+    # cascade's candidates, and the -Os cost model
+    old_registry = set_default_registry(MetricsRegistry())
+    try:
+        with tempfile.TemporaryDirectory() as tmpdir:
+            t_tune = time.perf_counter()
+            cache = os.path.join(tmpdir, "engine_cache.json")
+            sw = autotune_sweep(qfull, rows, device, cache)
+            choice = sw["choice"]
+            ranked = sorted(choice.timings, key=choice.timings.get)
+            margin = choice.timings[ranked[1]] / choice.timings[ranked[0]]
+            print(f"autotune: MSN int16 forest T={T} L={L} d={d} at batch "
+                  f"{MAX_BATCH}, key {choice.key}: {len(choice.timings)} "
+                  f"candidates ({len(choice.pruned)} aliased as identical "
+                  f"IR) in {sw['wall']:.1f} s host wall; winner "
+                  f"{choice.engine}, {margin:.3f}x faster than {ranked[1]}"
+                  f"; kernel launches in the sweep "
+                  f"{sw['launches']}; winner == plain torch on {len(rows)} "
+                  f"rows, bit for bit")
+            for name in ranked:
+                print(f"autotune candidate {name}: bench_us "
+                      f"{choice.timings[name] / MAX_BATCH * 1e6:.5f} per row "
+                      f"({choice.timings[name] * 1e3:.4f} ms per batch, host "
+                      f"clock around predict), compile_s "
+                      f"{choice.compile_s[name]:.3f} [{card}]")
+            t0 = time.perf_counter()
+            child = autotune_second_process(qfull, device, cache, tmpdir)
+            if child != {"from_cache": True, "engine": choice.engine,
+                         "sweeps": 0.0}:
+                raise AssertionError(f"second process: {child}")
+            print(f"autotune: a second process loaded the forest from "
+                  f"io.save_forest's file and asked the same cache: "
+                  f"{child} ({time.perf_counter() - t0:.1f} s with its "
+                  f"start)")
+            t0 = time.perf_counter()
+            srv = autotune_server(qfull, rows, served["bitvector"], device,
+                                  cache)
+            print(f"autotune: ForestServer.from_forest(max_batch="
+                  f"{MAX_BATCH}) from the cache: "
+                  f"{srv['server'].engine_choice.engine} (of the 9 "
+                  f"candidates as-is), served {len(rows)} rows in "
+                  f"{srv['n_batches']} batches, launches {srv['launches']}, "
+                  f"== phase 4 bit for bit; compile_forest(tune='measure') "
+                  f"built the same engine with no sweep "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            ct = autotune_cascade(casc["qforest"], casc["stages"],
+                                  casc["policy"], crows, casc["served"],
+                                  casc["full"], device, cache)
+            cchoice = ct["choice"]
+            exits = {k: [round(float(x), 4) for x in v]
+                     for k, v in ct["exits"].items()}
+            print(f"autotune: mnist cascade forest, engines "
+                  f"{CASCADE_TUNE_ENGINES} x (as-is, staged, fused) with "
+                  f"{casc['policy'].tag()} at batch {MAX_BATCH}: winner "
+                  f"{cchoice.engine}; launches in the sweep {ct['launches']}"
+                  f"; served {N_REQUESTS} rows == phase 5 bit for bit, "
+                  f"launches {ct['served_launches']}; the fused "
+                  f"candidate's exit fractions per stage on the sweep's "
+                  f"N(0, 1) rows {exits['sweep']}, on the served rows "
+                  f"{exits['served']} ({time.perf_counter() - t0:.1f} s)")
+            for name in sorted(cchoice.timings, key=cchoice.timings.get):
+                print(f"autotune cascade candidate {name}: bench_us "
+                      f"{cchoice.timings[name] / MAX_BATCH * 1e6:.5f} per "
+                      f"row, compile_s {cchoice.compile_s[name]:.3f} "
+                      f"[{card}]")
+            t0 = time.perf_counter()
+            pr = autotune_predict(device, cache,
+                                  os.path.join(tmpdir, "cost_model.json"))
+            for shape, c in pr["sweeps"]:
+                order = sorted(c.timings, key=c.timings.get)
+                print(f"autotune ladder T,L,d,C={shape} batch "
+                      f"{PREDICT_BATCH}: winner {order[0]} "
+                      f"({c.timings[order[1]] / c.timings[order[0]]:.3f}x "
+                      f"{order[1]}); us per row " + ", ".join(
+                          f"{n} {c.timings[n] / PREDICT_BATCH * 1e6:.4f}"
+                          for n in order) + f" [{card}]")
+            m = pr["model"]
+            print(f"autotune -Os: cost model fit on {m.n_rows} rows of the "
+                  f"cache, residual sigma {m.resid_sigma:.4f} (log us)")
+            for shape, thr, c, rel in pr["asked"]:
+                print(f"autotune -Os T,L,d,C={shape} batch {PREDICT_BATCH} "
+                      f"threshold {thr}: predicted {c.predicted}, confidence "
+                      f"{c.confidence:.4f}, winner {c.engine}, "
+                      f"repro_autotune_predict_rel_error {rel}; winner == "
+                      f"plain torch bit for bit [{card}]")
+            print(f"autotune phase: {time.perf_counter() - t_tune:.1f} s "
+                  f"(-Os part {time.perf_counter() - t0:.1f} s)")
+    finally:
+        set_default_registry(old_registry)
+
+    # 8. the LM slice: flash_forward against its plain version, then
     # smollm-360m served at full width
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for shape in FLASH_SWEEP:
@@ -1631,7 +1961,7 @@ def main() -> int:
           f"{lm['times_cold']['decode_ms'] / LM_NEW:.3f} ms per token "
           f"[{card}]")
 
-    # 8. timings at the main paths' full-width kernel shapes.  ms and
+    # 9. timings at the main paths' full-width kernel shapes.  ms and
     # library_ms: an eager loop of calls (cuda_ms), the host's work per
     # call included.  device_ms and library_device_ms: the same calls
     # replayed from one CUDA graph (graph_ms), the device's time alone

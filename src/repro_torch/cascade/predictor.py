@@ -158,7 +158,7 @@ class CascadePredictor:
 
     def trace_cache_size(self) -> Optional[int]:
         raise NotImplementedError(
-            "trace_cache_size needs repro_torch.obs, ported in the "
+            "trace_cache_size needs repro_torch.obs.retrace, ported in the "
             "serving-runtime slice (ROADMAP Queue A item 9)")
 
     # ------------------------------------------------------------ serving

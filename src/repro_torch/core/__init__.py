@@ -55,7 +55,7 @@ from .pipeline import CompilePlan, PassRecord, compile_plan
 
 def compile_forest(forest: Forest, engine: str = "bitvector",
                    backend: str = "cuda", cascade=None, opt=None,
-                   tune=None, device=None, **kw):
+                   tune=None, tune_batch: int = 256, device=None, **kw):
     """Build a predictor for ``forest`` via the pass pipeline.
 
     ``engine`` / ``backend`` resolve through ``core.registry``; ``**kw``
@@ -68,12 +68,28 @@ def compile_forest(forest: Forest, engine: str = "bitvector",
     level (``0``/``1``/``2`` or ``"O2"``) or an explicit pass-name tuple;
     the result is always oracle-equivalence checked.  For
     quantization-as-a-pass or a model file use ``core.compile_plan``
-    directly.  ``tune=`` raises until the autotuner is ported.
+    directly.
+
+    ``tune=`` hands the *whole* decision to the autotuner instead
+    (``core.engine_select``): ``tune="measure"`` sweeps,
+    ``tune="predict"`` (alias ``"-Os"``) asks the learned cost model
+    (``repro_torch.tune``) for a zero-shot plan at the ``tune_batch``
+    bucket, on ``device``.  With ``tune=`` set, ``engine``/``backend``
+    are chosen *by* the tuner, so they (and ``cascade``/``opt``, which
+    become sweep axes via ``cascade_specs=``/``opt_levels=``) must stay
+    at their defaults; ``**kw`` forwards to ``engine_select.choose``
+    (``cost_model=``, ``engines=``, ...).
     """
     if tune is not None:
-        raise NotImplementedError(
-            "tune= needs the autotuner, ported in the autotuner slice "
-            "(ROADMAP Queue A item 8)")
+        if engine != "bitvector" or backend != "cuda" or \
+                cascade is not None or opt is not None:
+            raise ValueError(
+                "tune= picks engine/backend (and sweeps cascade/opt "
+                "via cascade_specs=/opt_levels=); don't pass them "
+                "alongside it")
+        from . import engine_select
+        return engine_select.choose(forest, tune_batch, mode=tune,
+                                    device=device, **kw).predictor
     device = resolve_device(device)
     return compile_plan(forest, CompilePlan(engine=engine, backend=backend,
                                             device=device, cascade=cascade,

@@ -229,6 +229,9 @@ class EngineSpec:
     compile: Optional[Callable] = None    # (forest, device=) -> compiled
     evaluate: Optional[Callable] = None   # (compiled, X) -> (B, C) tensor
     predictor_cls: type = BasePredictor
+    shardable: bool = False               # supports tree-sharding; False on
+    #                                       every engine until the sharding
+    #                                       slice (ROADMAP Queue A item 10)
     layout: Optional[Callable] = None     # (forest, plan) -> detail string;
     #                                       pipeline layout-pass hook
     serial_arrays: tuple = ()             # compiled buffers io.packed may
@@ -304,6 +307,19 @@ def specs(backend: Optional[str] = None) -> tuple[EngineSpec, ...]:
 def engines(backend: Optional[str] = None) -> tuple[str, ...]:
     """Canonical engine names (deduped across backends, in order)."""
     return tuple(dict.fromkeys(s.name for s in specs(backend)))
+
+
+def tune_table() -> dict[str, tuple[str, str]]:
+    """Autotuner name → (engine, backend) — derived, never re-declared."""
+    return {s.tune_name: (s.name, s.backend) for s in _REGISTRY.values()}
+
+
+def by_tune_name(tune_name: str) -> EngineSpec:
+    for s in _REGISTRY.values():
+        if s.tune_name == tune_name:
+            return s
+    raise ValueError(f"unknown autotuner engine {tune_name!r}; "
+                     f"registered: {sorted(tune_table())}")
 
 
 def build(forest, name: str, backend: str = "torch", device=None,

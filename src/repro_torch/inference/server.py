@@ -16,10 +16,12 @@ ever subtracts timestamps.
   * ``LMServer`` — batch LM completion over ``repro_torch.models.Model``:
     one trunk pass fills the KV cache from the prompt, then greedy decode.
 
-``ForestServer.save`` / ``load`` persist a serving artifact through
-``repro_torch.io``.  Not yet ported: ``ForestServer.from_forest`` (the
-autotuner), ``obs=`` (``obs``) and ``LMServer(kv_quant=True)`` (the int8 KV
-cache); each raises ``NotImplementedError``.
+``ForestServer.from_forest`` builds a server on the autotuned engine
+(``core.engine_select``); ``ForestServer.save`` / ``load`` persist a
+serving artifact through ``repro_torch.io``.  Not yet ported: ``obs=``
+(the serving metrics, ROADMAP Queue A item 9) and
+``LMServer(kv_quant=True)`` (the int8 KV cache); each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -229,20 +231,41 @@ class ForestServer:
                  max_wait_ms: float = 2.0, *, obs=None):
         if obs is not None and obs is not False:
             raise NotImplementedError(
-                "obs= needs repro_torch.obs, ported in the serving-runtime "
-                "slice (ROADMAP Queue A item 9)")
+                "obs= needs repro_torch.obs.serving, ported in the "
+                "serving-runtime slice (ROADMAP Queue A item 9)")
         self.predictor = predictor
         self.batcher = MicroBatcher(max_batch, max_wait_ms)
         self.stats = ServerStats()
         self._rid = 0
-        self.engine_choice = None          # the engine's name after load()
+        # set by from_forest(); the engine's name after load()
+        self.engine_choice = None
 
     @classmethod
-    def from_forest(cls, forest, **kw) -> "ForestServer":
-        raise NotImplementedError(
-            "ForestServer.from_forest needs the autotuner, ported in the "
-            "autotuner slice (ROADMAP Queue A item 8); build a predictor "
-            "with core.compile_forest and pass it to ForestServer")
+    def from_forest(cls, forest, *, max_batch: int = 256,
+                    max_wait_ms: float = 2.0, device=None,
+                    **choose_kw) -> "ForestServer":
+        """Build a server on the autotuned fastest engine for this forest,
+        on ``device`` (``None`` → the card).
+
+        The dispatch batch cap is the autotune batch: the winner is picked
+        for the batch shape the micro-batcher will actually emit.  The
+        decision comes from ``core.engine_select``'s cache when one exists
+        (in-memory or the JSON file), so restarts skip the sweep.
+        ``**choose_kw`` goes to ``engine_select.choose``: ``engines=``,
+        ``cache_path=`` (``None`` disables the disk layer; omitted, the
+        default cache file), ``cascade_specs=`` (confidence-gated staged
+        candidates — a cascade winner serves through the same
+        micro-batcher, with per-stage exit fractions reported in
+        ``ServerStats.summary()``), ``opt_levels=`` and ``quant_specs=``
+        (optimizer and fixed-point variants whose serving interface is
+        unchanged: full-width rows)."""
+        from ..core import engine_select
+        choice = engine_select.choose(forest, max_batch, device=device,
+                                      **choose_kw)
+        srv = cls(choice.predictor, max_batch=max_batch,
+                  max_wait_ms=max_wait_ms)
+        srv.engine_choice = choice
+        return srv
 
     def save(self, path) -> None:
         """Persist the compiled serving artifact (docs/FORMATS.md): the

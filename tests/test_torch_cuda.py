@@ -764,3 +764,54 @@ def test_packed_file_compiles_to_the_in_memory_forest(card, engine,
         assert torch.equal(a, b)
     np.testing.assert_array_equal(from_file.predict(X),
                                   in_memory.predict(X))
+
+
+# --------------------------------------------------------------------------- #
+# the autotuner on the card
+# --------------------------------------------------------------------------- #
+KERNEL_TUNE_NAMES = ("cuda-qs", "cuda-bitmm", "cuda-gemm")
+
+
+def test_sweep_over_the_kernels_picks_a_bit_exact_winner(card, tmp_path):
+    from repro_torch.core import engine_select
+    engine_select.clear_cache()
+    X, (_, qf) = _forests(64, 32, 20, 3, 256)
+    before = {e: k.launches for e, k in (("cuda-qs", qs_forward),
+                                         ("cuda-bitmm", qs_bitmm_forward),
+                                         ("cuda-gemm", gemm_forward))}
+    choice = engine_select.choose(qf, 256, engines=KERNEL_TUNE_NAMES,
+                                  cache_path=str(tmp_path / "c.json"),
+                                  repeats=2)
+    assert set(choice.timings) == set(KERNEL_TUNE_NAMES)
+    for name, k in (("cuda-qs", qs_forward), ("cuda-bitmm", qs_bitmm_forward),
+                    ("cuda-gemm", gemm_forward)):
+        # build's first predict, the warm-up and two timed calls
+        assert k.launches - before[name] == 4, name
+    plain = core.compile_forest(qf, engine=choice.predictor.plan.engine,
+                                backend="cuda", device="cpu")
+    np.testing.assert_array_equal(choice.predict(X), plain.predict(X))
+    assert choice.key.startswith("torch-cuda_")
+
+
+def test_from_forest_on_card_serves_what_predict_gives(card, tmp_path):
+    from repro_torch.inference import ForestServer
+    X, (_, qf) = _forests(32, 16, 12, 1, 64)
+    srv = ForestServer.from_forest(qf, max_batch=64,
+                                   engines=KERNEL_TUNE_NAMES + ("qs",),
+                                   cache_path=str(tmp_path / "c.json"),
+                                   repeats=1)
+    for row in X:
+        srv.submit(row, arrival_s=0.0)
+    served = np.stack([r.result for r in srv.flush(now_s=1.0)])
+    np.testing.assert_array_equal(served, srv.predictor.predict(X))
+    assert srv.engine_choice.predictor is srv.predictor
+
+
+def test_device_fingerprint_names_the_card(card):
+    from repro_torch.core import engine_select
+    fp = engine_select.device_fingerprint()
+    major, minor = torch.cuda.get_device_capability()
+    assert fp["backend"] == "torch-cuda"
+    assert fp["device_kind"] == \
+        f"{torch.cuda.get_device_name()} sm_{major}{minor}"
+    assert engine_select.default_engines()[-3:] == KERNEL_TUNE_NAMES

@@ -80,6 +80,27 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(chip_smoke.fixture_path(torch.device("cpu"))) == 18
     saved = chip_smoke.save_load_path(want, X, torch.device("cpu"), tmp)
     assert "save the forest" in saved["cuda_error"]
+    cpu, cache = torch.device("cpu"), f"{tmp}/engine_cache.json"
+    sw = chip_smoke.autotune_sweep(want, X, cpu, cache, batch=64)
+    assert len(sw["choice"].timings) == 18
+    assert not any(sw["launches"].values())
+    child = chip_smoke.autotune_second_process(want, cpu, cache, tmp, batch=64)
+    assert child == {"from_cache": True, "engine": sw["choice"].engine,
+                     "sweeps": 0.0}, child
+    rows = np.concatenate([X] * 4)
+    srv = chip_smoke.autotune_server(want, rows, pred.predict(rows), cpu,
+                                     cache, batch=64)
+    assert srv["n_batches"] == 3
+    ct = chip_smoke.autotune_cascade(
+        res["qforest"], res["stages"], res["policy"], ds.X_test[60:],
+        res["served"], res["full"], cpu, cache, batch=64)
+    assert len(ct["choice"].timings) == 6
+    assert all(abs(sum(v) - 1) < 1e-9 for v in ct["exits"].values())
+    pr = chip_smoke.autotune_predict(
+        cpu, cache, f"{tmp}/cost_model.json",
+        ladder=[(8, 16, 6, 1), (16, 16, 8, 3), (12, 32, 10, 1)],
+        held_out=[(10, 16, 7, 1), (6, 16, 5, 3)], batch=32)
+    assert pr["asked"][-1][2].predicted and pr["asked"][-1][3] >= 0
 from repro_torch.configs import get_config
 cfg = get_config(chip_smoke.LM_ARCH).reduced()
 lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,
@@ -96,6 +117,13 @@ if not torch.cuda.is_available():
         assert "device='cpu'" in str(e)
     else:
         raise AssertionError("compile_forest ran without a CUDA device")
+    from repro_torch.core import engine_select
+    try:
+        engine_select.choose(forest, 64, engines=("qs",), cache_path=None)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+    else:
+        raise AssertionError("choose ran without a CUDA device")
 print("HYGIENE-OK", len(names))
 """
 

@@ -104,10 +104,26 @@ def test_compile_plan_quantizes_as_the_reference(trained_rf, port_rf,
             [r.detail for r in ref.plan.records if r.name == name]
 
 
-def test_unported_parts_raise(forests):
+def test_unported_parts_raise(forests, magic_ds, tmp_path, monkeypatch):
     _, port_forest = forests
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        tcore.compile_forest(port_forest, tune="-Os", device="cpu")
+    # the autotuner is ported: tune= (here with no cost model, so a
+    # sweep) builds the predictor the plain compile gives, and
+    # from_forest serves
+    monkeypatch.setenv("REPRO_COST_MODEL", str(tmp_path / "none.json"))
+    X = magic_ds.X_test[:64]
+    tuned = tcore.compile_forest(port_forest, tune="-Os", device="cpu",
+                                 engines=("qs",), cache_path=None,
+                                 repeats=1)
+    np.testing.assert_array_equal(
+        tuned.predict(X), tcore.compile_forest(port_forest, backend="torch",
+                                               device="cpu").predict(X))
+    srv = TServer.from_forest(port_forest, max_batch=64, device="cpu",
+                              engines=("qs",), cache_path=None, repeats=1)
+    for row in X:
+        srv.submit(row, arrival_s=0.0)
+    done = srv.flush(now_s=1.0)
+    np.testing.assert_array_equal(np.stack([r.result for r in done]),
+                                  tuned.predict(X))
     # the cascade is ported; what it still waits for raises
     from repro_torch.cascade import CascadeSpec
     casc = tcore.compile_forest(port_forest, device="cpu",
@@ -117,7 +133,5 @@ def test_unported_parts_raise(forests):
     with pytest.raises(NotImplementedError, match="sharding"):
         tcore.compile_plan(port_forest, device="cpu", n_devices=2)
     pred = tcore.compile_forest(port_forest, opt="O0", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TServer.from_forest(port_forest)
     with pytest.raises(NotImplementedError):
         TServer(pred, obs=True)
