@@ -88,7 +88,29 @@ or JAX.  Phases:
     ``torch`` give the same greedy tokens and close prefill logits, so do
     the bf16 prefill logits, and teacher-forced ``decode_step`` matches
     ``Model.forward``;
- 9. time each kernel and its plain version with CUDA events, as an
+ 9. the serving runtime: one ``ServingRuntime`` holds four tenants, the
+    phase-4 MSN int16 forest on each kernel engine (``msn-qs``,
+    ``msn-bitmm``, ``msn-gemm``) and phase 5's fused mnist cascade, all
+    at ``max_batch=1024``, warmed over ``bucket_ladder(1024)``; the 4096
+    MSN rows (spread over the three MSN tenants) and the 4096 mnist rows,
+    interleaved, arrive open-loop (Poisson, ``RUNTIME_RATE_HZ`` on the
+    real clock) and the worker thread serves them while a second thread
+    scrapes ``/metrics`` and ``/traces`` over loopback.  A first,
+    unthrottled run gives ``msn-qs`` its p99, which the served run takes
+    as its ``SLOConfig`` target.  Served == each tenant's synchronous
+    ``predict`` bit for bit, the MSN rows == phase 4, the cascade's exit
+    counts == phase 5; each kernel launched once per batch of its tenant
+    on the x-tile route, no other kernel; no compile event or retrace
+    anomaly after warmup; the scrape lists all 13 catalog metrics with
+    the request and batch counters of ``stats()``; every request
+    answered once.  Then ``from_forests`` with phase 7's cache (no
+    sweep, bit-identical), a fleet of torch-engine tenants saved and
+    loaded onto the card (bit-identical; saving a ``cuda`` tenant
+    raises), and ``repro_torch.launch.serve`` in each mode, in process.
+    Per tenant its p50 / p99, the mean of each phase, batches, mean batch
+    and the controller's decisions, the rate served and the phase's wall
+    time are printed beside the card's name and power limit;
+10. time each kernel and its plain version with CUDA events, as an
     eager loop of calls, beside the least time the card could take for
     the same work (the kernels and SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
@@ -106,6 +128,7 @@ CUDA device, and where ``src/repro_torch`` is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -114,7 +137,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from io import StringIO
 
 import numpy as np
 
@@ -137,7 +163,8 @@ from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
 from repro_torch.data import datasets  # noqa: E402
 from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
                                      TokenPipelineConfig)
-from repro_torch.inference import ForestServer, LMServer  # noqa: E402
+from repro_torch.inference import (ForestServer, LMServer,  # noqa: E402
+                                   ServingRuntime, SLOConfig)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.cascade_kernel import (  # noqa: E402
     cascade_layout, cascade_qs_forward, cascade_qs_forward_reference,
@@ -146,7 +173,9 @@ from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.obs import (MetricsRegistry, get_registry,  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
+                             MetricsRegistry, get_registry,
                              set_default_registry)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
@@ -251,6 +280,20 @@ PREDICT_LADDER = [(64, 16, 16, 1), (128, 64, 136, 1), (256, 16, 784, 10),
                   (768, 64, 32, 10), (192, 16, 300, 1)]
 PREDICT_HELD_OUT = [(384, 64, 100, 1), (160, 16, 500, 10)]
 PREDICT_THRESHOLDS = (0.8, 0.0)
+# the serving runtime (phase 9): the MSN forest on each kernel engine and
+# the fused mnist cascade, four tenants of one ServingRuntime, served under
+# open-loop Poisson arrivals on the real clock (the rate is the fleet's
+# total; max_batch = MAX_BATCH for every tenant); msn-qs carries an SLO
+# whose p99 target is the fleet's own unthrottled p99; the launcher's
+# forest and runtime modes train magic forests of LAUNCH_TREES trees
+MSN_TENANTS = {"msn-qs": "bitvector", "msn-bitmm": "bitmm",
+               "msn-gemm": "gemm"}
+MNIST_TENANT = "mnist-cascade"
+SLO_TENANT = "msn-qs"
+RUNTIME_RATE_HZ = 8000.0
+RUNTIME_WAIT_MS = 2.0
+RUNTIME_TIMEOUT_S = 120.0
+LAUNCH_TREES = 32
 # run by a second process: the same choose() on the forest loaded from its
 # file, against the same cache file
 CACHE_HIT_CHILD = r"""
@@ -709,6 +752,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         tier1_launches={e: runs[f"fused_{e}"]["launches"][e]
                         for e in CASCADE_TIER1_ENGINES},
         n_batches=f["server"].stats.n_batches,
+        exit_counts=[int(c) for c in exits],
         mean_batch=f["server"].stats.batch_sizes.mean(),
         exit_fractions=f["server"].stats.summary()["exit_fractions"],
         mean_trees=float((exits * np.asarray(fused.stages)).sum()
@@ -1245,6 +1289,349 @@ def autotune_predict(device, cache, model_path, ladder=PREDICT_LADDER,
     return dict(sweeps=sweeps, model=model, asked=asked)
 
 
+def fleet_traffic(n_msn: int, n_mnist: int, rate_hz: float, seed=0):
+    """Open-loop arrivals for the fleet: ``n_msn`` MSN rows spread over the
+    three MSN tenants in turn and ``n_mnist`` mnist requests, interleaved
+    in a seeded order at seeded Poisson times (seconds from the start).
+    Returns [(tenant, row index, arrival)]."""
+    rng = np.random.default_rng(seed)
+    kinds = rng.permutation(np.r_[np.zeros(n_msn, int), np.ones(n_mnist,
+                                                                 int)])
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_hz, size=len(kinds)))
+    names, out, seen = list(MSN_TENANTS), [], [0, 0]
+    for kind, at in zip(kinds, arrivals):
+        i = seen[kind]
+        seen[kind] += 1
+        out.append((names[i % 3] if kind == 0 else MNIST_TENANT, i,
+                    float(at)))
+    return out
+
+
+def scrape_counters(text: str, name: str) -> dict:
+    """``name{tenant="t"} v`` samples of a Prometheus scrape, by tenant."""
+    pat = re.compile(rf'^{name}\{{tenant="([^"]+)"\}} (\S+)$', re.M)
+    return {t: float(v) for t, v in pat.findall(text)}
+
+
+def run_fleet(rt, traffic, msn_rows, mnist_rows, url=None) -> dict:
+    """Drive ``traffic`` through the threaded runtime on the real clock,
+    each request submitted at its arrival time, while a second thread
+    scrapes ``/metrics`` and ``/traces`` from ``url`` (when given).  Every
+    ``wait`` has a timeout.  Returns the requests, the wall time from the
+    first arrival to the last answer, each scrape's ms (host clock, both
+    endpoints) and the last scrape."""
+    stop, scrapes, errors = threading.Event(), [], []
+
+    def scraper():
+        while not stop.is_set():
+            try:
+                t0 = time.perf_counter()
+                for path in ("/metrics", "/traces?n=16"):
+                    with urllib.request.urlopen(url + path,
+                                                timeout=10) as resp:
+                        resp.read()
+                scrapes.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:              # noqa: BLE001 — reported
+                errors.append(repr(e))
+            stop.wait(5e-3)
+
+    th = threading.Thread(target=scraper, daemon=True) if url else None
+    reqs = []
+    with rt:
+        if th is not None:
+            th.start()
+        base = time.perf_counter() + 0.005
+        for tenant, i, at in traffic:
+            target = base + at
+            while time.perf_counter() < target:
+                time.sleep(min(max(target - time.perf_counter(), 0.0),
+                               5e-4))
+            row = mnist_rows[i] if tenant == MNIST_TENANT else msn_rows[i]
+            reqs.append((tenant, i, rt.submit(tenant, row,
+                                              arrival_s=target)))
+        for _, _, r in reqs:
+            r.wait(timeout=RUNTIME_TIMEOUT_S)
+        wall = max(r.done_s for _, _, r in reqs) - base
+        last = None
+        if th is not None:
+            stop.set()
+            th.join(timeout=30)
+            if th.is_alive() or errors or not scrapes:
+                raise AssertionError(f"scrape thread: {len(scrapes)} "
+                                     f"scrapes, errors {errors[:3]}")
+            with urllib.request.urlopen(url + "/metrics",
+                                        timeout=10) as resp:
+                last = resp.read().decode()
+    return dict(reqs=reqs, wall=wall, scrapes=scrapes, last=last)
+
+
+def runtime_fleet(msn_preds, fused, msn_rows, msn_served, mnist_rows,
+                  mnist_exits, device, max_batch=MAX_BATCH,
+                  rate_hz=RUNTIME_RATE_HZ) -> dict:
+    """Phase 9 step 1: four tenants in one ``ServingRuntime``: the MSN
+    forest on each kernel engine (``msn_preds``, by engine) and the fused
+    mnist cascade.  A first, unthrottled run gives ``msn-qs`` its p99;
+    the served run gives ``msn-qs`` that p99 as its ``SLOConfig`` target.
+    Each run is warmed over ``bucket_ladder(max_batch)`` and serves the
+    same open-loop traffic with a scrape thread beside it.  Every launch
+    count is set to 0 just before the served run's traffic and read just
+    after.  Checks: served == each tenant's synchronous ``predict`` and ==
+    ``msn_served`` (MSN rows) bit for bit; the cascade's exit counts ==
+    ``mnist_exits``; each kernel launched once per batch of its tenant, on
+    the x-tile route, and no other kernel; no first use after warmup; the
+    scrape lists the whole catalog with the request and batch counters of
+    ``stats()``; every request answered once."""
+    on_card = device.type == "cuda"
+    preds = {t: msn_preds[e] for t, e in MSN_TENANTS.items()}
+    preds[MNIST_TENANT] = fused
+    traffic = fleet_traffic(len(msn_rows), len(mnist_rows), rate_hz)
+
+    def fleet(slo_p99=None):
+        rt = ServingRuntime(obs=MetricsRegistry())
+        for tid, pred in preds.items():
+            slo = SLOConfig(target_p99_ms=slo_p99) \
+                if slo_p99 is not None and tid == SLO_TENANT else None
+            rt.add_model(tid, pred, max_batch=max_batch,
+                         max_wait_ms=RUNTIME_WAIT_MS, slo=slo)
+        warmed = rt.warmup()
+        if any(w != list(engine_select.bucket_ladder(max_batch))
+               for w in warmed.values()):
+            raise AssertionError(f"warmup covered {warmed}")
+        return rt
+
+    rt = fleet()
+    free = run_fleet(rt, traffic, msn_rows, mnist_rows)
+    free_phases, free_first = phase_means(rt), compute_first_max(rt)
+    target = rt.summary(SLO_TENANT)["p99_ms"]
+    rt = fleet(target)
+    url = rt.serve_metrics(port=0).url
+    reset_launches()
+    run = run_fleet(rt, traffic, msn_rows, mnist_rows, url)
+    counts, routes = launch_counts(), tile_routes()
+    cascade_routes = dict(cascade_qs_forward.launches_by_route)
+    stats = rt.stats()
+    summary = {tid: rt.summary(tid) for tid in rt.model_ids}
+    reg = rt.obs.registry
+
+    # every request answered once, by the tenant it was sent to
+    reqs = run["reqs"]
+    if len({r.rid for *_, r in reqs}) != len(traffic) or any(
+            r.result is None or not r.future.done() for *_, r in reqs):
+        raise AssertionError("a request was dropped or answered twice")
+    if sum(s["n_requests"] for s in stats.values()) != len(traffic) or \
+            reg.get("repro_request_errors_total").samples():
+        raise AssertionError(f"requests by tenant "
+                             f"{ {t: s['n_requests'] for t, s in stats.items()} }"
+                             f" for {len(traffic)} sent, or errors")
+    for tid, s in stats.items():
+        if s["compile_events"] or s["retrace_anomalies"]:
+            raise AssertionError(f"{tid}: {s['compile_events']} first uses "
+                                 f"and {s['retrace_anomalies']} anomalies "
+                                 "after warmup")
+    want = {k: 0 for k in counts}
+    for tid, engine in MSN_TENANTS.items():
+        want[engine] = stats[tid]["n_batches"] if on_card else 0
+    want["cascade"] = stats[MNIST_TENANT]["n_batches"] if on_card else 0
+    if counts != want:
+        raise AssertionError(f"fleet launches {counts}, expected {want}")
+    check_routes(routes, counts, "fleet")
+    if cascade_routes != {"smem_x": counts["cascade"], "global_x": 0}:
+        raise AssertionError(f"fleet cascade routes {cascade_routes}")
+    exits = stats[MNIST_TENANT]["exit_fractions"]
+    got_exits = [int(c) for c in
+                 rt.tenant(MNIST_TENANT).stats.stage_exit_counts]
+    if got_exits != [int(c) for c in mnist_exits]:
+        raise AssertionError(f"fleet cascade exits {got_exits}, phase 5 "
+                             f"{list(mnist_exits)}")
+
+    # the scrape: the whole catalog, and the counters stats() reports
+    text = run["last"]
+    missing = [n for n in METRIC_CATALOG if f"# TYPE {n} " not in text]
+    scraped_req = scrape_counters(text, "repro_requests_total")
+    scraped_bat = scrape_counters(text, "repro_batches_total")
+    if missing or any(scraped_req.get(t) != s["n_requests"] or
+                      scraped_bat.get(t) != s["n_batches"]
+                      for t, s in stats.items()):
+        raise AssertionError(f"scrape: missing {missing}, requests "
+                             f"{scraped_req}, batches {scraped_bat}")
+
+    # served == synchronous predict == phase 4 / phase 5 input, bit for bit
+    served = {tid: [] for tid in preds}
+    for tid, i, r in reqs:
+        served[tid].append((i, r.result))
+    for tid, pairs in served.items():
+        idx = np.array([i for i, _ in pairs])
+        got = np.stack([s for _, s in pairs])
+        src = mnist_rows if tid == MNIST_TENANT else msn_rows
+        direct = np.concatenate([preds[tid].predict(src[idx[j:j + max_batch]])
+                                 for j in range(0, len(idx), max_batch)])
+        if not np.array_equal(got, direct):
+            raise AssertionError(f"{tid}: served != synchronous predict")
+        if tid != MNIST_TENANT and not np.array_equal(got,
+                                                      msn_served[idx]):
+            raise AssertionError(f"{tid}: served != phase 4")
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{tid}: non-finite scores")
+
+    return dict(summary=summary, free=latency_percentiles(free),
+                free_phases=free_phases, free_wall=free["wall"],
+                deciles=(latency_deciles(free), latency_deciles(run)),
+                first=(free_first, compute_first_max(rt)),
+                target=target, phases=phase_means(rt), launches=counts,
+                wall=run["wall"], scrapes=run["scrapes"],
+                n_requests=len(traffic), exits=exits,
+                n_series=sum(1 for ln in text.splitlines()
+                             if ln and not ln.startswith("#")))
+
+
+def phase_means(rt) -> dict:
+    """Mean ms of each ``PHASES`` phase per tenant, from the runtime's
+    ``repro_phase_ms`` histograms."""
+    fam = rt.obs.registry.get("repro_phase_ms")
+    out = {}
+    for tid in rt.model_ids:
+        out[tid] = {}
+        for p in PHASES:
+            h = fam.labels(tenant=tid, phase=p)
+            out[tid][p] = h.sum / h.count if h.count else 0.0
+    return out
+
+
+def latency_deciles(run: dict) -> list:
+    """p99 latency (ms) of each tenth of a ``run_fleet`` run's requests in
+    arrival order: where in the run the tail sits."""
+    lat = [r.latency_ms for *_, r in run["reqs"]]
+    return [float(np.percentile(part, 99))
+            for part in np.array_split(np.asarray(lat), 10)]
+
+
+def compute_first_max(rt) -> dict:
+    """Per tenant (first batch's, largest) ``compute_ms``, host clock."""
+    out = {}
+    for tid in rt.model_ids:
+        ms = list(rt.tenant(tid).stats.compute_ms)
+        out[tid] = (ms[0], max(ms))
+    return out
+
+
+def latency_percentiles(run: dict) -> dict:
+    """p50 / p99 latency by tenant of one ``run_fleet`` run."""
+    lat = {}
+    for tid, _, r in run["reqs"]:
+        lat.setdefault(tid, []).append(r.latency_ms)
+    return {tid: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+            for tid, v in lat.items()}
+
+
+def runtime_from_forests(qforest, rows, served, device, cache,
+                         max_batch=MAX_BATCH) -> dict:
+    """Phase 9 step 2: ``ServingRuntime.from_forests`` on the MSN forest
+    with phase 7's cache file and engine list answers from the cache (no
+    sweep) and serves ``rows`` bit for bit ``served``."""
+    old = set_default_registry(MetricsRegistry())
+    try:
+        rt = ServingRuntime.from_forests(
+            {"msn": qforest}, max_batch=max_batch, device=device,
+            obs=MetricsRegistry(), cache_path=cache,
+            engines=engine_select.default_engines(True, device),
+            opt_levels=AUTOTUNE_OPT)
+        sweeps = get_registry().get("repro_autotune_sweeps_total")
+        n_sweeps = sweeps.value if sweeps is not None else 0.0
+    finally:
+        set_default_registry(old)
+    choice = rt.tenant("msn").engine_choice
+    if not choice.from_cache or n_sweeps:
+        raise AssertionError(f"from_forests swept: from_cache "
+                             f"{choice.from_cache}, sweeps {n_sweeps}")
+    reqs = [rt.submit("msn", row, arrival_s=0.0) for row in rows]
+    rt.flush(now_s=1.0)
+    out = np.stack([r.result for r in reqs])
+    if not np.array_equal(out, served):
+        raise AssertionError("from_forests served another output than "
+                             "phase 4")
+    return dict(engine=choice.engine, sweeps=n_sweeps,
+                n_batches=rt.summary("msn")["n_batches"])
+
+
+def runtime_round_trip(qforest, cforest, stages, policy, rows, crows,
+                       msn_served, mnist_served, device, tmpdir) -> dict:
+    """Phase 9 step 3: a fleet of torch-engine tenants (the MSN forest on
+    ``SAVED_ENGINES`` and the mnist cascade, staged) saved and loaded onto
+    ``device`` serves bit for bit what phases 4 and 5 served; saving a
+    fleet with a ``cuda`` tenant raises ``ValueError``."""
+    rt = ServingRuntime(obs=False)
+    for engine in SAVED_ENGINES:
+        rt.add_model(f"msn-{engine}", core.compile_forest(
+            qforest, engine=engine, backend="torch", device=device),
+            max_batch=MAX_BATCH)
+    rt.add_model(MNIST_TENANT, core.compile_forest(
+        cforest, engine="bitvector", backend="torch", device=device,
+        cascade=CascadeSpec(stages, policy)), max_batch=MAX_BATCH)
+    manifest = rt.save(os.path.join(tmpdir, "fleet"))
+    t0 = time.perf_counter()
+    loaded = ServingRuntime.load(manifest, device=device, obs=False)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    n = MAX_BATCH
+    for tid in loaded.model_ids:
+        if loaded.tenant(tid).predictor.device != device:
+            raise AssertionError(f"{tid} loaded on "
+                                 f"{loaded.tenant(tid).predictor.device}")
+        src, want = (crows, mnist_served) if tid == MNIST_TENANT \
+            else (rows, msn_served)
+        reqs = [loaded.submit(tid, row, arrival_s=0.0) for row in src[:n]]
+        loaded.flush(now_s=1.0)
+        if not np.array_equal(np.stack([r.result for r in reqs]),
+                              want[:n]):
+            raise AssertionError(f"loaded fleet: {tid} serves another "
+                                 "output")
+    bad = ServingRuntime(obs=False)
+    bad.add_model("msn-cuda", core.compile_forest(
+        qforest, engine="bitvector", backend="cuda", device=device))
+    try:
+        bad.save(os.path.join(tmpdir, "bad"))
+    except ValueError as e:
+        error = str(e)
+    else:
+        raise AssertionError("saving a cuda tenant did not raise")
+    return dict(tenants=list(loaded.model_ids), load_ms=load_ms,
+                bytes=sum(os.path.getsize(os.path.join(tmpdir, "fleet", f))
+                          for f in os.listdir(os.path.join(tmpdir,
+                                                           "fleet"))),
+                cuda_error=error)
+
+
+def launcher_modes(device, n_trees=LAUNCH_TREES) -> dict:
+    """Phase 9 step 4: ``repro_torch.launch.serve`` once in each mode, in
+    this process, at a small request count (its JSON output kept, not
+    printed); each mode must launch its kernel on the card: ``qs_forward``
+    for ``forest`` and ``runtime``, ``flash_forward`` for ``lm``."""
+    dev = [] if device.type == "cuda" else ["--device", "cpu"]
+    common = ["--quantize", "--n-trees", str(n_trees)]
+    modes = {
+        "forest": ["--mode", "forest", "--n-requests", "300"] + common,
+        "runtime": ["--mode", "runtime", "--tenants", "2",
+                    "--n-requests", "400", "--rate", "2000",
+                    "--slo-p99-ms", "20", "--metrics-port", "0"] + common,
+        "lm": ["--mode", "lm", "--reduced", "--batch", "2",
+               "--prompt-len", "16", "--n-new", "4"]}
+    out = {}
+    for mode, argv in modes.items():
+        reset_launches()
+        buf = StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = serve_launcher.main(argv + dev)
+        counts = launch_counts()
+        kernel = "flash" if mode == "lm" else "bitvector"
+        if device.type == "cuda" and (not counts[kernel] or any(
+                n for k, n in counts.items() if k != kernel)):
+            raise AssertionError(f"launcher {mode}: launches {counts}")
+        if mode == "runtime" and any(s["retrace_anomalies"]
+                                     for s in res["tenants"].values()):
+            raise AssertionError(f"launcher runtime: {res['tenants']}")
+        out[mode] = dict(result=res, launches=counts[kernel])
+    return out
+
+
 def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
     """Seeded head-major q (B*H, Sq, hd) and k/v (B*K, Sk, hd), made on
     ``device``."""
@@ -1640,11 +2027,12 @@ def main() -> int:
     # 4. the main path at full width through each engine, then a trained
     # model's accuracy
     rows = np.concatenate([msn.X_test, msn.X_train])[:N_REQUESTS]
-    launches, served = {}, {}
+    launches, served, msn_preds = {}, {}, {}
     for k in KERNELS:
         t0 = time.perf_counter()
         pred, served[k.engine], server, launches[k.engine] = main_path(
             full, msn.X_train, rows, device, engine=k.engine)
+        msn_preds[k.engine] = pred
         wall = time.perf_counter() - t0
         stats = server.stats.summary()
         print(f"main path: {pred.plan.describe()}")
@@ -1825,6 +2213,9 @@ def main() -> int:
     # replayed by a second process, served by from_forest, the mnist
     # cascade's candidates, and the -Os cost model
     old_registry = set_default_registry(MetricsRegistry())
+    # phase 9 asks phase 7's cache file again
+    runtime_dir = tempfile.TemporaryDirectory()
+    kept_cache = os.path.join(runtime_dir.name, "engine_cache.json")
     try:
         with tempfile.TemporaryDirectory() as tmpdir:
             t_tune = time.perf_counter()
@@ -1910,6 +2301,8 @@ def main() -> int:
                       f"plain torch bit for bit [{card}]")
             print(f"autotune phase: {time.perf_counter() - t_tune:.1f} s "
                   f"(-Os part {time.perf_counter() - t0:.1f} s)")
+            with open(cache) as src, open(kept_cache, "w") as dst:
+                dst.write(src.read())
     finally:
         set_default_registry(old_registry)
 
@@ -1961,7 +2354,87 @@ def main() -> int:
           f"{lm['times_cold']['decode_ms'] / LM_NEW:.3f} ms per token "
           f"[{card}]")
 
-    # 9. timings at the main paths' full-width kernel shapes.  ms and
+    # 9. the serving runtime: the four-tenant fleet under open-loop
+    # traffic with a live scrape, from_forests from phase 7's cache, a
+    # fleet saved and loaded onto the card, and the serve launcher
+    t_rt = time.perf_counter()
+    with runtime_dir:
+        fl = runtime_fleet(msn_preds, casc["fused"], rows, served["bitvector"],
+                           crows, casc["exit_counts"], device)
+        for tid, s in fl["summary"].items():
+            ph = fl["phases"][tid]
+            ctl = s.get("controller")
+            print(f"runtime tenant {tid}: {s['n_requests']} requests in "
+                  f"{s['n_batches']} batches (mean {s['mean_batch']:.1f} "
+                  f"rows), latency p50 {s['p50_ms']:.3f} ms p99 "
+                  f"{s['p99_ms']:.3f} ms (unthrottled run p50 "
+                  f"{fl['free'][tid][0]:.3f} p99 {fl['free'][tid][1]:.3f});"
+                  f" mean per phase, ms: "
+                  + ", ".join(f"{p} {v:.4f}" for p, v in ph.items())
+                  + " (unthrottled run: " + ", ".join(
+                      f"{p} {v:.4f}" for p, v in
+                      fl["free_phases"][tid].items()) + ")"
+                  + (f"; controller target p99 {ctl['target_p99_ms']:.3f} "
+                     f"ms, {ctl['n_decisions']} decisions {ctl['actions']}"
+                     f", effective max_batch {s['effective_max_batch']} "
+                     f"max_wait_ms {s['effective_max_wait_ms']:.4f}"
+                     if ctl else "") + f" [{card}]")
+        print(f"runtime fleet: {fl['n_requests']} requests (4096 MSN rows "
+              f"over {', '.join(MSN_TENANTS)}, 4096 mnist rows to "
+              f"{MNIST_TENANT}) at {RUNTIME_RATE_HZ:.0f} req/s offered "
+              f"(Poisson, real clock), served in {fl['wall']:.3f} s: "
+              f"{fl['n_requests'] / fl['wall']:.1f} req/s; launches "
+              f"{fl['launches']} (one per batch, smem_x route, no other "
+              f"kernel); served == predict bit for bit, MSN == phase 4, "
+              f"cascade exits == phase 5 {casc['exit_counts']}; "
+              f"compile events and retrace anomalies 0 after warmup; "
+              f"{len(fl['scrapes'])} concurrent scrapes of /metrics and "
+              f"/traces (ms each, both endpoints: mean "
+              f"{np.mean(fl['scrapes']):.2f}, max {max(fl['scrapes']):.2f}"
+              f"; the unthrottled run had none and took "
+              f"{fl['free_wall']:.3f} s), the last lists all "
+              f"{len(METRIC_CATALOG)} catalog metrics "
+              f"({fl['n_series']} series) with the counters of stats() "
+              f"[{card}]")
+        print("runtime fleet, p99 latency ms of each tenth of the requests "
+              "in arrival order: unthrottled run "
+              + ", ".join(f"{v:.2f}" for v in fl["deciles"][0])
+              + "; served run " + ", ".join(f"{v:.2f}" for v in
+                                           fl["deciles"][1])
+              + "; compute_ms of each tenant's first batch / its largest: "
+              "unthrottled " + ", ".join(
+                  f"{t} {a:.3f}/{b:.3f}" for t, (a, b) in
+                  fl["first"][0].items())
+              + "; served " + ", ".join(
+                  f"{t} {a:.3f}/{b:.3f}" for t, (a, b) in
+                  fl["first"][1].items()) + f" [{card}]")
+        ff = runtime_from_forests(qfull, rows, served["bitvector"], device,
+                                  kept_cache)
+        print(f"runtime from_forests: the MSN forest with phase 7's cache "
+              f"and engines → {ff['engine']}, from the cache, "
+              f"{ff['sweeps']:.0f} sweeps; served {len(rows)} rows in "
+              f"{ff['n_batches']} batches == phase 4 bit for bit")
+        trip = runtime_round_trip(qfull, casc["qforest"], casc["stages"],
+                                  casc["policy"], rows, crows,
+                                  served["bitvector"], casc["served"],
+                                  device, runtime_dir.name)
+        print(f"runtime save/load: fleet {trip['tenants']} (torch engines) "
+              f"saved ({trip['bytes']} bytes) and loaded onto the card in "
+              f"{trip['load_ms']:.1f} ms, serves == phases 4 and 5 bit for "
+              f"bit; saving a cuda tenant raises ValueError "
+              f"({trip['cuda_error'][:60]}...) [{card}]")
+    launcher = launcher_modes(device)
+    print("runtime launcher: python -m repro_torch.launch.serve in process: "
+          + "; ".join(
+              f"--mode {m} launches {r['launches']} "
+              f"({'flash_forward' if m == 'lm' else 'qs_forward'})"
+              for m, r in launcher.items())
+          + f"; runtime mode p99 {launcher['runtime']['result']['p99_ms']:.3f}"
+          f" ms, accuracy {launcher['runtime']['result']['accuracy']:.4f}"
+          f" [{card}]")
+    print(f"runtime phase: {time.perf_counter() - t_rt:.1f} s [{card}]")
+
+    # 10. timings at the main paths' full-width kernel shapes.  ms and
     # library_ms: an eager loop of calls (cuda_ms), the host's work per
     # call included.  device_ms and library_device_ms: the same calls
     # replayed from one CUDA graph (graph_ms), the device's time alone
@@ -1984,6 +2457,7 @@ def main() -> int:
             "name": k.source_name, "route": "cuda",
             "source": k.launch.source, "replaces": k.launch.replaces,
             "launches": launches[k.engine],
+            "runtime_launches": fl["launches"][k.engine],
             "max_abs_err": full_err[k.engine], "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2036,6 +2510,7 @@ def main() -> int:
         "source": cascade_qs_forward.source,
         "replaces": cascade_qs_forward.replaces,
         "launches": casc["launches"],
+        "runtime_launches": fl["launches"]["cascade"],
         "max_abs_err": max(err_q, err_f), "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "library_device_ms": None})
@@ -2105,6 +2580,7 @@ def main() -> int:
         "name": "flash_forward", "route": "cuda",
         "source": flash_forward.source, "replaces": flash_forward.replaces,
         "launches": lm["launches"],
+        "runtime_launches": launcher["lm"]["launches"],
         "max_abs_err": served_err[torch.bfloat16], "ms": served_t["ms"],
         "device_ms": served_t["device_ms"], "plain_ms": served_t["plain_ms"],
         "bound_ms": served_t["bound_ms"], "bound_by": served_t["bound_by"],

@@ -97,11 +97,20 @@ class FusedCascadePredictor(CascadePredictor):
     # ------------------------------------------------------------- policy
     def set_policy(self, policy) -> None:
         super().set_policy(policy)
-        # the programs close over the policy: a stale one must go
+        # the programs close over the policy: a stale one must go, and
+        # with it the buckets it ran
         self._program = None
+        self._buckets: set = set()
         if self._use_kernel:
             # reject a policy without a device form now, not at predict
             self.policy.kernel_gate(len(self.stages))
+
+    def trace_cache_size(self) -> Optional[int]:
+        """The stages' first-use entries plus the distinct buckets the
+        fused program ran — ``obs.retrace.CompileWatch`` treats the drop
+        after ``set_policy`` as a deliberate reset, not negative
+        compiles."""
+        return (super().trace_cache_size() or 0) + len(self._buckets)
 
     # ---------------------------------------------------------- programs
     def _bucket_ladder(self, Bp: int) -> list:
@@ -214,6 +223,7 @@ class FusedCascadePredictor(CascadePredictor):
         Xp[:n] = feed
         scores, counts = self._fused_call()(
             as_input_tensor(Xp, self.device), n)
+        self._buckets.add(Xp.shape)
         out = scores[:n].cpu().numpy()
         self.last_exit_counts = counts
         self.exit_counts += counts

@@ -16,9 +16,8 @@ scale).
 
 ``CascadePredictor`` satisfies the ``core.registry.Predictor`` protocol
 and serves through ``ForestServer`` (per-stage exit counts land in
-``ServerStats``).  ``repro_torch.io.save_predictor`` writes it as a packed
-cascade artifact.  ``trace_cache_size`` waits for ``repro_torch.obs``
-(ROADMAP Queue A item 9).
+``ServerStats``) and ``ServingRuntime``.  ``repro_torch.io.save_predictor``
+writes it as a packed cascade artifact.
 """
 from __future__ import annotations
 
@@ -157,9 +156,14 @@ class CascadePredictor:
         return len(self.stages)
 
     def trace_cache_size(self) -> Optional[int]:
-        raise NotImplementedError(
-            "trace_cache_size needs repro_torch.obs.retrace, ported in the "
-            "serving-runtime slice (ROADMAP Queue A item 9)")
+        """First-use entries across the stage predictors — the
+        retrace-detection surface (``repro_torch.obs.retrace``): a growth
+        after serving warmup means some stage saw a new shape.  ``None``
+        when no stage exposes a count (monitoring degrades to no-op)."""
+        from ..obs.retrace import jit_cache_size
+        sizes = [jit_cache_size(p) for p in self.stage_predictors]
+        sizes = [s for s in sizes if s is not None]
+        return sum(sizes) if sizes else None
 
     # ------------------------------------------------------------ serving
     def reset_exit_stats(self) -> None:

@@ -177,6 +177,13 @@ class BasePredictor:
         self.compiled = compiled
         self._eval = eval_fn
         self.device = compiled.device
+        self._shapes: set = set()
+
+    def trace_cache_size(self) -> int:
+        """Distinct input shapes (and dtypes) that reached the evaluator —
+        the port's counterpart of a jit trace cache: each new one is a
+        first use on the device (``repro_torch.obs.retrace``)."""
+        return len(self._shapes)
 
     def transform_inputs(self, X: np.ndarray) -> np.ndarray:
         t = getattr(self.compiled, "transform_inputs", None)
@@ -186,6 +193,7 @@ class BasePredictor:
     def predict_transformed(self, Xq: np.ndarray) -> np.ndarray:
         """Evaluate inputs that already went through ``transform_inputs``."""
         Xq = ensure_feature_column(np.asarray(Xq))
+        self._shapes.add((Xq.shape, Xq.dtype.str))
         out = self._eval(self.compiled, as_input_tensor(Xq, self.device))
         return out.cpu().numpy()
 
@@ -196,8 +204,10 @@ class BasePredictor:
         return self.predict(X).argmax(axis=1)
 
     def host_forest(self):
-        """The host IR, if this predictor can reach one."""
-        for owner in (self, getattr(self, "compiled", None)):
+        """The host IR, if this predictor can reach one (compiled objects
+        carry it for input quantization; CompiledRS nests it under qs)."""
+        for owner in (self, getattr(self, "compiled", None),
+                      getattr(getattr(self, "compiled", None), "qs", None)):
             f = getattr(owner, "forest", None)
             if f is not None:
                 return f

@@ -1,5 +1,9 @@
+from .runtime import (AdaptiveBatchController, ServedRequest,
+                      ServingRuntime, SLOConfig)
 from .server import (ForestServer, LMServer, MicroBatcher, Request,
                      Reservoir, ServerStats)
 
 __all__ = ["ForestServer", "LMServer", "MicroBatcher", "Request",
-           "Reservoir", "ServerStats"]
+           "Reservoir", "ServerStats",
+           "ServingRuntime", "ServedRequest", "SLOConfig",
+           "AdaptiveBatchController"]

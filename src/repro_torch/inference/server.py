@@ -18,10 +18,14 @@ ever subtracts timestamps.
 
 ``ForestServer.from_forest`` builds a server on the autotuned engine
 (``core.engine_select``); ``ForestServer.save`` / ``load`` persist a
-serving artifact through ``repro_torch.io``.  Not yet ported: ``obs=``
-(the serving metrics, ROADMAP Queue A item 9) and
-``LMServer(kv_quant=True)`` (the int8 KV cache); each raises
+serving artifact through ``repro_torch.io``; ``ForestServer(obs=...)``
+feeds the serving metric catalog (``repro_torch.obs.serving``).  Not yet
+ported: ``LMServer(kv_quant=True)`` (the int8 KV cache), which raises
 ``NotImplementedError``.
+
+The concurrent multi-tenant front door (threaded request loop, adaptive
+batching, shape warmup) lives in ``repro_torch.inference.runtime`` and is
+built out of these parts.
 """
 from __future__ import annotations
 
@@ -228,17 +232,30 @@ class MicroBatcher:
 # --------------------------------------------------------------------------- #
 class ForestServer:
     def __init__(self, predictor, max_batch: int = 256,
-                 max_wait_ms: float = 2.0, *, obs=None):
-        if obs is not None and obs is not False:
-            raise NotImplementedError(
-                "obs= needs repro_torch.obs.serving, ported in the "
-                "serving-runtime slice (ROADMAP Queue A item 9)")
+                 max_wait_ms: float = 2.0, *, obs=None,
+                 obs_label: str = "forest"):
         self.predictor = predictor
         self.batcher = MicroBatcher(max_batch, max_wait_ms)
         self.stats = ServerStats()
         self._rid = 0
         # set by from_forest(); the engine's name after load()
         self.engine_choice = None
+        # optional catalog instrumentation: obs=True → the process
+        # default registry; a MetricsRegistry / ServingMetrics instance →
+        # that.  The synchronous server stays uninstrumented by default —
+        # ServingRuntime is the production front door and defaults the
+        # other way.
+        self.obs_label = obs_label
+        if obs is None or obs is False:
+            self._obs = None
+        else:
+            from ..obs.metrics import MetricsRegistry, get_registry
+            from ..obs.serving import ServingMetrics
+            if obs is True:
+                obs = ServingMetrics(get_registry())
+            elif isinstance(obs, MetricsRegistry):
+                obs = ServingMetrics(obs)
+            self._obs = obs
 
     @classmethod
     def from_forest(cls, forest, *, max_batch: int = 256,
@@ -347,12 +364,34 @@ class ForestServer:
         for r, s in zip(reqs, scores):
             r.result = s
             r.done_s = done_s
+        compute_ms = (t_compute - t0) * 1e3
+        sync_ms = (t_sync - t_compute) * 1e3
         self.stats.record_batch(reqs)
-        self.stats.record_phases((t_compute - t0) * 1e3,
-                                 (t_sync - t_compute) * 1e3)
+        self.stats.record_phases(compute_ms, sync_ms)
         # cascade predictors report which stage each row exited at
-        self.stats.record_exits(getattr(self.predictor, "last_exit_counts",
-                                        None))
+        exits = getattr(self.predictor, "last_exit_counts", None)
+        self.stats.record_exits(exits)
+        o = self._obs
+        if o is not None and o.enabled:
+            tid = self.obs_label
+            o.batches_total.labels(tenant=tid).inc()
+            o.batch_size.labels(tenant=tid).observe(float(len(reqs)))
+            o.phase_ms.labels(tenant=tid, phase="compute_ms").observe(
+                compute_ms)
+            o.phase_ms.labels(tenant=tid, phase="sync_ms").observe(sync_ms)
+            req_ctr = o.requests_total.labels(tenant=tid)
+            lat_hist = o.latency_ms.labels(tenant=tid)
+            queue_hist = o.phase_ms.labels(tenant=tid, phase="queue_ms")
+            for r in reqs:
+                req_ctr.inc()
+                queue_hist.observe(max((now_s - r.arrival_s) * 1e3, 0.0))
+                if r.latency_ms is not None:
+                    lat_hist.observe(r.latency_ms)
+            if exits is not None:
+                for stage, count in enumerate(exits):
+                    if count:
+                        o.cascade_stage_exits_total.labels(
+                            tenant=tid, stage=str(stage)).inc(float(count))
         return reqs
 
 

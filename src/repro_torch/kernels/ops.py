@@ -91,6 +91,7 @@ class _KernelPredictor(BasePredictor):
         self.leaf_scale = leaf_scale(forest)
         # the kernel gathers x[row, feat] unchecked: rows must be this wide
         self.min_width = int(arrays[0].max(initial=0)) + 1
+        self._shapes: set = set()        # padded shapes launched
 
     def transform_inputs(self, X: np.ndarray) -> np.ndarray:
         return quantize_inputs(self.forest,
@@ -103,6 +104,7 @@ class _KernelPredictor(BasePredictor):
                              f"got shape {Xq.shape}")
         B = Xq.shape[0]
         Xp = _pad_to(Xq, 0, bucket_rows(B, self.block_b))
+        self._shapes.add((Xp.shape, Xp.dtype.str))
         x = torch.from_numpy(np.ascontiguousarray(Xp)).to(self.device)
         out = self.launch(x, *self.arrays, out_dtype=self.out_dtype)
         # int-accum kernels return int32 totals; the f32 cast + pow2

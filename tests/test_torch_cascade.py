@@ -478,8 +478,14 @@ def test_predictor_protocol(qclass_forest):
     X = rows(qclass_forest, 4)
     np.testing.assert_array_equal(
         casc.transform_inputs(X), rcore.quantize_inputs(qclass_forest, X))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        casc.trace_cache_size()
+    # the first-use count: an int that grows on a new shape only
+    before = casc.trace_cache_size()
+    assert isinstance(before, int)
+    casc.predict(X)
+    grown = casc.trace_cache_size()
+    assert isinstance(grown, int) and grown > before
+    casc.predict(X)                       # the same shapes again
+    assert casc.trace_cache_size() == grown
 
 
 def test_stage_batches_are_bucketed(qclass_forest, monkeypatch):

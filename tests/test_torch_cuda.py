@@ -815,3 +815,90 @@ def test_device_fingerprint_names_the_card(card):
     assert fp["device_kind"] == \
         f"{torch.cuda.get_device_name()} sm_{major}{minor}"
     assert engine_select.default_engines()[-3:] == KERNEL_TUNE_NAMES
+
+
+def _fleet(card):
+    """A small four-tenant fleet on the card: an int16 forest on each
+    kernel engine and a fused int16 cascade on ``cascade_qs_forward``."""
+    X, (_, qf) = _forests(24, 32, 12, 3, 200)
+    preds = {f"k-{e}": core.compile_forest(qf, engine=e, backend="cuda")
+             for e in ("bitvector", "bitmm", "gemm")}
+    preds["casc"] = core.compile_forest(qf, backend="cuda", cascade=
+                                        CascadeSpec((6, 12, 24),
+                                                    MarginGate(0.3),
+                                                    fused=True))
+    return X, preds
+
+
+KERNEL_OF = {"k-bitvector": qs_forward, "k-bitmm": qs_bitmm_forward,
+             "k-gemm": gemm_forward, "casc": cascade_qs_forward}
+
+
+@pytest.mark.parametrize("threaded", [False, True],
+                         ids=["manual", "threaded"])
+def test_runtime_fleet_on_card_one_launch_per_batch(card, threaded):
+    """Four tenants served on the card (manual pump or the worker thread):
+    served == predict bit for bit, each kernel launched once per batch of
+    its tenant, and no first use after warmup."""
+    from repro_torch.inference import ServingRuntime
+    from repro_torch.obs import MetricsRegistry
+    X, preds = _fleet(card)
+    rt = ServingRuntime(obs=MetricsRegistry())
+    for tid, pred in preds.items():
+        rt.add_model(tid, pred, max_batch=64, max_wait_ms=1.0)
+    rt.warmup()
+    before = {tid: k.launches for tid, k in KERNEL_OF.items()}
+    reqs = []
+    if threaded:
+        with rt:
+            for i, x in enumerate(X):
+                reqs.append(rt.submit(list(preds)[i % 4], x))
+            for r in reqs:
+                r.wait(timeout=60)
+    else:
+        for i, x in enumerate(X):
+            reqs.append(rt.submit(list(preds)[i % 4], x,
+                                  arrival_s=i * 1e-4))
+            rt.pump(now_s=i * 1e-4)
+        rt.flush(now_s=1.0)
+    stats = rt.stats()
+    for tid, pred in preds.items():
+        mine = [(i, r) for i, r in enumerate(reqs) if r.tenant == tid]
+        idx = [i for i, _ in mine]
+        launched = KERNEL_OF[tid].launches - before[tid]
+        assert launched == stats[tid]["n_batches"] > 0, tid
+        assert stats[tid]["compile_events"] == 0, tid
+        assert stats[tid]["retrace_anomalies"] == 0, tid
+        np.testing.assert_array_equal(np.stack([r.result for _, r in mine]),
+                                      pred.predict(X[idx]))
+
+
+def test_runtime_worker_thread_launch_error_resolves_futures(card):
+    """A launch that raises in the worker thread resolves its batch with
+    the error and the worker serves the next batch on the kernel."""
+    from repro_torch.inference import ServingRuntime
+    X, preds = _fleet(card)
+    pred = preds["k-bitvector"]
+    good = pred.arrays
+
+    class Broken:
+        def predict(self, X_):
+            pred.arrays = good[:1] + tuple(a.cpu() for a in good[1:])
+            try:
+                return pred.predict(X_)
+            finally:
+                pred.arrays = good
+
+        def host_forest(self):
+            return pred.host_forest()
+
+    rt = ServingRuntime(obs=False)
+    rt.add_model("bad", Broken(), max_batch=8, max_wait_ms=0.0)
+    rt.add_model("ok", pred, max_batch=8, max_wait_ms=0.0)
+    with rt:
+        bad = rt.submit("bad", X[0])
+        with pytest.raises(ValueError, match="cpu"):
+            bad.wait(timeout=60)
+        ok = rt.submit("ok", X[0])
+        np.testing.assert_array_equal(ok.wait(timeout=60),
+                                      pred.predict(X[:1])[0])

@@ -63,6 +63,7 @@ share = chip_smoke.exited_pair_share(
 walked = 2 * 32 * 8 + 2 * 32 * 8 + 32 * 16
 assert share == 1 - (34 * 8 + 3 * 8 + 16) / walked
 import tempfile
+keep = tempfile.TemporaryDirectory()
 with tempfile.TemporaryDirectory() as tmp:
     out = chip_smoke.packed_path(want, X, X, torch.device("cpu"), tmp)
     assert [r["launches"] for r in out.values()] == [0, 0, 0]
@@ -80,7 +81,7 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(chip_smoke.fixture_path(torch.device("cpu"))) == 18
     saved = chip_smoke.save_load_path(want, X, torch.device("cpu"), tmp)
     assert "save the forest" in saved["cuda_error"]
-    cpu, cache = torch.device("cpu"), f"{tmp}/engine_cache.json"
+    cpu, cache = torch.device("cpu"), f"{keep.name}/engine_cache.json"
     sw = chip_smoke.autotune_sweep(want, X, cpu, cache, batch=64)
     assert len(sw["choice"].timings) == 18
     assert not any(sw["launches"].values())
@@ -101,6 +102,31 @@ with tempfile.TemporaryDirectory() as tmp:
         ladder=[(8, 16, 6, 1), (16, 16, 8, 3), (12, 32, 10, 1)],
         held_out=[(10, 16, 7, 1), (6, 16, 5, 3)], batch=32)
     assert pr["asked"][-1][2].predicted and pr["asked"][-1][3] >= 0
+# phase 9 at a tiny size: the fleet (kernel plain versions on the CPU),
+# from_forests from a cache, the fleet round trip, the launcher
+preds = {e: core.compile_forest(want, engine=e, backend="cuda", device=cpu)
+         for e in ("bitvector", "bitmm", "gemm")}
+msn_served = preds["bitvector"].predict(X)
+cfused = res["fused"]
+cfused.reset_exit_stats()
+crows = ds.X_test[60:140]
+cserved = cfused.predict(crows)
+fl = chip_smoke.runtime_fleet(preds, cfused, X, msn_served, crows,
+                              cfused.last_exit_counts.tolist(), cpu,
+                              max_batch=64, rate_hz=20000.0)
+assert fl["n_requests"] == len(X) + len(crows) and not any(fl["launches"].values())
+assert fl["summary"]["msn-qs"]["controller"]["target_p99_ms"] == fl["target"]
+with tempfile.TemporaryDirectory() as tmp:
+    ff = chip_smoke.runtime_from_forests(want, X, msn_served, cpu, cache,
+                                         max_batch=64)
+    assert ff["sweeps"] == 0 and ff["engine"] == sw["choice"].engine
+    trip = chip_smoke.runtime_round_trip(
+        want, res["qforest"], res["stages"], res["policy"], X, crows,
+        msn_served, cserved, cpu, tmp)
+    assert len(trip["tenants"]) == 3 and "save the forest" in \
+        trip["cuda_error"]
+launched = chip_smoke.launcher_modes(cpu, n_trees=4)
+assert set(launched) == {"forest", "runtime", "lm"}
 from repro_torch.configs import get_config
 cfg = get_config(chip_smoke.LM_ARCH).reduced()
 lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,
@@ -124,6 +150,7 @@ if not torch.cuda.is_available():
         assert "device='cpu'" in str(e)
     else:
         raise AssertionError("choose ran without a CUDA device")
+keep.cleanup()
 print("HYGIENE-OK", len(names))
 """
 
@@ -145,7 +172,8 @@ def test_port_imports_no_jax_and_runs_on_cpu():
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]
+    + list((REPO / "scripts").glob("torch_*.py"))),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports_in_source(path):
     tree = ast.parse(path.read_text())
@@ -159,6 +187,39 @@ def test_no_jax_or_reference_imports_in_source(path):
         for m in mods:
             assert m.split(".")[0] not in ("jax", "jaxlib", "repro"), \
                 f"{path}:{node.lineno} imports {m}"
+
+
+# Runs a script of scripts/ in a fresh interpreter where importing jax or
+# repro fails outright.
+SCRIPT = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+path, *argv = sys.argv[1:]
+sys.argv = [path] + argv
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m, mod in sys.modules.items() if mod is not None)
+print("SCRIPT-OK")
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["scripts/torch_check_engines.py", "--device", "cpu", "--serving",
+     "--obs"],
+    ["scripts/torch_serve_model.py", "--model",
+     "tests/fixtures/xgb_multiclass.json", "--n-classes", "3", "--engine",
+     "qs", "--device", "cpu", "--explain", "--n-requests", "64"],
+], ids=["check_engines", "serve_model"])
+def test_scripts_import_no_jax_and_run_on_cpu(argv):
+    res = subprocess.run([sys.executable, "-c", SCRIPT] + argv, env=_env(),
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    assert "SCRIPT-OK" in res.stdout and "FAIL" not in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

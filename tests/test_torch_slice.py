@@ -124,14 +124,23 @@ def test_unported_parts_raise(forests, magic_ds, tmp_path, monkeypatch):
     done = srv.flush(now_s=1.0)
     np.testing.assert_array_equal(np.stack([r.result for r in done]),
                                   tuned.predict(X))
-    # the cascade is ported; what it still waits for raises
+    # the serving runtime and obs are ported: the cascade counts its
+    # first uses, and an instrumented server feeds its registry
     from repro_torch.cascade import CascadeSpec
+    from repro_torch.obs import MetricsRegistry
     casc = tcore.compile_forest(port_forest, device="cpu",
                                 cascade=CascadeSpec((2,)))
-    with pytest.raises(NotImplementedError, match="obs"):
-        casc.trace_cache_size()
+    assert casc.trace_cache_size() == 0
+    casc.predict(X)
+    assert casc.trace_cache_size() == 1
+    # what still waits raises
     with pytest.raises(NotImplementedError, match="sharding"):
         tcore.compile_plan(port_forest, device="cpu", n_devices=2)
     pred = tcore.compile_forest(port_forest, opt="O0", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TServer(pred, obs=True)
+    reg = MetricsRegistry()
+    srv = TServer(pred, obs=reg)
+    for row in X:
+        srv.submit(row, arrival_s=0.0)
+    srv.flush(now_s=1.0)
+    assert reg.get("repro_requests_total").labels(
+        tenant="forest").value == len(X)
