@@ -110,7 +110,21 @@ or JAX.  Phases:
     Per tenant its p50 / p99, the mean of each phase, batches, mean batch
     and the controller's decisions, the rate served and the phase's wall
     time are printed beside the card's name and power limit;
-10. time each kernel and its plain version with CUDA events, as an
+10. tree-sharded execution (``core.shard``): phase 4's MSN int16 forest
+    on every shardable torch engine over ``devices=[cuda:0] * D`` for D in
+    1, 3 and 4, bit-identical to the unsharded engine and to the
+    ``qs_forward`` predictor (no kernel launches: the shards run the torch
+    engines), the float forest within tolerance, and ``n_devices=2``
+    refused on one card (too few devices; ``backend="cuda"``); sharded and
+    unsharded predict ms beside the card's name and power limit;
+11. the moe, ssm and hybrid LM families served as smollm-360m is in phase
+    8: mamba2-370m at its published size, phi3.5-moe at full width with
+    its depth cut to 4 layers, jamba-1.5-large at ``.reduced()``; one
+    ``flash_forward`` launch per attention layer of the prefill (none for
+    mamba2), the f32 and bf16 checks of phase 8 and the MoE routes that
+    differ between the attention engines; prefill and decode ms per token
+    beside the card's name and power limit;
+12. time each kernel and its plain version with CUDA events, as an
     eager loop of calls, beside the least time the card could take for
     the same work (the kernels and SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
@@ -156,7 +170,7 @@ from repro_torch import core, io, optim, tune  # noqa: E402
 from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
                                  ProbaGate, ScoreBoundGate, calibrate)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import engine_select, pipeline  # noqa: E402
+from repro_torch.core import engine_select, pipeline, shard  # noqa: E402
 from repro_torch.core.engine_select import bucket_batch  # noqa: E402
 from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
                                        ensure_feature_column)
@@ -172,7 +186,7 @@ from repro_torch.kernels.cascade_kernel import (  # noqa: E402
 from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
                              MetricsRegistry, get_registry,
@@ -343,6 +357,27 @@ LONG_S = 32768
 # the reference test's 2e-2 (tests/test_models_smoke.py:92)
 LM_LOGIT_TOL_F32, LM_LOGIT_TOL_BF16, LM_DECODE_TOL = 1e-3, 5e-2, 2e-2
 LM_TEACHER_STEPS = 16
+# the tree-sharded forest: every shardable torch engine at D shards, all
+# on cuda:0 (the card host has one card), at phase 4's MSN int16 forest
+SHARD_COUNTS = (1, 3, 4)
+SHARD_REPS = 20
+# the moe, ssm and hybrid LM families, served through LMServer as
+# smollm-360m is: mamba2-370m at its published size (48 blocks, d 1024,
+# state 128, headdim 64; configs/mamba2_370m.py); phi3.5-moe at full width
+# (d 4096, 16 experts of d_ff 6400, top-2, GQA 32/8, vocab 32064) with its
+# depth cut from 32 to 4 layers (one layer holds 1.30 B parameters: four
+# with the embeddings are 22 GB of f32 weights and 11 GB in bf16); jamba
+# at .reduced() (one full-width MoE layer alone is 39 GB in f32), which
+# drives the hybrid layout.  B*S passes 256 prompt tokens for the MoE
+# families, where a one-pass forward would apply GShard's capacity
+LM_FAMILIES = {
+    "mamba2_370m": dict(batch=4, prompt=300, new=16, layers=None,
+                        reduced=False),
+    "phi3_5_moe_42b": dict(batch=2, prompt=192, new=16, layers=4,
+                           reduced=False),
+    "jamba_1_5_large_398b": dict(batch=2, prompt=160, new=16, layers=None,
+                                 reduced=True),
+}
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -1736,13 +1771,18 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
     first ``LM_TEACHER_STEPS`` positions must match ``Model.forward``."""
     B, S = prompts.shape
     max_len = S + n_new + 1
-    n_attn = cfg.n_layers                       # dense: every layer
     models = {(dt, b): Model(cfg, dt, backend=b, device=device)
               for dt in (torch.bfloat16, torch.float32)
               for b in ("cuda", "torch")}
-    params = models[torch.float32, "cuda"].init_params(LM_SEED)
-    servers = {key: LMServer(m, params, batch=B, max_len=max_len)
-               for key, m in models.items()}
+    m32 = models[torch.float32, "cuda"]
+    na, _ = m32.mixer_counts()
+    n_attn = na * m32.n_units
+    params = redraw_ssm_constants(m32.init_params(LM_SEED), LM_SEED)
+    # the two bf16 servers share one cast of the weights
+    params16 = models[torch.bfloat16, "cuda"].cast(params)
+    servers = {(dt, b): LMServer(m, params16 if dt == torch.bfloat16
+                                 else params, batch=B, max_len=max_len)
+               for (dt, b), m in models.items()}
     served = servers[torch.bfloat16, "cuda"]
 
     reset_launches()
@@ -1775,10 +1815,11 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
         diff = np.argwhere(tokens32["cuda"] != tokens32["torch"])[0]
         raise AssertionError(f"f32 greedy tokens differ between cuda and "
                              f"torch first at (row, pos) {tuple(diff)}")
-    logits = {}
+    logits, moe_routes = {}, {}
     for key, server in servers.items():
         state = server.model.init_decode_state(B, max_len)
-        _, logits[key] = server._prefill(state, prompts)
+        with recorded_routes() as moe_routes[key]:
+            _, logits[key] = server._prefill(state, prompts)
         if not torch.isfinite(logits[key]).all() or \
                 logits[key].shape != (B, cfg.vocab):
             raise AssertionError(f"prefill logits {key}: shape "
@@ -1789,12 +1830,19 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
                           logits[torch.bfloat16, "torch"])
     err16_vs32 = rel_logit_err(logits[torch.bfloat16, "cuda"],
                                logits[torch.float32, "torch"])
+    # MoE: (token, choice) routes of the prefill that differ between the
+    # two attention engines, and the number of routes in all
+    flips = {dt: route_flips(moe_routes[dt, "cuda"],
+                             moe_routes[dt, "torch"])
+             for dt in (torch.float32, torch.bfloat16)}
     if err32 > LM_LOGIT_TOL_F32 or err16 > LM_LOGIT_TOL_BF16:
         raise AssertionError(f"prefill logits cuda vs torch: f32 {err32} "
                              f"(tol {LM_LOGIT_TOL_F32}), bf16 {err16} (tol "
-                             f"{LM_LOGIT_TOL_BF16}) of the largest |logit|")
+                             f"{LM_LOGIT_TOL_BF16}) of the largest |logit|;"
+                             f" MoE routes differing (of all) f32 "
+                             f"{flips[torch.float32]}, bf16 "
+                             f"{flips[torch.bfloat16]}")
 
-    m32 = models[torch.float32, "cuda"]
     steps = min(LM_TEACHER_STEPS, S)
     full = m32.forward(params, prompts[:, :steps])
     state = m32.init_decode_state(B, steps + 1, dtype=torch.float32)
@@ -1809,7 +1857,150 @@ def lm_path(cfg, prompts: np.ndarray, n_new: int, device) -> dict:
                              f" {dec_err} > {LM_DECODE_TOL}")
     return dict(tokens=out, launches=launches, routes=routes, times=times,
                 times_cold=times_cold, err32=err32, err16=err16,
-                err16_vs32=err16_vs32, dec_err=dec_err, steps=steps)
+                err16_vs32=err16_vs32, dec_err=dec_err, steps=steps,
+                n_attn=n_attn, flips=flips)
+
+
+def redraw_ssm_constants(params: dict, seed: int) -> dict:
+    """The mamba leaves the reference initialises to constants (``conv_x``
+    and ``A_log`` zero, ``dt_bias`` zero, which make a fresh block pass
+    nothing through its SSD scan) redrawn from ``seed`` as N(0, 0.5), in
+    place, so the served path does the work a trained model does."""
+    gen = None
+    for pos in params["blocks"].values():
+        if "ssm" not in pos:
+            continue
+        for key in ("conv_x", "A_log", "dt_bias"):
+            t = pos["ssm"][key]
+            if gen is None:
+                gen = torch.Generator(device=t.device).manual_seed(seed)
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
+                                dtype=t.dtype) * 0.5)
+    return params
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every MoE layer's top-k expert choices (``moe.route``) while
+    the block runs: a list of (tokens, k) index tensors on the host."""
+    rec, orig = [], moe.route
+
+    def route(probs, k, cap):
+        out = orig(probs, k, cap)
+        rec.append(out[1].reshape(-1, k).cpu())
+        return out
+    moe.route = route
+    try:
+        yield rec
+    finally:
+        moe.route = orig
+
+
+def route_flips(a: list, b: list) -> tuple:
+    """(differing, all) (token, choice) routes of two recordings."""
+    if len(a) != len(b):
+        raise AssertionError(f"MoE layers routed {len(a)} vs {len(b)}")
+    return (sum(int((x != y).sum()) for x, y in zip(a, b)),
+            sum(x.numel() for x in a))
+
+
+def family_config(name: str, spec: dict):
+    """A family's served configuration: ``.reduced()`` or full width with
+    its depth cut to ``layers``."""
+    cfg = get_config(name)
+    if spec["reduced"]:
+        return cfg.reduced()
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    return cfg
+
+
+def lm_family_path(name: str, spec: dict, device) -> tuple:
+    """One moe, ssm or hybrid family through ``lm_path``; the card's
+    memory is released after it.  Returns (config, lm_path's result)."""
+    cfg = family_config(name, spec)
+    prompts = lm_prompts(cfg, spec["batch"], spec["prompt"])
+    try:
+        return cfg, lm_path(cfg, prompts, spec["new"], device)
+    finally:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def sharded_path(qforest, forest, rows, kernel_out, device,
+                 counts=SHARD_COUNTS, reps=SHARD_REPS) -> dict:
+    """Tree-sharded execution of every shardable torch engine over
+    ``devices=[device] * D`` for D in ``counts``.  Every launch count is
+    set to 0 just before the sharded predictions and read just after: the
+    torch engines launch no kernel.  On the int16 forest each output must
+    equal the unsharded engine's and ``kernel_out`` (the ``qs_forward``
+    predictor's) bit for bit; on the float forest, the unsharded engine's
+    within the full-width tolerance.  Host-clock ms of ``predict``
+    (median of ``reps``; its numpy result ends the call), unsharded and
+    at each D; the two ``ValueError``s of ``n_devices > 1`` on one card."""
+    engines = [s.name for s in core.registry.specs("torch") if s.shardable]
+    unsharded, ms = {}, {}
+    for engine in engines:
+        pred = core.compile_forest(qforest, engine=engine, backend="torch",
+                                   device=device)
+        unsharded[engine] = pred.predict(rows)
+        if not np.array_equal(unsharded[engine], kernel_out):
+            raise AssertionError(f"{engine}: unsharded torch engine differs "
+                                 "from the qs_forward predictor")
+        ms[engine, 0] = host_ms(lambda: pred.predict(rows), reps)
+    reset_launches()
+    preds = {}
+    for engine in engines:
+        for D in counts:
+            p = preds[engine, D] = shard.tree_sharded(
+                qforest, engine, devices=[device] * D)
+            got = p.predict(rows)
+            if not np.array_equal(got, unsharded[engine]) or \
+                    not np.array_equal(got, kernel_out):
+                raise AssertionError(f"{engine} sharded D={D}: int16 output "
+                                     "differs from one device's")
+    launched = launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"sharded torch engines launched {launched}")
+    for (engine, D), p in preds.items():
+        ms[engine, D] = host_ms(lambda: p.predict(rows), reps)
+    worst = 0.0
+    for engine in engines:
+        want = core.compile_forest(forest, engine=engine, backend="torch",
+                                   device=device).predict(rows)
+        for D in counts:
+            got = shard.tree_sharded(forest, engine,
+                                     devices=[device] * D).predict(rows)
+            if not np.allclose(got, want, rtol=RTOL, atol=ATOL_FULL):
+                raise AssertionError(f"{engine} sharded D={D}: float output "
+                                     f"max|diff| {np.abs(got - want).max()}")
+            worst = max(worst, float(np.abs(got - want).max()))
+    errors = {}
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    for backend in ("torch", "cuda"):
+        try:
+            core.compile_plan(qforest, engine="bitvector", backend=backend,
+                              device=device, n_devices=visible + 1)
+        except ValueError as e:
+            errors[backend] = str(e)
+    if device.type == "cuda" and ("devices visible" not in
+                                  errors.get("torch", "") or
+                                  "torch backend only" not in
+                                  errors.get("cuda", "")):
+        raise AssertionError(f"n_devices={visible + 1} on the card: {errors}")
+    return dict(engines=engines, ms=ms, float_err=worst, errors=errors,
+                launches=launched)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` over ``reps`` calls, after one."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
 
 
 def demangle(names) -> dict:
@@ -2434,7 +2625,66 @@ def main() -> int:
           f" [{card}]")
     print(f"runtime phase: {time.perf_counter() - t_rt:.1f} s [{card}]")
 
-    # 10. timings at the main paths' full-width kernel shapes.  ms and
+    # 10. tree-sharded execution of phase 4's MSN int16 forest over D
+    # shards on the one card
+    t0 = time.perf_counter()
+    kernel_out = msn_preds["bitvector"].predict(rows_full)
+    sh = sharded_path(qfull, full, rows_full, kernel_out, device)
+    print(f"sharded: {', '.join(sh['engines'])} tree-sharded over "
+          f"devices=[cuda:0]*D for D in {SHARD_COUNTS} at T={T} L={L} "
+          f"d={d} B={B}: int16 == unsharded torch engine == qs_forward "
+          f"predictor bit for bit; float max|diff| {sh['float_err']:.3g} "
+          f"(atol {ATOL_FULL}); kernel launches in the sharded run "
+          f"{sh['launches']}; n_devices=2 on one card raises: torch "
+          f"{sh['errors']['torch']!r}; cuda {sh['errors']['cuda']!r}")
+    for engine in sh["engines"]:
+        t = sh["ms"]
+        print(f"sharded {engine} predict, host clock, median of "
+              f"{SHARD_REPS}: unsharded {t[engine, 0]:.3f} ms, "
+              + ", ".join(f"D={D} {t[engine, D]:.3f} ms"
+                          for D in SHARD_COUNTS) + f" [{card}]")
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # 11. the moe, ssm and hybrid LM families served as phase 8 serves
+    # smollm-360m
+    family_launches = {}
+    for name, spec in LM_FAMILIES.items():
+        t0 = time.perf_counter()
+        fcfg, fam = lm_family_path(name, spec, device)
+        family_launches[fcfg.name] = fam["launches"]
+        Bf, Sf, nf = spec["batch"], spec["prompt"], spec["new"]
+        tf = fam["times"]
+        cut = (" (.reduced())" if spec["reduced"] else
+               f" (depth cut to {spec['layers']} layers)" if spec["layers"]
+               else " (published size)")
+        print(f"LM family {fcfg.name}{cut}: {fcfg.family}, {fcfg.n_layers} "
+              f"layers d={fcfg.d_model} experts {fcfg.n_experts} "
+              f"(top-{fcfg.top_k}) ssm state {fcfg.ssm_state} headdim "
+              f"{fcfg.ssm_headdim} vocab {fcfg.vocab}, "
+              f"{fcfg.param_count()} params; LMServer(batch={Bf}, max_len="
+              f"{Sf + nf + 1}).generate({Bf}x{Sf}, n_new={nf}) in bf16 on "
+              f"backend=cuda: flash_forward launches {fam['launches']} for "
+              f"{fam['n_attn']} attention layers (routes {fam['routes']}), "
+              f"no other kernel; {time.perf_counter() - t0:.1f} s host wall")
+        print(f"LM family {fcfg.name} checks: f32 greedy tokens cuda == "
+              f"torch; prefill logits cuda vs torch max|diff| / max|logit|:"
+              f" f32 {fam['err32']:.3g} (tol {LM_LOGIT_TOL_F32}), bf16 "
+              f"{fam['err16']:.3g} (tol {LM_LOGIT_TOL_BF16}); bf16 cuda vs "
+              f"f32 torch {fam['err16_vs32']:.3g}; MoE routes differing "
+              f"cuda vs torch (of all): f32 {fam['flips'][torch.float32]}, "
+              f"bf16 {fam['flips'][torch.bfloat16]}; teacher-forced decode "
+              f"vs forward ({fam['steps']} steps, f32) max|diff| "
+              f"{fam['dec_err']:.3g} (tol {LM_DECODE_TOL})")
+        print(f"LM family {fcfg.name} served (bf16, host clock around "
+              f"synchronised calls, second call): prefill "
+              f"{tf['prefill_ms']:.2f} ms, decode "
+              f"{tf['decode_ms'] / nf:.3f} ms per token; first call "
+              f"prefill {fam['times_cold']['prefill_ms']:.2f} ms, decode "
+              f"{fam['times_cold']['decode_ms'] / nf:.3f} ms per token "
+              f"[{card}]")
+        del fam
+
+    # 12. timings at the main paths' full-width kernel shapes.  ms and
     # library_ms: an eager loop of calls (cuda_ms), the host's work per
     # call included.  device_ms and library_device_ms: the same calls
     # replayed from one CUDA graph (graph_ms), the device's time alone
@@ -2581,6 +2831,7 @@ def main() -> int:
         "source": flash_forward.source, "replaces": flash_forward.replaces,
         "launches": lm["launches"],
         "runtime_launches": launcher["lm"]["launches"],
+        "family_launches": family_launches,
         "max_abs_err": served_err[torch.bfloat16], "ms": served_t["ms"],
         "device_ms": served_t["device_ms"], "plain_ms": served_t["plain_ms"],
         "bound_ms": served_t["bound_ms"], "bound_by": served_t["bound_by"],

@@ -12,7 +12,9 @@ Typical use::
 Engines live in a single registry (``core.registry``); compilation runs
 through an explicit pass pipeline (``core.pipeline``).  ``backend="torch"``
 is the reference's ``"jax"`` engine in plain torch; ``backend="cuda"`` its
-``"pallas"`` kernel, written by hand for Hopper.
+``"pallas"`` kernel, written by hand for Hopper.  Any torch engine can run
+tree-sharded over several devices (``core.shard``; ``compile_plan(...,
+n_devices=4)``), its partial scores summed on the first.
 """
 from .forest import (Forest, from_gradient_boosting, from_random_forest,
                      from_trees, random_forest_ir)
@@ -51,6 +53,8 @@ registry.register_deferred(
     doc="Hummingbird tensor traversal, hand-written CUDA kernel for sm_90a")
 
 from .pipeline import CompilePlan, PassRecord, compile_plan
+from . import shard
+from .shard import ShardedPredictor, tree_sharded
 
 
 def compile_forest(forest: Forest, engine: str = "bitvector",
@@ -110,5 +114,6 @@ __all__ = [
     "native_predictor", "gemm_predictor", "compile_forest", "registry",
     "register_engine", "EngineSpec", "Predictor", "BasePredictor",
     "normalize_scores", "resolve_device", "forest_from_reference",
-    "CompilePlan", "PassRecord", "compile_plan",
+    "CompilePlan", "PassRecord", "compile_plan", "shard",
+    "ShardedPredictor", "tree_sharded",
 ]

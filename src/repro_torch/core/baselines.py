@@ -238,18 +238,19 @@ def _gemm_layout(forest: Forest, plan) -> str:
 _NATIVE_ARRAYS = ("feat", "thr", "left", "right", "leaf_val", "single_leaf")
 register_engine(
     "native", backend="torch", tune_name="native", compile=compile_native,
-    evaluate=eval_native, predictor_cls=BaselinePredictor,
+    evaluate=eval_native, predictor_cls=BaselinePredictor, shardable=True,
     serial_arrays=_NATIVE_ARRAYS, restore=CompiledNative.restore,
     doc="per-level pointer-chasing traversal (loop over depth)")
 register_engine(
     "unrolled", backend="torch", tune_name="unrolled",
     compile=compile_native, evaluate=eval_unrolled,
-    predictor_cls=BaselinePredictor,
+    predictor_cls=BaselinePredictor, shardable=True,
     serial_arrays=_NATIVE_ARRAYS, restore=CompiledNative.restore,
     doc="native under the IF-ELSE name (eager torch: the same loop)")
 register_engine(
     "gemm", backend="torch", tune_name="gemm", compile=compile_gemm,
-    evaluate=eval_gemm, predictor_cls=BaselinePredictor, layout=_gemm_layout,
+    evaluate=eval_gemm, predictor_cls=BaselinePredictor, shardable=True,
+    layout=_gemm_layout,
     serial_arrays=("feat", "thr", "valid", "A", "Bvec", "leaf_val"),
     restore=CompiledGEMM.restore,
     doc="Hummingbird tensor traversal (two matmuls per tree block)")

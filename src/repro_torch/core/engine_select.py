@@ -43,8 +43,9 @@ candidates instead of the full product.
 Every entry point takes ``device=``: ``None`` means the card and raises
 without one.  The kernel engines join the default candidate set on the
 card only; on ``device="cpu"`` an explicit ``engines=("cuda-qs", ...)``
-runs the kernels' plain versions.  Tree-sharded tuning (``n_devices >
-1``) waits for the sharding slice (ROADMAP Queue A item 10).
+runs the kernels' plain versions.  ``n_devices=`` tunes the
+tree-sharded wrapper (``core.shard``) over the torch engines; the
+device count is part of the cache key.
 """
 from __future__ import annotations
 
@@ -502,10 +503,6 @@ def _candidate_factories(forest: Forest, engines: tuple,
     if cascade_specs and n_devices > 1:
         raise ValueError("cascade_specs cannot combine with n_devices > 1 "
                          "(staged evaluation is single-device)")
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices} needs tree-sharded execution, ported "
-            "in the sharding slice (ROADMAP Queue A item 10)")
     unknown = set(layout_specs or ()) - set(engines)
     if unknown:
         # a silently ignored key would make the caller believe the cached
@@ -551,6 +548,11 @@ def _candidate_factories(forest: Forest, engines: tuple,
              kw: Optional[dict], casc, fl: bool = False) -> Callable:
         spec = registry.by_tune_name(name)
         ekw = dict(kw or {})
+        if n_devices > 1 and not spec.shardable:
+            raise ValueError(
+                f"engine {name!r} cannot run tree-sharded "
+                f"(n_devices={n_devices}); restrict engines= to "
+                f"{[s.tune_name for s in registry.specs() if s.shardable]}")
 
         def factory():
             from .pipeline import CompilePlan, compile_plan
@@ -726,8 +728,11 @@ def choose(forest: Forest, batch: int, *, engines=None,
     its oracle check run once per (quant, opt) point — and prunes
     candidates whose post-optimize IR is provably identical (their
     timings are aliased to the one benched representative, listed in
-    ``EngineChoice.pruned``).  ``n_devices > 1`` raises
-    ``NotImplementedError`` until the sharding slice."""
+    ``EngineChoice.pruned``).  ``n_devices > 1`` wraps every candidate
+    tree-sharded (``core.shard``): the default engine set narrows to the
+    shardable torch engines, an explicit non-shardable one raises
+    ``ValueError``, and on the card the shards need as many visible
+    cards."""
     mode = str(mode).lower().lstrip("-")
     if mode == "os":
         mode = "predict"
@@ -736,8 +741,16 @@ def choose(forest: Forest, batch: int, *, engines=None,
             f"mode must be 'measure' or 'predict' (alias '-Os'), "
             f"got {mode!r}")
     device = registry.resolve_device(device)
-    engines = default_engines(include_kernels, device) if engines is None \
-        else tuple(engines)
+    if engines is None:
+        engines = default_engines(include_kernels, device)
+        if n_devices > 1:
+            # the *default* set narrows to shardable engines (on the card
+            # it holds the cuda kernels, which cannot tree-shard); an
+            # explicit engines= list still errors on non-shardable entries
+            engines = tuple(e for e in engines
+                            if registry.by_tune_name(e).shardable)
+    else:
+        engines = tuple(engines)
     opt_cache: Optional[dict] = {} if share_ir else None
     factories = _candidate_factories(forest, engines,
                                      tuple(quant_specs) if quant_specs

@@ -9,8 +9,9 @@ forest (``compile_plan("model.json", ...)``, through ``repro_torch.io``),
 and ``opt=`` runs the optimizer middle-end (``repro_torch.optim``), each
 of its passes recorded as ``opt.<name>``.
 
-Tree-sharded execution (``n_devices > 1`` in ``lower``) belongs to a
-later slice of the port and raises ``NotImplementedError`` naming it.
+``lower`` builds the predictor and, when ``plan.n_devices > 1``, wraps
+it in tree-sharded execution over several devices (``core/shard.py``;
+torch engines only, as the reference shards its XLA engines only).
 """
 from __future__ import annotations
 
@@ -263,11 +264,20 @@ def lower(forest: Forest, plan: CompilePlan, ctx: dict):
         pred.plan = plan
         return pred
     if plan.n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={plan.n_devices} needs tree-sharded execution, "
-            "ported in the sharding slice (ROADMAP Queue A item 10)")
-    pred = spec.build_fn()(forest, device=plan.device, **plan.engine_kw)
-    plan.record("lower", f"{spec.tune_name} ({plan.engine}/{plan.backend})")
+        if plan.backend != "torch":
+            raise ValueError(
+                f"tree-sharded execution (n_devices={plan.n_devices}) "
+                f"supports the torch backend only, not {plan.backend!r}")
+        from . import shard
+        pred = shard.tree_sharded(forest, plan.engine,
+                                  n_devices=plan.n_devices,
+                                  device=plan.device, **plan.engine_kw)
+        plan.record("lower", f"{spec.tune_name} × {plan.n_devices} devices "
+                             "(tree-sharded partial sums)")
+    else:
+        pred = spec.build_fn()(forest, device=plan.device, **plan.engine_kw)
+        plan.record("lower",
+                    f"{spec.tune_name} ({plan.engine}/{plan.backend})")
     pred.plan = plan
     return pred
 

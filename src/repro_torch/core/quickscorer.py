@@ -485,6 +485,10 @@ def eval_scalar_numpy(forest: Forest, X: np.ndarray) -> np.ndarray:
 def _bitmm_layout(forest: Forest, plan) -> str:
     """Pipeline layout hook: pick the leaf packing + tree tiling."""
     bits, npack = bitmm_field_layout(forest)
+    if plan.n_devices > 1:
+        # the tile size must divide the per-shard tree count: that is
+        # _bitmm_shard_kw's call, made after the forest is device-padded
+        return f"leaf-pack {bits}b×{npack}, tree_chunk=per-shard"
     plan.engine_kw.setdefault(
         "tree_chunk", bitmm_auto_chunk(forest.n_trees,
                                        forest.nodes_per_tree))
@@ -499,16 +503,28 @@ def bitmm_cuda_layout(forest: Forest, plan) -> str:
     return f"leaf-pack {bits}b×{npack}, shared-memory tree chunks"
 
 
+def _bitmm_shard_kw(forest: Forest, n_shards: int) -> dict:
+    """Tree-sharded bitmm takes a ``tree_chunk`` that divides the
+    per-shard tree count, so the global compile pads no tree and every
+    shard tiles its slice the same way (the forest is already padded to a
+    multiple of ``n_shards``)."""
+    local = forest.n_trees // n_shards
+    target = max(1, min(local, bitmm_auto_chunk(forest.n_trees,
+                                                forest.nodes_per_tree)))
+    chunk = max(d for d in range(1, target + 1) if local % d == 0)
+    return {"tree_chunk": chunk}
+
+
 register_engine(
     "bitvector", backend="torch", tune_name="qs", compile=compile_qs,
-    evaluate=eval_batch, predictor_cls=QSPredictor,
+    evaluate=eval_batch, predictor_cls=QSPredictor, shardable=True,
     serial_arrays=("feat", "thr", "valid", "masks", "init_idx", "leaf_val"),
     restore=CompiledQS.restore,
     doc="QuickScorer: predicated interval-mask AND-reduction over nodes")
 register_engine(
     "bitmm", backend="torch", tune_name="qs-bitmm", compile=compile_qs_bitmm,
     evaluate=eval_batch_bitmm, predictor_cls=BitMMPredictor,
-    layout=_bitmm_layout,
+    shardable=True, shard_kw=_bitmm_shard_kw, layout=_bitmm_layout,
     serial_arrays=("feat", "thr", "valid", "packed", "bias", "leaf_val"),
     restore=CompiledBitMM.restore,
     doc="bit-matmul QuickScorer: packed clear-count contraction")

@@ -107,9 +107,12 @@ class RSPredictor(BasePredictor):
         self.rs = rs
 
 
+# The unique-node table (u_feat/u_thr) is ensemble-global: tree-sharding
+# splits only the per-tree inverse map, every shard keeps the full table.
 register_engine(
     "rapidscorer", backend="torch", tune_name="rapidscorer",
     compile=compile_rs, evaluate=eval_batch, predictor_cls=RSPredictor,
+    shardable=True, replicated=("u_feat", "u_thr"),
     serial_arrays=("u_feat", "u_thr", "inv", "qs.feat", "qs.thr",
                    "qs.valid", "qs.masks", "qs.init_idx", "qs.leaf_val"),
     restore=CompiledRS.restore,

@@ -239,9 +239,11 @@ class EngineSpec:
     compile: Optional[Callable] = None    # (forest, device=) -> compiled
     evaluate: Optional[Callable] = None   # (compiled, X) -> (B, C) tensor
     predictor_cls: type = BasePredictor
-    shardable: bool = False               # supports tree-sharding; False on
-    #                                       every engine until the sharding
-    #                                       slice (ROADMAP Queue A item 10)
+    shardable: bool = False               # supports core.shard tree-sharding
+    #                                       (compile + evaluate engines; the
+    #                                       cuda kernels never shard)
+    shard_kw: Optional[Callable] = None   # (padded forest, n_shards) -> kw
+    replicated: tuple = ()                # compiled buffers never tree-sharded
     layout: Optional[Callable] = None     # (forest, plan) -> detail string;
     #                                       pipeline layout-pass hook
     serial_arrays: tuple = ()             # compiled buffers io.packed may

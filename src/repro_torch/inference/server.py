@@ -260,7 +260,7 @@ class ForestServer:
     @classmethod
     def from_forest(cls, forest, *, max_batch: int = 256,
                     max_wait_ms: float = 2.0, device=None,
-                    **choose_kw) -> "ForestServer":
+                    n_devices: int = 1, **choose_kw) -> "ForestServer":
         """Build a server on the autotuned fastest engine for this forest,
         on ``device`` (``None`` → the card).
 
@@ -268,17 +268,20 @@ class ForestServer:
         for the batch shape the micro-batcher will actually emit.  The
         decision comes from ``core.engine_select``'s cache when one exists
         (in-memory or the JSON file), so restarts skip the sweep.
-        ``**choose_kw`` goes to ``engine_select.choose``: ``engines=``,
-        ``cache_path=`` (``None`` disables the disk layer; omitted, the
-        default cache file), ``cascade_specs=`` (confidence-gated staged
-        candidates — a cascade winner serves through the same
-        micro-batcher, with per-stage exit fractions reported in
-        ``ServerStats.summary()``), ``opt_levels=`` and ``quant_specs=``
+        ``n_devices > 1`` serves the winner tree-sharded (``core.shard``);
+        the autotune cache key includes the device count, so single- and
+        multi-device decisions never alias.  ``**choose_kw`` goes to
+        ``engine_select.choose``: ``engines=``, ``cache_path=`` (``None``
+        disables the disk layer; omitted, the default cache file),
+        ``cascade_specs=`` (confidence-gated staged candidates — a cascade
+        winner serves through the same micro-batcher, with per-stage exit
+        fractions reported in ``ServerStats.summary()``), ``opt_levels=``
+        and ``quant_specs=``
         (optimizer and fixed-point variants whose serving interface is
         unchanged: full-width rows)."""
         from ..core import engine_select
         choice = engine_select.choose(forest, max_batch, device=device,
-                                      **choose_kw)
+                                      n_devices=n_devices, **choose_kw)
         srv = cls(choice.predictor, max_batch=max_batch,
                   max_wait_ms=max_wait_ms)
         srv.engine_choice = choice
@@ -289,7 +292,8 @@ class ForestServer:
         engine's buffers + the serving config, so a cold restart skips
         recompilation.  The predictor must come from a serializable engine
         (``EngineSpec.serial_arrays``: the ``torch`` engines; a ``cuda``
-        predictor raises ``ValueError`` — keep the forest and recompile).
+        or tree-sharded predictor raises ``ValueError`` — keep the forest
+        and recompile).
         Cascade predictors persist as kind=cascade artifacts."""
         from .. import io
         # engine_choice is a bare name string after load(): persist it
@@ -403,14 +407,18 @@ class LMServer:
     one trunk pass over the prompt (``Model.prefill`` with the decode
     state): every attention layer writes its post-RoPE K and V into cache
     positions 0..S-1 in the cache's dtype and attends over them as
-    stored, ``index`` becomes S, and the last position's logits come back
-    as f32 — what the reference's sequential prefill returns, up to
-    rounding.  On ``backend="cuda"`` that pass runs the flash kernel once
-    per attention layer.  Decode then runs ``Model.decode_step`` once per
-    new token, as the reference.
+    stored, every mamba layer leaves its final SSD state and conv window,
+    every MoE layer routes all B·S tokens with no capacity limit (each of
+    the reference's steps routes B tokens, never dropping one), ``index``
+    becomes S, and the last position's logits come back as f32 — what
+    the reference's sequential prefill returns, up to rounding.  On
+    ``backend="cuda"`` that pass runs the flash kernel once per attention
+    layer (none for the ssm family).  Decode then runs
+    ``Model.decode_step`` once per new token, as the reference.
 
     The params are cast to the model's compute dtype once, here.  The KV
-    cache is bf16, the reference's default, whatever the compute dtype.
+    cache is bf16, the reference's default, whatever the compute dtype
+    (``Model.init_decode_state`` gives the mamba states' dtypes).
     ``last_times`` holds the host-clock milliseconds of the last
     ``generate``'s prefill and decode, each ended by a device sync.
     """
@@ -420,7 +428,7 @@ class LMServer:
         if kv_quant:
             raise NotImplementedError(
                 "LMServer(kv_quant=True): the int8 KV cache waits for a "
-                "later slice of the port (ROADMAP Queue A 12)")
+                "later slice of the port (ROADMAP Queue A 12.4)")
         self.model = model
         self.params = model.cast(params)
         self.batch = batch

@@ -303,8 +303,8 @@ def _spec_for_predictor(pred):
             return spec
     raise ValueError(
         f"cannot serialize {type(pred).__name__}: no registered engine "
-        "matches its evaluate fn (cuda kernel predictors are rebuilt from "
-        "the forest, not serialized — save the forest with "
+        "matches its evaluate fn (tree-sharded and cuda kernel predictors "
+        "are rebuilt from the forest, not serialized — save the forest with "
         "io.save_forest and recompile it)")
 
 

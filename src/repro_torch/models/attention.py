@@ -1,4 +1,4 @@
-"""GQA attention — the dense path of ``repro.models.attention``: the chunked
+"""GQA attention — ``repro.models.attention``'s self-attention: the chunked
 flash prefill path and the KV-cache decode path.
 
 Two engines, as in the reference's backend pairing: ``backend="torch"``
@@ -8,9 +8,10 @@ XLA path ported to torch; ``backend="cuda"`` runs the hand-written kernel
 tensor runs its plain version.  The reference's sharding constraints are
 no-ops on one device and are left out.
 
-Waiting for later slices (ROADMAP Queue A 12): the int8 KV cache
-(``quantize_kv_token``, ``k_scale=``), ``cross_attn_decode`` and
-``cross_memory_kv`` (encdec), each of which raises ``NotImplementedError``.
+Waiting for later slices: the int8 KV cache (``quantize_kv_token``,
+``k_scale=``; ROADMAP Queue A 12.4), ``cross_attn_decode`` and
+``cross_memory_kv`` (encdec, 12.3), each of which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,10 +27,12 @@ NEG_INF = -1e30
 BACKENDS = ("torch", "cuda")
 
 
-def waits(what: str):
-    """Raise for a feature a later slice of the port brings."""
+def waits(what: str, item: str = "12"):
+    """Raise for a feature a later slice of the port brings, naming its
+    ROADMAP Queue A item (12.3 the encdec stack, 12.4 the int8 KV cache,
+    12.5 training)."""
     raise NotImplementedError(f"{what} waits for a later slice of the port "
-                              "(ROADMAP Queue A 12)")
+                              f"(ROADMAP Queue A {item})")
 
 
 def make_attn_params(mk, cfg: ArchConfig, cross: bool = False,
@@ -121,7 +124,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     reference's sequential prefill reads its cache (``attention.py:244-250``).
     """
     if memory is not None:
-        waits("cross-attention (encdec)")
+        waits("cross-attention (encdec)", "12.3")
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -154,7 +157,7 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def quantize_kv_token(x: torch.Tensor):
-    waits("the int8 KV cache")
+    waits("the int8 KV cache", "12.4")
 
 
 def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -171,7 +174,7 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
     0..index are read: the reference masks the rest to -1e30, whose
     weights are exactly 0."""
     if k_scale is not None or v_scale is not None:
-        waits("the int8 KV cache")
+        waits("the int8 KV cache", "12.4")
     B = x.shape[0]
     K, hd = cfg.n_kv, cfg.head_dim
     R = cfg.n_heads // K
@@ -196,8 +199,8 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 def cross_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
                       mem_k: torch.Tensor, mem_v: torch.Tensor):
-    waits("cross-attention decode (encdec)")
+    waits("cross-attention decode (encdec)", "12.3")
 
 
 def cross_memory_kv(p: dict, memory: torch.Tensor, dtype=torch.bfloat16):
-    waits("cross-attention memory K/V (encdec)")
+    waits("cross-attention memory K/V (encdec)", "12.3")

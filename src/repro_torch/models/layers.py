@@ -5,7 +5,7 @@ of the reference's weights (as numpy) carries across leaf for leaf
 (``models/convert.py``).
 
 ``SpecMaker`` (the logical sharding axes) waits for the sharding slice
-(ROADMAP Queue A 12)."""
+(ROADMAP Queue A 12.6)."""
 from __future__ import annotations
 
 from typing import Sequence

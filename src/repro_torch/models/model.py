@@ -1,21 +1,30 @@
-"""Model assembly — the dense family of ``repro.models.model``.
+"""Model assembly — ``repro.models.model`` for the dense, moe, ssm and
+hybrid families.
 
-A model is a stack of *units*; for the dense family a unit is one layer
-(attention mixer + MLP).  Params are nested dicts of tensors with the
-reference's tree: every block leaf carries a leading ``n_units`` axis, so
-a reference param tree (as numpy) carries across name for name
-(``models/convert.py``).  ``lax.scan`` over the units becomes a Python
-loop.
+A model is a stack of *units*; a unit is the smallest repeating layer
+group, one position per layer (``unit_layout``):
+
+  dense/moe : 1 layer  (attention mixer + mlp|moe ffn)
+  ssm       : 1 mamba block (no separate ffn, Mamba2 style)
+  hybrid    : ``attn_period`` layers (jamba: mamba and attention mixers,
+              alternating mlp and moe ffns)
+
+Params are nested dicts of tensors with the reference's tree: every block
+leaf carries a leading ``n_units`` axis, so a reference param tree (as
+numpy) carries across name for name (``models/convert.py``).  ``lax.scan``
+over the units becomes a Python loop.
 
 ``Model(cfg, ..., backend="cuda", device=None)`` follows
 ``compile_forest``'s convention: ``device=None`` is the card and raises
 without CUDA; on ``device="cpu"`` the ``cuda`` backend runs the kernel's
 plain version.  ``backend="torch"`` is the reference's XLA engine (the
 chunked flash in torch), ``backend="cuda"`` the hand-written flash kernel.
+The SSD scan and the MoE dispatch are XLA code in the reference, outside
+any Pallas kernel, and plain torch here on both backends.
 
-Waiting for later slices (ROADMAP Queue A 12): the moe, ssm, hybrid and
-encdec families (``NotImplementedError``), the int8 KV cache, ``loss_fn``
-and training, and the logical sharding specs.
+Waiting for later slices (ROADMAP Queue A): the encdec family (12.3,
+``NotImplementedError``), the int8 KV cache (12.4), ``loss_fn`` and
+training (12.5), and the logical sharding specs (12.6).
 """
 from __future__ import annotations
 
@@ -26,12 +35,13 @@ import torch
 
 from ..core.registry import resolve_device
 from . import attention as attn
+from . import mamba, moe
 from .attention import waits
 from .config import ArchConfig
 from .layers import (RealMaker, make_embed_params, make_mlp_params,
                      mlp_forward, rmsnorm)
 
-FAMILIES = ("dense",)          # the families this slice runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the families the port runs
 
 
 @dataclass
@@ -68,7 +78,7 @@ def n_units(cfg: ArchConfig) -> int:
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        waits(f"the {cfg.family} family ({cfg.name})")
+        waits(f"the {cfg.family} family ({cfg.name})", "12.3")
 
 
 # --------------------------------------------------------------------------- #
@@ -79,15 +89,24 @@ def _make_unit_params(mk, cfg: ArchConfig, layout: list[UnitPos],
     blocks: dict[str, Any] = {}
     ea = (U,)
     for i, pos in enumerate(layout):
-        if pos.mixer != "attn" or pos.ffn != "mlp" or pos.cross:
-            waits(f"a {pos} unit")
-        blocks[f"pos{i}"] = {
+        if pos.cross:
+            waits("cross-attention (encdec)", "12.3")
+        p: dict[str, Any] = {
             "ln1": mk(ea + (cfg.d_model,), ("layers", "embed"), init="ones"),
-            "attn": attn.make_attn_params(mk, cfg, extra_axes=ea),
-            "ln2": mk(ea + (cfg.d_model,), ("layers", "embed"), init="ones"),
-            "mlp": make_mlp_params(mk, cfg.d_model, cfg.d_ff, cfg.mlp,
-                                   extra_axes=ea),
         }
+        if pos.mixer == "attn":
+            p["attn"] = attn.make_attn_params(mk, cfg, extra_axes=ea)
+        else:
+            p["ssm"] = mamba.make_ssm_params(mk, cfg, extra_axes=ea)
+        if pos.ffn:
+            p["ln2"] = mk(ea + (cfg.d_model,), ("layers", "embed"),
+                          init="ones")
+        if pos.ffn == "mlp":
+            p["mlp"] = make_mlp_params(mk, cfg.d_model, cfg.d_ff, cfg.mlp,
+                                       extra_axes=ea)
+        elif pos.ffn == "moe":
+            p["moe"] = moe.make_moe_params(mk, cfg, extra_axes=ea)
+        blocks[f"pos{i}"] = p
     return blocks
 
 
@@ -110,15 +129,17 @@ def tree_map(fn, tree):
 # --------------------------------------------------------------------------- #
 class Model:
     def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
-                 q_chunk: int = 1024, *, backend: str = "cuda",
-                 device=None):
+                 q_chunk: int = 1024, ssd_chunk: int = 128, *,
+                 backend: str = "cuda", device=None):
         _check_family(cfg)
         if backend not in attn.BACKENDS:
             raise ValueError(f"backend {backend!r} not in {attn.BACKENDS}")
         self.cfg = cfg
+        self.layout = unit_layout(cfg)
         self.n_units = n_units(cfg)
         self.compute_dtype = compute_dtype
         self.q_chunk = q_chunk
+        self.ssd_chunk = ssd_chunk
         self.backend = backend
         self.device = resolve_device(device)
 
@@ -145,15 +166,55 @@ class Model:
 
     @staticmethod
     def _unit(params: dict, u: int) -> dict:
-        """Unit ``u``'s params: for the dense family one layer, ``pos0``."""
-        return tree_map(lambda a: a[u], params["blocks"]["pos0"])
+        """Unit ``u``'s params: ``pos0``..``pos{k-1}``, one per layer."""
+        return tree_map(lambda a: a[u], params["blocks"])
+
+    def _apply_unit(self, up: dict, x: torch.Tensor,
+                    positions: torch.Tensor, u: int,
+                    state: Optional[dict]) -> torch.Tensor:
+        """One unit over the whole sequence.  With a decode ``state`` each
+        attention layer writes its K and V into the cache, each mamba
+        layer its final SSD state and conv window, and every MoE layer
+        routes all tokens without capacity: what S decode steps, each
+        routing B tokens, leave and compute."""
+        cfg = self.cfg
+        ai = si = 0
+        for i, pos in enumerate(self.layout):
+            p = up[f"pos{i}"]
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            if pos.mixer == "attn":
+                kv = None if state is None else (state["k"][u, ai],
+                                                 state["v"][u, ai])
+                h = attn.attn_forward(p["attn"], h, cfg, positions,
+                                      q_chunk=self.q_chunk,
+                                      backend=self.backend, kv_cache=kv)
+                ai += 1
+            elif state is None:
+                h = mamba.ssm_forward(p["ssm"], h, cfg, chunk=self.ssd_chunk)
+            else:
+                h, state["ssm_h"][u, si], state["conv"][u, si] = \
+                    mamba.ssm_forward(p["ssm"], h, cfg, chunk=self.ssd_chunk,
+                                      state_dtype=state["conv"].dtype)
+                si += 1
+            x = x + h
+            if pos.ffn:
+                h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+                if pos.ffn == "moe":
+                    h, _ = moe.moe_forward(p["moe"], h, cfg,
+                                           lossless=state is not None)
+                else:
+                    h = mlp_forward(p["mlp"], h, cfg.mlp)
+                x = x + h
+        return x
 
     def trunk(self, params: dict, tokens,
               state: Optional[dict] = None) -> torch.Tensor:
         """Embed + all blocks + final norm → hidden (B, S, D).  With a
-        decode ``state``, each attention layer writes its post-RoPE K and
-        V into the cache at positions 0..S-1 and attends over them as
-        stored (``attn_forward``'s ``kv_cache``)."""
+        decode ``state``, the prefill: each attention layer writes its
+        post-RoPE K and V into the cache at positions 0..S-1 and attends
+        over them as stored (``attn_forward``'s ``kv_cache``), each mamba
+        layer leaves its decode state, and the MoE layers route every
+        token (``_apply_unit``)."""
         cfg = self.cfg
         params = self.cast(params)
         tokens = self._tokens(tokens)
@@ -161,15 +222,8 @@ class Model:
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         for u in range(self.n_units):
-            p = self._unit(params, u)
-            kv = None if state is None else (state["k"][u, 0],
-                                             state["v"][u, 0])
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            x = x + attn.attn_forward(p["attn"], h, cfg, positions,
-                                      q_chunk=self.q_chunk,
-                                      backend=self.backend, kv_cache=kv)
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp_forward(p["mlp"], h, cfg.mlp)
+            x = self._apply_unit(self._unit(params, u), x, positions, u,
+                                 state)
         return rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -179,52 +233,94 @@ class Model:
         return self.logits(params, self.trunk(params, tokens))
 
     def loss_fn(self, params, tokens):
-        waits("loss_fn (training)")
+        waits("loss_fn (training)", "12.5")
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: dict, tokens,
                 state: Optional[dict] = None) -> torch.Tensor:
         """Forward trunk, return the last position's logits (B, vocab).
-        With a decode ``state`` it also fills the KV cache at positions
-        0..S-1 and sets ``state["index"] = S``: one trunk pass giving what
-        the reference ``LMServer``'s S teacher-forced decode steps give."""
+        With a decode ``state`` it also fills the caches (``trunk``) and
+        sets ``state["index"] = S``: one trunk pass giving what the
+        reference ``LMServer``'s S teacher-forced decode steps give."""
         h = self.trunk(params, tokens, state)
         if state is not None:
             state["index"] = h.shape[1]
         return self.logits(params, h[:, -1:, :])[:, 0]
 
     # ------------------------------------------------------------- decode
+    def mixer_counts(self) -> tuple[int, int]:
+        """(attention, mamba) layers per unit."""
+        na = sum(1 for p in self.layout if p.mixer == "attn")
+        return na, len(self.layout) - na
+
     def init_decode_state(self, batch: int, max_len: int,
                           params: Optional[dict] = None,
                           enc_embeds=None, dtype=torch.bfloat16,
                           kv_quant: bool = False) -> dict:
-        """KV caches (U, 1, B, max_len, K, hd) — the reference's layout,
-        one attention layer per dense unit — in ``dtype`` (bf16 by
-        default, as the reference's) and ``index`` 0, a host int."""
+        """The reference's decode state: KV caches (U, na, B, max_len, K,
+        hd) in ``dtype`` (bf16 by default, as the reference's), mamba
+        states ``ssm_h`` (U, ns, B, H, P, N) f32 and ``conv`` (U, ns, B,
+        cw-1, d_inner), and ``index`` 0, a host int.  ``conv`` is in the
+        wider of ``dtype`` and the compute dtype: the reference's
+        ``ssm_decode_step`` returns its window in that dtype (its
+        concatenation promotes), so its state holds that from the first
+        step on."""
         if kv_quant:
-            waits("the int8 KV cache")
-        cache = attn.init_kv_cache(self.cfg, batch, max_len, self.n_units,
-                                   dtype, self.device)
-        return {"index": 0, "k": cache["k"][:, None],
-                "v": cache["v"][:, None]}
+            waits("the int8 KV cache", "12.4")
+        cfg = self.cfg
+        U = self.n_units
+        na, ns = self.mixer_counts()
+        dev = self.device
+        state: dict[str, Any] = {"index": 0}
+        if na:
+            cache = attn.init_kv_cache(cfg, batch, max_len, U * na, dtype,
+                                       dev)
+            for key in ("k", "v"):
+                state[key] = cache[key].reshape(
+                    (U, na) + cache[key].shape[1:])
+        if ns:
+            H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+            state["ssm_h"] = torch.zeros((U, ns, batch, H, P, N),
+                                         dtype=torch.float32, device=dev)
+            state["conv"] = torch.zeros(
+                (U, ns, batch, cfg.conv_width - 1, cfg.d_inner),
+                dtype=torch.promote_types(dtype, self.compute_dtype),
+                device=dev)
+        return state
 
     def decode_step(self, params: dict, state: dict,
                     tokens) -> tuple[torch.Tensor, dict]:
-        """tokens (B, 1) → (logits (B, vocab), state).  The caches are
-        updated in place and ``index`` advanced; the returned dict is a
-        new one over the same cache tensors."""
+        """tokens (B, 1) → (logits (B, vocab), state).  The caches and
+        mamba states are updated in place and ``index`` advanced; the
+        returned dict is a new one over the same tensors."""
         cfg = self.cfg
         params = self.cast(params)
         x = self._embed(params, self._tokens(tokens))
         index = int(state["index"])
         for u in range(self.n_units):
-            p = self._unit(params, u)
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            h, _, _ = attn.attn_decode_step(p["attn"], h, cfg,
-                                            state["k"][u, 0],
-                                            state["v"][u, 0], index)
-            x = x + h
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp_forward(p["mlp"], h, cfg.mlp)
+            up = self._unit(params, u)
+            ai = si = 0
+            for i, pos in enumerate(self.layout):
+                p = up[f"pos{i}"]
+                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+                if pos.mixer == "attn":
+                    h, _, _ = attn.attn_decode_step(p["attn"], h, cfg,
+                                                    state["k"][u, ai],
+                                                    state["v"][u, ai], index)
+                    ai += 1
+                else:
+                    h, state["ssm_h"][u, si], state["conv"][u, si] = \
+                        mamba.ssm_decode_step(p["ssm"], h, cfg,
+                                              state["ssm_h"][u, si],
+                                              state["conv"][u, si])
+                    si += 1
+                x = x + h
+                if pos.ffn:
+                    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+                    if pos.ffn == "moe":
+                        h, _ = moe.moe_forward(p["moe"], h, cfg)
+                    else:
+                        h = mlp_forward(p["mlp"], h, cfg.mlp)
+                    x = x + h
         x = rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
         return self.logits(params, x)[:, 0], dict(state, index=index + 1)

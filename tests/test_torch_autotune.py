@@ -315,11 +315,19 @@ def test_explicit_kernel_engines_run_their_plain_versions_on_the_cpu(
 
 
 def test_multi_device_waits_for_the_sharding_slice(small_forest):
+    """The sharding slice is in: ``n_devices=2`` tunes the tree-sharded
+    wrapper over two CPU replicas, keyed on the device count, and its
+    winner predicts as the reference's single-device engine."""
     f = port(small_forest)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine_select.choose(f, 16, engines=("qs",), n_devices=2,
-                             cache_path=None, device=CPU)
-    # the reference's ValueError comes first for cascade + sharding
+    c = engine_select.choose(f, 16, engines=("qs", "qs-bitmm"), n_devices=2,
+                             cache_path=None, repeats=1, device=CPU)
+    assert c.predictor.n_devices == 2 and "_dev2_fp" in c.key
+    X = np.random.default_rng(1).normal(size=(16, f.n_features))
+    ref = {"qs": "bitvector", "qs-bitmm": "bitmm"}[c.engine]
+    np.testing.assert_allclose(
+        c.predict(X), rcore.compile_forest(small_forest, engine=ref)
+        .predict(X), rtol=RTOL, atol=ATOL)
+    # cascade + sharding still raises the reference's ValueError
     with pytest.raises(ValueError, match="cascade"):
         engine_select.choose(f, 16, engines=("qs",), n_devices=2,
                              cascade_specs=(_cascade_spec(),),

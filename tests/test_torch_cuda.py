@@ -902,3 +902,50 @@ def test_runtime_worker_thread_launch_error_resolves_futures(card):
         ok = rt.submit("ok", X[0])
         np.testing.assert_array_equal(ok.wait(timeout=60),
                                       pred.predict(X[:1])[0])
+
+
+# --------------------------------------------------------------------------- #
+# tree-sharded execution and the moe, ssm and hybrid LM families on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("engine", ["bitvector", "bitmm", "rapidscorer",
+                                    "native", "gemm"])
+def test_tree_sharded_on_one_card_is_exact(card, engine):
+    """Four shards on cuda:0 (T = 30 pads to 32) are bit-identical to one
+    shard on int16 int-accum forests, and to the qs_forward kernel."""
+    from repro_torch.core import shard
+    X, (forest, qforest) = _forests(30, 32, 10, 3, 96)
+    one = shard.tree_sharded(qforest, engine, devices=[card])
+    four = shard.tree_sharded(qforest, engine, devices=[card] * 4)
+    assert all(m.device == card for m in four.shards)
+    want = one.predict(X)
+    np.testing.assert_array_equal(four.predict(X), want)
+    np.testing.assert_array_equal(
+        core.compile_forest(qforest, device=card).predict(X), want)
+    with pytest.raises(ValueError, match="devices visible"):
+        core.compile_plan(qforest, engine=engine, backend="torch",
+                          device=card,
+                          n_devices=torch.cuda.device_count() + 1)
+
+
+@pytest.mark.parametrize("name", ["mamba2_370m", "jamba_1_5_large_398b",
+                                  "phi3_5_moe_42b"])
+def test_lm_families_on_card_launch_flash_per_attention_layer(card, name):
+    """A reduced moe, ssm or hybrid config served on the card: one
+    flash_forward launch per attention layer per generate (none for the
+    ssm family), and the same greedy tokens as backend="torch" (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import LMServer
+    from repro_torch.models import Model
+    cfg = get_config(name).reduced()
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, 140)).astype(np.int32)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        model = Model(cfg, torch.float32, backend=backend)
+        na, _ = model.mixer_counts()
+        server = LMServer(model, model.init_params(0), batch=2, max_len=150)
+        before = flash_forward.launches
+        outs[backend] = server.generate(prompts, 8)
+        want = na * model.n_units if backend == "cuda" else 0
+        assert flash_forward.launches - before == want
+    np.testing.assert_array_equal(outs["cuda"], outs["torch"])

@@ -132,6 +132,20 @@ cfg = get_config(chip_smoke.LM_ARCH).reduced()
 lm = chip_smoke.lm_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3,
                         torch.device("cpu"))
 assert lm["launches"] == 0 and lm["tokens"].shape == (2, 23)
+# phases 10 and 11 at a tiny size: sharded CPU replicas, the LM families
+sh = chip_smoke.sharded_path(want, forest, X, pred.predict(X), cpu,
+                             counts=(1, 3), reps=1)
+assert not any(sh["launches"].values()) and set(sh["errors"]) == {"cuda"}
+assert len(sh["engines"]) == 6 and sh["float_err"] < 1e-3
+tiny = dict(batch=2, prompt=20, new=3, layers=None, reduced=True)
+for fname in chip_smoke.LM_FAMILIES:
+    fcfg, fam = chip_smoke.lm_family_path(fname, tiny, cpu)
+    assert fam["launches"] == 0 and fam["tokens"].shape == (2, 23)
+    assert (fam["n_attn"] == 0) == (fcfg.family == "ssm"), fcfg.name
+    assert (fam["flips"][torch.float32][1] > 0) == (fcfg.n_experts > 0)
+phi = chip_smoke.family_config("phi3_5_moe_42b",
+                               chip_smoke.LM_FAMILIES["phi3_5_moe_42b"])
+assert (phi.n_layers, phi.d_model, phi.n_experts) == (4, 4096, 16)
 for shape in chip_smoke.FLASH_SWEEP[:2]:
     for dt in (torch.float32, torch.bfloat16):
         assert chip_smoke.compare_flash(*shape, dt, torch.device("cpu")) == 0

@@ -35,7 +35,10 @@ from repro_torch.models.model import Model, make_params  # noqa: E402
 
 DENSE = [a for a in ref_configs.ARCH_IDS
          if ref_configs.get_config(a).family == "dense"]
-OTHER = [a for a in ref_configs.ARCH_IDS if a not in DENSE]
+# the families still to port: encdec (ROADMAP Queue A 12.3); moe, ssm and
+# hybrid are held in tests/test_torch_lm_families.py
+OTHER = [a for a in ref_configs.ARCH_IDS
+         if ref_configs.get_config(a).family == "encdec"]
 BACKENDS = ["torch", "cuda"]
 RTOL = ATOL = 1e-4
 B, S = 2, 32

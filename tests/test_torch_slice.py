@@ -133,9 +133,14 @@ def test_unported_parts_raise(forests, magic_ds, tmp_path, monkeypatch):
     assert casc.trace_cache_size() == 0
     casc.predict(X)
     assert casc.trace_cache_size() == 1
-    # what still waits raises
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tcore.compile_plan(port_forest, device="cpu", n_devices=2)
+    # tree-sharded execution over two CPU replicas predicts as one device
+    sharded = tcore.compile_plan(port_forest, backend="torch", device="cpu",
+                                 n_devices=2)
+    assert sharded.n_devices == 2
+    np.testing.assert_array_equal(
+        sharded.predict(X),
+        tcore.compile_forest(port_forest, backend="torch",
+                             device="cpu").predict(X))
     pred = tcore.compile_forest(port_forest, opt="O0", device="cpu")
     reg = MetricsRegistry()
     srv = TServer(pred, obs=reg)
