@@ -129,11 +129,29 @@ or JAX.  Phases:
     the same work (the kernels and SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
     and ``library_device_ms``; ``flash_forward`` also beside
-    ``scaled_dot_product_attention``, at the served shape and at
-    ``prefill_32k``'s per-sequence shape, S = 32768, and its f32 route
-    at the served shape; ``cascade_qs_forward`` beside ``qs_forward``
-    over the mnist cascade's 512 trees, with its cluster layout and the
-    share of walked pairs that belong to exited rows).
+    ``scaled_dot_product_attention``, at the served shape, at
+    ``prefill_32k``'s per-sequence shape, S = 32768, and at phase 13's
+    non-causal shapes — seamless's encoder (B·H = 128, S = 1024) and its
+    cross-attention (16 queries over 1024 frames) — and its f32 route at
+    the served shape; ``cascade_qs_forward`` beside ``qs_forward`` over
+    the mnist cascade's 512 trees, with its cluster layout and the share
+    of walked pairs that belong to exited rows);
+13. the encoder-decoder family and the int8 KV cache: ``flash_forward``
+    against its plain version at the encoder and cross shapes (f32 and
+    bf16); seamless-m4t-large-v2 at its published size (24 + 24 layers,
+    1.63 B seeded parameters) served in bf16 on ``backend="cuda"``
+    through ``Model.init_decode_state(params=, enc_embeds=)`` (8
+    utterances of 1024 seeded frames), ``prefill`` with that state (8
+    prompts of 16 tokens) and 32 greedy ``decode_step`` calls: 24
+    non-causal launches in the encode, 24 causal and 24 cross launches in
+    the prefill, 72 in all, every one ``wgmma``, no other kernel; in f32
+    ``cuda`` and ``torch`` give the same greedy tokens and close prefill
+    logits, so do the bf16 prefill logits, and teacher-forced
+    ``decode_step`` matches ``forward``; then smollm-360m through
+    ``LMServer(batch=8, max_len=1057, kv_quant=True)``: 32 ``wgmma``
+    launches per prefill, f32 tokens ``cuda`` == ``torch``, the state at
+    most ``KV_QUANT_BYTES`` of the bf16 state's bytes, and decode ms per
+    token beside the bf16 cache's.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -145,7 +163,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -187,6 +207,7 @@ from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.models.model import tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
                              MetricsRegistry, get_registry,
@@ -341,6 +362,12 @@ FLASH_SWEEP = [
 # the reference's tolerances (tests/test_flash_kernel.py:45, :75): the same
 # f32 arithmetic summed in another order; bf16 out
 FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
+# the encdec shapes in bf16 are held tighter: within two bf16 steps of the
+# largest |out| (a step is 2^-7 of the power of two at or under it).  The
+# kernel and the plain version round one f32 result to bf16, at most a
+# step apart, and the kernel's bf16 probabilities move it by ~2^-9 of |v|;
+# a dropped key tile or one mis-masked key moves it by ten steps or more
+FLASH_BF16_STEPS = 2
 # the LM slice: smollm-360m (src/repro/configs/smollm_360m.py), the
 # reference serve's default arch, at full width and depth; prefill_32k
 # (S 32768, batch 32, models/config.py:160) cut to 8 prompts x 1024
@@ -378,6 +405,18 @@ LM_FAMILIES = {
     "jamba_1_5_large_398b": dict(batch=2, prompt=160, new=16, layers=None,
                                  reduced=True),
 }
+# the encoder-decoder family (phase 13): seamless-m4t-large-v2 at its
+# published size (24 encoder and 24 decoder layers, d 1024, 16/16 heads,
+# hd 64, d_ff 8192 gelu, vocab 256206; configs/seamless_m4t_large_v2.py).
+# Its speech frontend is a stub: each of the B utterances is enc_len(4096)
+# = 1024 frames of seeded embeddings (repro/launch/specs.py:13-15); the
+# decoder prompts are 16 tokens, then 32 greedy tokens
+ENCDEC_ARCH = "seamless_m4t_large_v2"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_SEQ = 8, 16, 32, 4096
+# the int8 KV cache (phase 13): smollm-360m served as phase 8 serves it;
+# its decode state at most this share of the bf16 state's bytes ((1 +
+# 4/64) / 2 = 0.53 at hd 64: an int8 value and an f32 scale per head row)
+KV_QUANT_BYTES = 0.55
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -470,8 +509,7 @@ def compare_kernel(kernel, forest, X, device, atol: float) -> float:
     out_dtype = kw["out_dtype"]
     got = kernel.launch(x, *arrays, **kw)
     ref = kernel.plain(x, *arrays, **kw)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     err = float((got.double() - ref.double()).abs().max())
     shape = (kernel.source_name, forest.n_trees, forest.n_leaves,
              forest.n_features, forest.n_classes, X.shape[0])
@@ -657,8 +695,7 @@ def compare_cascade(forest, stages, policy, X, device, atol: float,
     got, got_exit = cascade_qs_forward(x, valid, *arrays, **kw)
     want, want_exit = cascade_qs_forward_reference(x, valid, *arrays, **kw)
     again, again_exit = cascade_qs_forward(x, valid, *arrays, **kw)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     err = float((got.double() - want.double()).abs().max())
     tag = (forest.n_trees, forest.n_leaves, forest.n_features,
            forest.n_classes, len(X), stages, policy.tag(),
@@ -842,10 +879,6 @@ def host_split(pred, X, device, reps: int = 20) -> dict:
     fn = ops.cuda_fused_cascade_qs(pred.forest, pred.stages, pred.policy,
                                    device=device, **pred.engine_kw)
     K = len(pred.stages)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
     times = {k: [] for k in ("quantize", "pad", "h2d", "kernel",
                              "exit_counts", "d2h")}
     for _ in range(reps):
@@ -859,11 +892,11 @@ def host_split(pred, X, device, reps: int = 20) -> dict:
         Xp[:n] = feed
         t.append(time.perf_counter())
         xt = as_input_tensor(Xp, device)
-        sync()
+        sync(device)
         t.append(time.perf_counter())
         valid = torch.arange(bucket, device=device) < n
         scores, exit_stage = fn(xt, valid)
-        sync()
+        sync(device)
         t.append(time.perf_counter())
         stages = torch.arange(K, dtype=torch.int32, device=device)
         hot = (exit_stage[:, None] == stages[None, :]) & valid[:, None]
@@ -892,8 +925,7 @@ def pass_times(path, device, X_calib, **plan_kw):
     for name in pipeline.PIPELINE:
         t0 = time.perf_counter()
         obj = pipeline.PASSES[name](obj, plan, ctx)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync(device)
         ms[name] = (time.perf_counter() - t0) * 1e3
     return ms, obj
 
@@ -1676,23 +1708,34 @@ def flash_inputs(B, Sq, Sk, H, K, hd, dtype, device, seed=0):
                                             (B, K, Sk)))
 
 
-def compare_flash(B, Sq, Sk, H, K, hd, causal, dtype, device) -> float:
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at |x|: 2^-7 of the power of two at or
+    under it."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def compare_flash(B, Sq, Sk, H, K, hd, causal, dtype, device,
+                  steps=None) -> float:
     """``flash_forward`` vs its plain version on the same inputs, within
-    the reference's tolerance for ``dtype``; on the card two launches must
-    give the same bits.  Returns the largest absolute difference."""
+    the reference's tolerance for ``dtype`` (in bf16 with ``steps``:
+    within that many bf16 steps of the largest |out|, absolute); on the
+    card two launches must give the same bits.  Returns the largest
+    absolute difference."""
     q, k, v = flash_inputs(B, Sq, Sk, H, K, hd, dtype, device,
                            seed=Sq * 31 + Sk + hd)
     got = flash_forward(q, k, v, causal=causal, n_rep=H // K)
     want = flash_forward_reference(q, k, v, causal=causal, n_rep=H // K)
     again = flash_forward(q, k, v, causal=causal, n_rep=H // K)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     tol = FLASH_TOL_F32 if dtype == torch.float32 else FLASH_TOL_BF16
+    rtol = tol
+    if dtype == torch.bfloat16 and steps:
+        tol, rtol = steps * bf16_step(float(want.float().abs().max())), 0.0
     err = float((got.float() - want.float()).abs().max())
     tag = (B, Sq, Sk, H, K, hd, causal, str(dtype))
     if got.dtype != dtype or got.shape != q.shape:
         raise AssertionError(f"flash {tag}: out {got.dtype} {got.shape}")
-    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=tol):
         raise AssertionError(f"flash {tag}: kernel vs plain version max "
                              f"|diff| {err} > {tol}")
     if not torch.equal(got, again):
@@ -1722,15 +1765,15 @@ def flash_bound(q, k, v, causal: bool):
         ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops
 
 
-def library_attention(q4, k4, v4):
+def library_attention(q4, k4, v4, causal: bool = True):
     """One ``scaled_dot_product_attention`` call computing
-    ``flash_forward``'s function (causal, GQA) on the same inputs, on
-    PyTorch's fused backends only (the math backend would hold the whole
-    score matrix: 64 GB at S = 32768).  With ``enable_gqa`` where a fused
-    backend takes it, else over k/v repeated to every query head.
+    ``flash_forward``'s function (causal or not, GQA) on the same inputs,
+    on PyTorch's fused backends only (the math backend would hold the
+    whole score matrix: 64 GB at S = 32768).  With ``enable_gqa`` where a
+    fused backend takes it, else over k/v repeated to every query head.
     Returns (call, which form).  A yardstick: the port never calls it."""
     def gqa():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                               enable_gqa=True)
     with sdpa_kernel(FUSED_SDPA):
         try:
@@ -1741,8 +1784,61 @@ def library_attention(q4, k4, v4):
     rep = q4.shape[1] // k4.shape[1]
     k_r, v_r = (t.repeat_interleave(rep, dim=1) for t in (k4, v4))
     return (lambda: F.scaled_dot_product_attention(q4, k_r, v_r,
-                                                   is_causal=True),
+                                                   is_causal=causal),
             "k/v repeated")
+
+
+def flash_timing(B, Sq, Sk, H, K, hd, causal, reps, device,
+                 plain=True, cold=False) -> dict:
+    """``flash_forward`` in bf16 on seeded inputs of one shape: an eager
+    loop and graph replay of ``reps`` calls, SDPA the same two ways (and
+    held to the kernel within the bf16 tolerance), the plain version over
+    5 calls where ``plain``, and the bound.  With ``cold`` every timed
+    loop and replay turns over enough distinct input sets that each set's
+    q, K/V and out span more than twice the card's L2 before it comes
+    back, so each call reads its operands from HBM, as a served layer
+    reads cross K/V made long before; the L2-warm replay of one set is
+    kept beside it (``*_warm_device_ms``)."""
+    one = flash_inputs(B, Sq, Sk, H, K, hd, torch.bfloat16, device)
+    set_bytes = sum(t.numel() * t.element_size() for t in one + one[:1])
+    n_sets = 1 + math.ceil(
+        2 * torch.cuda.get_device_properties(device).L2_cache_size
+        / set_bytes) if cold else 1
+    sets = [one] + [flash_inputs(B, Sq, Sk, H, K, hd, torch.bfloat16,
+                                 device, seed=i) for i in range(1, n_sets)]
+    q, k, v = one
+    views = [tuple(t.view(B, -1, t.shape[1], hd) for t in qkv)
+             for qkv in sets]
+    turn = itertools.count()
+
+    def call(qkv=None):
+        qkv = qkv or sets[next(turn) % n_sets]
+        return flash_forward(*qkv, causal=causal, n_rep=H // K)
+    ms, device_ms = cuda_ms(call, reps), graph_ms(call, reps)
+    lib, lib_form = library_attention(*views[0], causal)
+    libs = [lib] + [library_attention(*qkv, causal)[0] for qkv in views[1:]]
+
+    def lib_call():
+        return libs[next(turn) % n_sets]()
+    with sdpa_kernel(FUSED_SDPA):
+        lib_ms = cuda_ms(lib_call, 10 * reps)
+        lib_device_ms = graph_ms(lib_call, reps)
+        warm = dict(warm_device_ms=graph_ms(lambda: call(one), reps),
+                    lib_warm_device_ms=graph_ms(lib, reps)) if cold else {}
+        lib_out = lib()
+    plain_ms = cuda_ms(lambda: flash_forward_reference(
+        q, k, v, causal=causal, n_rep=H // K), 5) if plain else None
+    lib_err = float((call(one).view_as(views[0][0]).float()
+                     - lib_out.float()).abs().max())
+    if lib_err > FLASH_TOL_BF16:
+        raise AssertionError(f"flash {(B, Sq, Sk, H, K, hd, causal)}: "
+                             f"kernel vs SDPA max |diff| {lib_err}")
+    bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, causal)
+    return dict(ms=ms, device_ms=device_ms, lib_ms=lib_ms,
+                lib_device_ms=lib_device_ms, lib_form=lib_form,
+                lib_err=lib_err, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, nbytes=nbytes, n_ops=n_ops,
+                n_sets=n_sets, **warm)
 
 
 def lm_prompts(cfg, batch: int, seq_len: int) -> np.ndarray:
@@ -1925,6 +2021,210 @@ def lm_family_path(name: str, spec: dict, device) -> tuple:
     finally:
         if device.type == "cuda":
             torch.cuda.empty_cache()
+
+
+def enc_len(seq_len: int) -> int:
+    """The stub audio frontend's frames for a sequence: ~4x downsampled,
+    capped (``repro/launch/specs.py:13-15``)."""
+    return min(max(seq_len // 4, 16), 8192)
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def encdec_generate(model, params, prompts: np.ndarray, enc, n_new: int,
+                    max_len: int) -> dict:
+    """Serve an encdec model greedily through its own entry points, as
+    ``tests/test_models_smoke.py:67-92`` drives the reference:
+    ``init_decode_state(params=, enc_embeds=)`` (the encoder and each
+    decoder unit's cross K/V), ``prefill`` with that state, then
+    ``decode_step`` per new token.  Returns the tokens (B, S + n_new), the
+    prefill's logits in f32, ``flash_forward``'s launches in each of the
+    three steps and their host-clock ms, each ended by a device sync."""
+    B = prompts.shape[0]
+    dev = model.device
+    marks = []
+
+    def mark():
+        sync(dev)
+        marks.append((time.perf_counter(), flash_forward.launches))
+    with torch.inference_mode():
+        mark()
+        state = model.init_decode_state(B, max_len, params=params,
+                                        enc_embeds=enc)
+        mark()
+        logits = model.prefill(params, prompts, state).float()
+        tok = torch.argmax(logits, dim=-1)
+        mark()
+        new = []
+        for _ in range(n_new):
+            new.append(tok)
+            lg, state = model.decode_step(params, state, tok[:, None])
+            tok = torch.argmax(lg.float(), dim=-1)
+        mark()
+    out = [np.asarray(prompts, dtype=np.int32)]
+    if new:
+        out.append(torch.stack(new, dim=1).cpu().numpy().astype(np.int32))
+    steps = ("init", "prefill", "decode")
+    return dict(tokens=np.concatenate(out, axis=1), logits=logits,
+                launches={s: b[1] - a[1] for s, a, b in
+                          zip(steps, marks, marks[1:])},
+                times={f"{s}_ms": (b[0] - a[0]) * 1e3 for s, a, b in
+                       zip(steps, marks, marks[1:])})
+
+
+def encdec_path(cfg, prompts: np.ndarray, enc, n_new: int, device) -> dict:
+    """The encdec family's main path and its checks.  Seeded f32 master
+    weights on ``device``; the served model computes in bf16 on
+    ``backend="cuda"`` from weights cast once (as ``LMServer`` casts), so
+    the cross K/V are those bf16 weights against the bf16 encoder output.
+    Every launch count is set to 0 just before the served run and read
+    just after: ``flash_forward`` once per encoder layer (non-causal, in
+    ``init_decode_state``), twice per decoder layer in the prefill (causal
+    self-attention, non-causal cross-attention with Sq != Sk), none in
+    decode, all on the ``wgmma`` route, and no other kernel.  Then, at
+    the same weights: f32 ``cuda`` and ``torch`` give the same greedy
+    tokens and prefill logits within ``LM_LOGIT_TOL_F32``; bf16 prefill
+    logits within ``LM_LOGIT_TOL_BF16``; teacher-forced f32
+    ``decode_step`` from the f32 masters' state matches ``forward``."""
+    B, S = prompts.shape
+    max_len = S + n_new + 1
+    models = {(dt, b): Model(cfg, dt, backend=b, device=device)
+              for dt in (torch.bfloat16, torch.float32)
+              for b in ("cuda", "torch")}
+    m16, m32 = models[torch.bfloat16, "cuda"], models[torch.float32, "cuda"]
+    params = m16.init_params(LM_SEED)
+    params16 = m16.cast(params)
+    numel = []
+    tree_map(lambda t: numel.append(t.numel()), params)
+    on_card = device.type == "cuda"
+    want = dict(init=cfg.enc_layers * on_card,
+                prefill=2 * m16.n_units * on_card, decode=0)
+
+    reset_launches()
+    served = encdec_generate(m16, params16, prompts, enc, n_new, max_len)
+    counts = launch_counts()
+    flash = counts.pop("flash")
+    routes = dict(flash_forward.launches_by_route)
+    if served["launches"] != want or flash != sum(want.values()) or \
+            any(counts.values()) or \
+            routes != {"wgmma": sum(want.values()), "simt": 0}:
+        raise AssertionError(f"encdec: flash_forward launched "
+                             f"{served['launches']} ({routes}), want {want};"
+                             f" other kernels {counts}")
+    out = served["tokens"]
+    if out.shape != (B, S + n_new) or not np.array_equal(out[:, :S],
+                                                         prompts) or \
+            out.min() < 0 or out.max() >= cfg.vocab or \
+            not torch.isfinite(served["logits"]).all():
+        raise AssertionError(f"encdec: output {out.shape} out of range, "
+                             f"prompt changed or logits not finite")
+    warm = encdec_generate(m16, params16, prompts, enc, n_new, max_len)
+    if not np.array_equal(warm["tokens"], out) or \
+            warm["launches"] != want:
+        raise AssertionError("encdec: a second run differs")
+
+    f32 = {b: encdec_generate(models[torch.float32, b], params, prompts,
+                              enc, n_new, max_len) for b in ("cuda", "torch")}
+    if not np.array_equal(f32["cuda"]["tokens"], f32["torch"]["tokens"]):
+        diff = np.argwhere(f32["cuda"]["tokens"] != f32["torch"]["tokens"])
+        raise AssertionError(f"encdec f32 greedy tokens differ between cuda"
+                             f" and torch first at (row, pos) "
+                             f"{tuple(diff[0])}")
+    torch16 = encdec_generate(models[torch.bfloat16, "torch"], params16,
+                              prompts, enc, 0, max_len)
+    err32 = rel_logit_err(f32["cuda"]["logits"], f32["torch"]["logits"])
+    err16 = rel_logit_err(served["logits"], torch16["logits"])
+    err16_vs32 = rel_logit_err(served["logits"], f32["torch"]["logits"])
+    if err32 > LM_LOGIT_TOL_F32 or err16 > LM_LOGIT_TOL_BF16:
+        raise AssertionError(f"encdec prefill logits cuda vs torch: f32 "
+                             f"{err32} (tol {LM_LOGIT_TOL_F32}), bf16 "
+                             f"{err16} (tol {LM_LOGIT_TOL_BF16})")
+
+    steps = min(LM_TEACHER_STEPS, S)
+    with torch.inference_mode():
+        full = m32.forward(params, prompts[:, :steps], enc)
+        state = m32.init_decode_state(B, steps + 1, params=params,
+                                      enc_embeds=enc, dtype=torch.float32)
+        got = []
+        for i in range(steps):
+            lg, state = m32.decode_step(params, state, prompts[:, i:i + 1])
+            got.append(lg)
+    got = torch.stack(got, dim=1)
+    dec_err = float((got - full).abs().max())
+    if not torch.allclose(got, full, rtol=LM_DECODE_TOL,
+                          atol=LM_DECODE_TOL):
+        raise AssertionError(f"encdec teacher-forced decode vs forward: "
+                             f"max |diff| {dec_err} > {LM_DECODE_TOL}")
+    return dict(tokens=out, launches=served["launches"], routes=routes,
+                times=warm["times"], times_cold=served["times"],
+                err32=err32, err16=err16, err16_vs32=err16_vs32,
+                dec_err=dec_err, steps=steps, n_params=sum(numel))
+
+
+def state_bytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values()
+               if isinstance(t, torch.Tensor))
+
+
+def kv_quant_path(cfg, prompts: np.ndarray, n_new: int, device,
+                  max_ratio: float = KV_QUANT_BYTES) -> dict:
+    """The int8 KV cache through ``LMServer(kv_quant=True)``: served in bf16
+    on ``backend="cuda"`` with launch counts set to 0 just before and read
+    just after (one ``wgmma`` ``flash_forward`` per attention layer of the
+    prefill, no other kernel); the bf16-cache server at the same weights
+    timed in turns with it (bf16, int8, bf16: the second call of each
+    kept); f32 greedy tokens ``cuda`` == ``torch`` with the int8 cache;
+    the int8 state's bytes at most ``max_ratio`` of the bf16 state's."""
+    B, S = prompts.shape
+    max_len = S + n_new + 1
+    models = {(dt, b): Model(cfg, dt, backend=b, device=device)
+              for dt, b in ((torch.bfloat16, "cuda"), (torch.float32, "cuda"),
+                            (torch.float32, "torch"))}
+    m16 = models[torch.bfloat16, "cuda"]
+    n_attn = m16.mixer_counts()[0] * m16.n_units
+    params = m16.init_params(LM_SEED)
+    params16 = m16.cast(params)
+    q8 = LMServer(m16, params16, batch=B, max_len=max_len, kv_quant=True)
+    bf = LMServer(m16, params16, batch=B, max_len=max_len)
+
+    reset_launches()
+    out = q8.generate(prompts, n_new)
+    counts = launch_counts()
+    launches = counts.pop("flash")
+    routes = dict(flash_forward.launches_by_route)
+    want = n_attn if device.type == "cuda" else 0
+    if launches != want or any(counts.values()) or \
+            routes != {"wgmma": want, "simt": 0}:
+        raise AssertionError(f"int8 generate: flash_forward launched "
+                             f"{launches} times ({routes}) for {n_attn} "
+                             f"attention layers; other kernels {counts}")
+    if out.shape != (B, S + n_new) or not np.array_equal(out[:, :S],
+                                                         prompts):
+        raise AssertionError(f"int8 generate: output {out.shape}")
+    times = {}
+    for name, server in (("bf16", bf), ("int8", q8), ("bf16", bf)):
+        tokens = server.generate(prompts, n_new)
+        times[name] = dict(server.last_times)
+        if name == "int8" and not np.array_equal(tokens, out):
+            raise AssertionError("int8 generate: a second call differs")
+    agree = float((tokens[:, S:] == out[:, S:]).mean())
+    tokens32 = {b: LMServer(models[torch.float32, b], params, batch=B,
+                            max_len=max_len, kv_quant=True)
+                .generate(prompts, n_new) for b in ("cuda", "torch")}
+    if not np.array_equal(tokens32["cuda"], tokens32["torch"]):
+        diff = np.argwhere(tokens32["cuda"] != tokens32["torch"])[0]
+        raise AssertionError(f"int8 f32 greedy tokens differ between cuda "
+                             f"and torch first at (row, pos) {tuple(diff)}")
+    ratio = state_bytes(m16.init_decode_state(B, max_len, kv_quant=True)) \
+        / state_bytes(m16.init_decode_state(B, max_len))
+    if ratio > max_ratio:
+        raise AssertionError(f"int8 state is {ratio:.4f} of the bf16 "
+                             f"state's bytes (at most {max_ratio})")
+    return dict(tokens=out, launches=launches, routes=routes, times=times,
+                agree=agree, ratio=ratio, n_attn=n_attn)
 
 
 def sharded_path(qforest, forest, rows, kernel_out, device,
@@ -2782,41 +3082,58 @@ def main() -> int:
           f"{exited_pair_share(valid, exit_stage, kw['stage_bounds']):.1%} "
           f"of the walked pairs are exited rows' [{card}]")
 
+    # flash_forward at the LM paths' shapes: smollm-360m's served prefill
+    # and prefill_32k's per-sequence shape (causal GQA); seamless's encoder
+    # self-attention (Sq = Sk, non-causal), its decoder's causal
+    # self-attention over the 16 prompt tokens, and its cross-attention
+    # (16 queries over 1024 frames, non-causal MHA).  The served prefill
+    # reads each layer's cross K/V long after init_decode_state made them,
+    # so the cross shape is timed with cold L2; "cross64" is the same
+    # K/V under 64 queries, one whole wgmma query tile, to price the 48
+    # masked rows of Sq = 16
+    ecfg = get_config(ENCDEC_ARCH)
+    frames = enc_len(ENCDEC_SEQ)
+    flash_shapes = {
+        "served": (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True, 50),
+        "32k": (1, LONG_S, LONG_S, H, K, hd, True, 3),
+        "encoder": (ENCDEC_BATCH, frames, frames, ecfg.n_heads, ecfg.n_kv,
+                    ecfg.head_dim, False, 50),
+        "decoder": (ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT,
+                    ecfg.n_heads, ecfg.n_kv, ecfg.head_dim, True, 200),
+        "cross": (ENCDEC_BATCH, ENCDEC_PROMPT, frames, ecfg.n_heads,
+                  ecfg.n_heads, ecfg.head_dim, False, 200),
+        "cross64": (ENCDEC_BATCH, 64, frames, ecfg.n_heads, ecfg.n_heads,
+                    ecfg.head_dim, False, 200),
+    }
     flash_ms = {}
-    for name, (B_, S_) in (("served", (LM_BATCH, LM_PROMPT)),
-                           ("32k", (1, LONG_S))):
-        q, k, v = flash_inputs(B_, S_, S_, H, K, hd, torch.bfloat16, device)
-        q4, k4, v4 = (t.view(B_, -1, S_, hd) for t in (q, k, v))
-        reps = 50 if name == "served" else 3
-        ms = cuda_ms(lambda: flash_forward(q, k, v, n_rep=H // K), reps)
-        device_ms = graph_ms(lambda: flash_forward(q, k, v, n_rep=H // K),
-                             reps)
-        lib, lib_form = library_attention(q4, k4, v4)
-        with sdpa_kernel(FUSED_SDPA):
-            lib_ms = cuda_ms(lib, 10 * reps)
-            lib_device_ms = graph_ms(lib, reps)
-            lib_out = lib()
-        plain_ms = cuda_ms(lambda: flash_forward_reference(
-            q, k, v, n_rep=H // K), 5) if name == "served" else None
-        lib_err = float((flash_forward(q, k, v, n_rep=H // K).view_as(q4)
-                         .float() - lib_out.float()).abs().max())
-        if lib_err > FLASH_TOL_BF16:
-            raise AssertionError(f"flash {name}: kernel vs SDPA max |diff| "
-                                 f"{lib_err}")
-        bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, True)
-        flash_ms[name] = dict(ms=ms, device_ms=device_ms, lib_ms=lib_ms,
-                              lib_device_ms=lib_device_ms,
-                              plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-        print(f"flash_forward {name} B={B_} H={H}/{K} S={S_} hd={hd} bf16 "
-              f"causal: kernel {ms:.4f} ms (eager loop; on the device by "
-              f"graph replay {device_ms:.4f} ms), plain torch "
-              f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}"
-              f", scaled_dot_product_attention ({lib_form}) {lib_ms:.4f} ms"
-              f" (on the device {lib_device_ms:.4f} ms; max|diff| vs kernel "
-              f"{lib_err:.3g}), bound {bound_ms:.5f} ms by {bound_by} "
-              f"({nbytes} bytes, {n_ops} ops); kernel "
-              f"{n_ops / ms / 1e9:.2f} TFLOP/s [{card}]")
+    for name, (B_, Sq, Sk, H_, K_, hd_, causal, reps) in \
+            flash_shapes.items():
+        cold = name.startswith("cross")
+        t = flash_ms[name] = flash_timing(B_, Sq, Sk, H_, K_, hd_, causal,
+                                          reps, device, plain=name != "32k",
+                                          cold=cold)
+        how = (f"with cold L2, turning over {t['n_sets']} input sets"
+               if cold else "L2-warm")
+        warm = (f"; L2-warm aside: kernel {t['warm_device_ms']:.4f} ms, SDPA "
+                f"{t['lib_warm_device_ms']:.4f} ms on the device"
+                if cold else "")
+        print(f"flash_forward {name} B={B_} H={H_}/{K_} Sq={Sq} Sk={Sk} "
+              f"hd={hd_} bf16 {'causal' if causal else 'non-causal'}, "
+              f"{how}: kernel {t['ms']:.4f} ms (eager loop; on the device "
+              f"by graph replay {t['device_ms']:.4f} ms), plain torch "
+              + ("not timed" if t["plain_ms"] is None
+                 else f"{t['plain_ms']:.4f} ms")
+              + f", scaled_dot_product_attention (is_causal={causal}, "
+              f"{t['lib_form']}) {t['lib_ms']:.4f} ms (on the device "
+              f"{t['lib_device_ms']:.4f} ms; max|diff| vs kernel "
+              f"{t['lib_err']:.3g}), bound {t['bound_ms']:.5f} ms by "
+              f"{t['bound_by']} ({t['nbytes']} bytes, {t['n_ops']} ops); "
+              f"kernel {t['n_ops'] / t['ms'] / 1e9:.2f} TFLOP/s{warm} "
+              f"[{card}]")
+    c16, c64 = (flash_ms[n]["device_ms"] for n in ("cross", "cross64"))
+    print(f"flash_forward cross-attention tile: 16 queries of the 64-row "
+          f"wgmma tile {c16:.4f} ms, 64 queries {c64:.4f} ms on the device "
+          f"with cold L2 (ratio {c16 / c64:.3f}) [{card}]")
     q, k, v = flash_inputs(LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd,
                            torch.float32, device)
     f32_ms = cuda_ms(lambda: flash_forward(q, k, v, n_rep=H // K), 20)
@@ -2836,7 +3153,86 @@ def main() -> int:
         "device_ms": served_t["device_ms"], "plain_ms": served_t["plain_ms"],
         "bound_ms": served_t["bound_ms"], "bound_by": served_t["bound_by"],
         "library_ms": served_t["lib_ms"],
-        "library_device_ms": served_t["lib_device_ms"]})
+        "library_device_ms": served_t["lib_device_ms"],
+        "shapes": {name: {
+            key: flash_ms[name][k] for key, k in (
+                ("ms", "ms"), ("device_ms", "device_ms"),
+                ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                ("bound_by", "bound_by"), ("library_ms", "lib_ms"),
+                ("library_device_ms", "lib_device_ms"),
+                ("l2_warm_device_ms", "warm_device_ms"),
+                ("library_l2_warm_device_ms", "lib_warm_device_ms"))
+            if k in flash_ms[name]}
+            for name in flash_shapes if name != "served"}})
+
+    # 13. the encdec family at its published size and the int8 KV cache
+    t0 = time.perf_counter()
+    shape_err = {}
+    for name in ("encoder", "decoder", "cross"):
+        B_, Sq, Sk, H_, K_, hd_, causal, _ = flash_shapes[name]
+        shape_err[name] = {dt: compare_flash(B_, Sq, Sk, H_, K_, hd_, causal,
+                                             dt, device,
+                                             steps=FLASH_BF16_STEPS)
+                           for dt in (torch.float32, torch.bfloat16)}
+        records[-1]["shapes"][name]["max_abs_err"] = \
+            shape_err[name][torch.bfloat16]
+    print("flash_forward vs its plain version at the encdec shapes: "
+          + "; ".join(f"{n} f32 {e[torch.float32]:.3g}, bf16 "
+                      f"{e[torch.bfloat16]:.3g}" for n, e in shape_err.items())
+          + f" (tol f32 {FLASH_TOL_F32}, bf16 {FLASH_BF16_STEPS} bf16 steps "
+          f"of the largest |out|, absolute); two launches bit-identical")
+    eprompts = lm_prompts(ecfg, ENCDEC_BATCH, ENCDEC_PROMPT)
+    enc = torch.randn(ENCDEC_BATCH, frames, ecfg.d_model, device=device,
+                      generator=torch.Generator(device=device)
+                      .manual_seed(LM_SEED))
+    ed = encdec_path(ecfg, eprompts, enc, ENCDEC_NEW, device)
+    te, tc = ed["times"], ed["times_cold"]
+    print(f"encdec main path ({time.perf_counter() - t0:.1f} s host wall "
+          f"incl. init, 5 runs and teacher forcing): {ecfg.name} "
+          f"{ecfg.enc_layers}+{ecfg.n_layers} layers d={ecfg.d_model} heads "
+          f"{ecfg.n_heads}/{ecfg.n_kv} hd={ecfg.head_dim} d_ff={ecfg.d_ff} "
+          f"({ecfg.mlp}) vocab {ecfg.vocab}, {ed['n_params']} params "
+          f"(seeded, bf16 on backend=cuda; param_count() "
+          f"{ecfg.param_count()}); {ENCDEC_BATCH} x {frames} frames, "
+          f"prompts {ENCDEC_BATCH}x{ENCDEC_PROMPT}, {ENCDEC_NEW} greedy "
+          f"tokens: flash_forward launches {ed['launches']} "
+          f"({sum(ed['launches'].values())} in all; by route "
+          f"{ed['routes']}), no other kernel")
+    print(f"encdec checks: f32 greedy tokens cuda == torch; prefill logits "
+          f"cuda vs torch max|diff| / max|logit|: f32 {ed['err32']:.3g} "
+          f"(tol {LM_LOGIT_TOL_F32}), bf16 {ed['err16']:.3g} (tol "
+          f"{LM_LOGIT_TOL_BF16}); bf16 cuda vs f32 torch "
+          f"{ed['err16_vs32']:.3g}; teacher-forced decode vs forward "
+          f"({ed['steps']} steps, f32) max|diff| {ed['dec_err']:.3g} (tol "
+          f"{LM_DECODE_TOL})")
+    print(f"encdec served (bf16, host clock around synchronised calls, "
+          f"second run): init_decode_state (encode + cross K/V) "
+          f"{te['init_ms']:.2f} ms, prefill {te['prefill_ms']:.2f} ms, "
+          f"decode {te['decode_ms'] / ENCDEC_NEW:.3f} ms per token; first "
+          f"run {tc['init_ms']:.2f} / {tc['prefill_ms']:.2f} / "
+          f"{tc['decode_ms'] / ENCDEC_NEW:.3f} [{card}]")
+    encdec_launches = sum(ed["launches"].values())
+    del ed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kq = kv_quant_path(cfg, prompts, LM_NEW, device)
+    tq, tb = kq["times"]["int8"], kq["times"]["bf16"]
+    print(f"int8 KV cache ({time.perf_counter() - t0:.1f} s host wall): "
+          f"{cfg.name} LMServer(batch={LM_BATCH}, max_len="
+          f"{LM_PROMPT + LM_NEW + 1}, kv_quant=True).generate({LM_BATCH}x"
+          f"{LM_PROMPT}, n_new={LM_NEW}) bf16 on backend=cuda: "
+          f"flash_forward launches {kq['launches']} (routes {kq['routes']}) "
+          f"for {kq['n_attn']} attention layers, no other kernel; f32 "
+          f"greedy tokens cuda == torch; state bytes {kq['ratio']:.4f} of "
+          f"the bf16 state's (at most {KV_QUANT_BYTES}); new tokens equal "
+          f"to the bf16 cache's {kq['agree']:.1%}")
+    print(f"int8 KV cache served (bf16, host clock around synchronised "
+          f"calls, second call, in turns with the bf16 cache): prefill "
+          f"{tq['prefill_ms']:.2f} ms, decode {tq['decode_ms'] / LM_NEW:.3f}"
+          f" ms per token; bf16 cache prefill {tb['prefill_ms']:.2f} ms, "
+          f"decode {tb['decode_ms'] / LM_NEW:.3f} ms per token [{card}]")
+    records[-1].update(encdec_launches=encdec_launches,
+                       kv_quant_launches=kq["launches"])
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

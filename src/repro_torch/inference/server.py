@@ -14,14 +14,13 @@ clocks are ``time.perf_counter()`` (monotonic); callers may pass explicit
 ever subtracts timestamps.
 
   * ``LMServer`` — batch LM completion over ``repro_torch.models.Model``:
-    one trunk pass fills the KV cache from the prompt, then greedy decode.
+    one trunk pass fills the KV cache (bf16, or int8 with ``kv_quant``)
+    from the prompt, then greedy decode.
 
 ``ForestServer.from_forest`` builds a server on the autotuned engine
 (``core.engine_select``); ``ForestServer.save`` / ``load`` persist a
 serving artifact through ``repro_torch.io``; ``ForestServer(obs=...)``
-feeds the serving metric catalog (``repro_torch.obs.serving``).  Not yet
-ported: ``LMServer(kv_quant=True)`` (the int8 KV cache), which raises
-``NotImplementedError``.
+feeds the serving metric catalog (``repro_torch.obs.serving``).
 
 The concurrent multi-tenant front door (threaded request loop, adaptive
 batching, shape warmup) lives in ``repro_torch.inference.runtime`` and is
@@ -418,21 +417,33 @@ class LMServer:
 
     The params are cast to the model's compute dtype once, here.  The KV
     cache is bf16, the reference's default, whatever the compute dtype
-    (``Model.init_decode_state`` gives the mamba states' dtypes).
+    (``Model.init_decode_state`` gives the mamba states' dtypes), or int8
+    with per-(position, head) f32 scales with ``kv_quant=True``; the
+    prefill then attends over the dequantized K and V (``attn_forward``'s
+    ``kv_scales``), and every decode step is the reference's int8 step.
     ``last_times`` holds the host-clock milliseconds of the last
     ``generate``'s prefill and decode, each ended by a device sync.
+
+    An encdec model is refused: ``generate`` takes no encoder embeddings,
+    as the reference's does not (its ``init_decode_state`` asserts on
+    them).  It is served through ``Model.init_decode_state(params=,
+    enc_embeds=)``, ``Model.prefill`` with that state and
+    ``Model.decode_step``.
     """
 
     def __init__(self, model, params, *, batch: int, max_len: int,
                  kv_quant: bool = False):
-        if kv_quant:
-            raise NotImplementedError(
-                "LMServer(kv_quant=True): the int8 KV cache waits for a "
-                "later slice of the port (ROADMAP Queue A 12.4)")
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                f"LMServer cannot serve {model.cfg.name} (encdec): generate "
+                f"takes no encoder embeddings, as the reference's; use "
+                f"Model.init_decode_state(params=, enc_embeds=), "
+                f"Model.prefill(params, prompt, state) and decode_step")
         self.model = model
         self.params = model.cast(params)
         self.batch = batch
         self.max_len = max_len
+        self.kv_quant = kv_quant
         self.last_times: dict = {}
 
     def _sync(self) -> None:
@@ -455,7 +466,8 @@ class LMServer:
                              f"{self.max_len}")
         with torch.inference_mode():
             state = self.model.init_decode_state(B, self.max_len,
-                                                 params=self.params)
+                                                 params=self.params,
+                                                 kv_quant=self.kv_quant)
             t0 = time.perf_counter()
             state, logits = self._prefill(state, prompts)
             tok = torch.argmax(logits, dim=-1)

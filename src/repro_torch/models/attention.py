@@ -1,5 +1,6 @@
-"""GQA attention — ``repro.models.attention``'s self-attention: the chunked
-flash prefill path and the KV-cache decode path.
+"""GQA attention — ``repro.models.attention``: self- and cross-attention
+on the chunked flash prefill path, and the KV-cache decode path with a
+bf16 or int8 cache.
 
 Two engines, as in the reference's backend pairing: ``backend="torch"``
 runs ``flash_attention``, the chunked online softmax of the reference's
@@ -8,10 +9,10 @@ XLA path ported to torch; ``backend="cuda"`` runs the hand-written kernel
 tensor runs its plain version.  The reference's sharding constraints are
 no-ops on one device and are left out.
 
-Waiting for later slices: the int8 KV cache (``quantize_kv_token``,
-``k_scale=``; ROADMAP Queue A 12.4), ``cross_attn_decode`` and
-``cross_memory_kv`` (encdec, 12.3), each of which raises
-``NotImplementedError``.
+Cross-attention (the encdec family's decoder) reads K and V from the
+encoder's output with no RoPE, no mask and full MHA (``make_attn_params(
+cross=True)``); on ``backend="cuda"`` it is the same kernel, non-causal,
+with Sq != Sk.
 """
 from __future__ import annotations
 
@@ -29,8 +30,7 @@ BACKENDS = ("torch", "cuda")
 
 def waits(what: str, item: str = "12"):
     """Raise for a feature a later slice of the port brings, naming its
-    ROADMAP Queue A item (12.3 the encdec stack, 12.4 the int8 KV cache,
-    12.5 training)."""
+    ROADMAP Queue A item (12.5 training)."""
     raise NotImplementedError(f"{what} waits for a later slice of the port "
                               f"(ROADMAP Queue A {item})")
 
@@ -111,20 +111,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _attend(q, k, v, causal: bool, q_chunk: int, backend: str):
+    """q (B, Sq, H, hd) over k/v (B, Sk, K, hd) on ``backend``'s engine."""
+    if backend == "cuda":
+        return flash_attention_bshd(q, k, v, causal=causal)
+    return flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                           n_rep=q.shape[2] // k.shape[2])
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor, causal: bool = True,
                  memory: Optional[torch.Tensor] = None,
                  q_chunk: int = 1024, backend: str = "torch",
-                 kv_cache: Optional[tuple] = None) -> torch.Tensor:
-    """Prefill attention over x (B, S, D).
+                 kv_cache: Optional[tuple] = None,
+                 kv_scales: Optional[tuple] = None) -> torch.Tensor:
+    """Prefill attention over x (B, S, D).  ``memory`` (B, Sm, D) switches
+    to cross-attention (``cross_attn_forward``).
 
     ``kv_cache``: optional (k_cache, v_cache) of shape (B, Smax, K, hd).
     The post-RoPE K and V are written into positions 0..S-1 in the
     cache's dtype, and attention reads them back in that dtype, as the
     reference's sequential prefill reads its cache (``attention.py:244-250``).
+    With ``kv_scales`` (k_scale, v_scale) (B, Smax, K) the cache is int8:
+    K and V are quantized per (batch, position, head) by
+    ``quantize_kv_token``, values and scales written, and attention reads
+    the dequantized k̂·scale in q's dtype.  The reference's decode steps
+    apply the scales to the scores and the weights instead, rounding
+    w·v_scale to bf16 (ROADMAP Queue C).
     """
     if memory is not None:
-        waits("cross-attention (encdec)", "12.3")
+        k, v = cross_memory_kv(p, memory, x.dtype)
+        return cross_attn_forward(p, x, cfg, k, v, q_chunk=q_chunk,
+                                  backend=backend)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -133,15 +151,34 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
         S = x.shape[1]
-        k_cache[:, :S] = k
-        v_cache[:, :S] = v
-        k = k_cache[:, :S].to(q.dtype)
-        v = v_cache[:, :S].to(q.dtype)
-    if backend == "cuda":
-        out = flash_attention_bshd(q, k, v, causal=causal)
-    else:
-        out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                              n_rep=cfg.n_heads // cfg.n_kv)
+        if kv_scales is None:
+            k_cache[:, :S] = k
+            v_cache[:, :S] = v
+            k = k_cache[:, :S].to(q.dtype)
+            v = v_cache[:, :S].to(q.dtype)
+        else:
+            read = []
+            for cache, scales, t in ((k_cache, kv_scales[0], k),
+                                     (v_cache, kv_scales[1], v)):
+                cache[:, :S], scales[:, :S] = quantize_kv_token(t)
+                read.append((cache[:, :S].float() * scales[:, :S, :, None])
+                            .to(q.dtype))
+            k, v = read
+    out = _attend(q, k, v, causal, q_chunk, backend)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                       mem_k: torch.Tensor, mem_v: torch.Tensor, *,
+                       q_chunk: int = 1024,
+                       backend: str = "torch") -> torch.Tensor:
+    """Cross-attention of x (B, S, D) over the memory's K/V (B, Sm, H, hd):
+    q without RoPE, every memory position visible, full MHA.  K and V are
+    cast to x's dtype first (a bf16 decode state read by an f32 model), as
+    ``cross_attn_decode``'s products promote them."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    out = _attend(q, mem_k.to(q.dtype), mem_v.to(q.dtype), False, q_chunk,
+                  backend)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
@@ -157,7 +194,13 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def quantize_kv_token(x: torch.Tensor):
-    waits("the int8 KV cache", "12.4")
+    """x (..., hd) → (int8 values, f32 scale (...)): per row, scale =
+    max(amax, 1e-8) / 127 and round(x / scale) (half to even, as
+    ``jnp.round``) clipped to ±127 — the reference's bits exactly."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -172,9 +215,17 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
     Scores and softmax are f32, the probabilities pass through x's dtype
     before the PV product, as in the reference.  Only positions
     0..index are read: the reference masks the rest to -1e30, whose
-    weights are exactly 0."""
-    if k_scale is not None or v_scale is not None:
-        waits("the int8 KV cache", "12.4")
+    weights are exactly 0.
+
+    With ``k_scale``/``v_scale`` (B, Smax, K) f32 the caches are int8: the
+    new K and V are quantized (``quantize_kv_token``) and their scales
+    written in place too, the scores are q·k̂ (k̂ read as bf16) times
+    k_scale, and the weights times v_scale are rounded to bf16 before the
+    product with v̂ — in an f32 model as well, as the reference does.
+    Returns (out, k_cache, v_cache, k_scale, v_scale)."""
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale go together")
     B = x.shape[0]
     K, hd = cfg.n_kv, cfg.head_dim
     R = cfg.n_heads // K
@@ -184,23 +235,56 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
     k_new = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), pos,
                        cfg.rope_theta)
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    k_cache[:, index:index + 1] = k_new
-    v_cache[:, index:index + 1] = v_new
+    new = slice(index, index + 1)
+    if quant:
+        (k_new, k_scale[:, new]), (v_new, v_scale[:, new]) = \
+            quantize_kv_token(k_new), quantize_kv_token(v_new)
+    k_cache[:, new] = k_new
+    v_cache[:, new] = v_new
 
+    seen = slice(0, index + 1)
     qg = q.reshape(B, K, R, hd).float()                          # grouped q
-    kc = k_cache[:, :index + 1].float()
-    vc = v_cache[:, :index + 1].float()
+    # the int8 values pass through bf16 (exactly) as the reference's do
+    kc, vc = ((c[:, seen].to(torch.bfloat16) if quant else c[:, seen])
+              .float() for c in (k_cache, v_cache))
     s = torch.einsum("bkrh,bskh->bkrs", qg, kc) * (hd ** -0.5)
-    w = torch.softmax(s, dim=-1).to(x.dtype)
+    if quant:
+        s = s * k_scale[:, seen].transpose(1, 2)[:, :, None, :]
+    w = torch.softmax(s, dim=-1)
+    if quant:
+        w = (w * v_scale[:, seen].transpose(1, 2)[:, :, None, :]) \
+            .to(torch.bfloat16)
+    else:
+        w = w.to(x.dtype)
     out = torch.einsum("bkrs,bskh->bkrh", w.float(), vc)
     out = out.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k_cache, v_cache
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if quant:
+        return out, k_cache, v_cache, k_scale, v_scale
+    return out, k_cache, v_cache
 
 
 def cross_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
                       mem_k: torch.Tensor, mem_v: torch.Tensor):
-    waits("cross-attention decode (encdec)", "12.3")
+    """One-token cross-attention of x (B, 1, D) against the precomputed
+    memory K/V (B, Sm, H, hd): q without RoPE, f32 scores over every
+    memory position, the weights cast to x's dtype before the PV product.
+    """
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    s = torch.einsum("bqhk,bshk->bhqs", q.float(), mem_k.float()) \
+        * (cfg.head_dim ** -0.5)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqs,bshk->bqhk", w.float(), mem_v.float()) \
+        .to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def cross_memory_kv(p: dict, memory: torch.Tensor, dtype=torch.bfloat16):
-    waits("cross-attention memory K/V (encdec)", "12.3")
+    """Cross-attention K/V (B, Sm, H, hd) in ``dtype`` from the encoder
+    output (B, Sm, D), computed once.  The product is taken in the wider
+    of the memory's and the weights' dtypes, as the reference's einsum
+    promotes f32 master weights against a bf16 memory."""
+    dt = torch.promote_types(memory.dtype, p["wk"].dtype)
+    k, v = (torch.einsum("bsd,dhk->bshk", memory.to(dt), p[w].to(dt))
+            .to(dtype) for w in ("wk", "wv"))
+    return k, v

@@ -1,5 +1,4 @@
-"""Model assembly — ``repro.models.model`` for the dense, moe, ssm and
-hybrid families.
+"""Model assembly — ``repro.models.model`` for all five families.
 
 A model is a stack of *units*; a unit is the smallest repeating layer
 group, one position per layer (``unit_layout``):
@@ -8,6 +7,9 @@ group, one position per layer (``unit_layout``):
   ssm       : 1 mamba block (no separate ffn, Mamba2 style)
   hybrid    : ``attn_period`` layers (jamba: mamba and attention mixers,
               alternating mlp and moe ffns)
+  encdec    : decoder unit (self-attention + cross-attention + mlp); the
+              encoder is a separate stack of (attention + mlp) units over
+              precomputed frame embeddings (the speech frontend is a stub)
 
 Params are nested dicts of tensors with the reference's tree: every block
 leaf carries a leading ``n_units`` axis, so a reference param tree (as
@@ -19,12 +21,12 @@ over the units becomes a Python loop.
 without CUDA; on ``device="cpu"`` the ``cuda`` backend runs the kernel's
 plain version.  ``backend="torch"`` is the reference's XLA engine (the
 chunked flash in torch), ``backend="cuda"`` the hand-written flash kernel.
-The SSD scan and the MoE dispatch are XLA code in the reference, outside
-any Pallas kernel, and plain torch here on both backends.
+The SSD scan, the MoE dispatch and the decode steps' attention (bf16 or
+int8 cache, cross-attention) are XLA code in the reference, outside any
+Pallas kernel, and plain torch here on both backends.
 
-Waiting for later slices (ROADMAP Queue A): the encdec family (12.3,
-``NotImplementedError``), the int8 KV cache (12.4), ``loss_fn`` and
-training (12.5), and the logical sharding specs (12.6).
+Waiting for later slices (ROADMAP Queue A): ``loss_fn`` and training
+(12.5, ``NotImplementedError``) and the logical sharding specs (12.6).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from .config import ArchConfig
 from .layers import (RealMaker, make_embed_params, make_mlp_params,
                      mlp_forward, rmsnorm)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")   # the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclass
@@ -70,6 +72,9 @@ def unit_layout(cfg: ArchConfig) -> list[UnitPos]:
     return [UnitPos("attn", ffn0 or "mlp", cross=(cfg.family == "encdec"))]
 
 
+ENC_LAYOUT = [UnitPos("attn", "mlp")]          # one encoder layer
+
+
 def n_units(cfg: ArchConfig) -> int:
     lay = unit_layout(cfg)
     assert cfg.n_layers % len(lay) == 0, (cfg.name, cfg.n_layers, len(lay))
@@ -78,7 +83,8 @@ def n_units(cfg: ArchConfig) -> int:
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        waits(f"the {cfg.family} family ({cfg.name})", "12.3")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} not in "
+                         f"{FAMILIES}")
 
 
 # --------------------------------------------------------------------------- #
@@ -89,8 +95,6 @@ def _make_unit_params(mk, cfg: ArchConfig, layout: list[UnitPos],
     blocks: dict[str, Any] = {}
     ea = (U,)
     for i, pos in enumerate(layout):
-        if pos.cross:
-            waits("cross-attention (encdec)", "12.3")
         p: dict[str, Any] = {
             "ln1": mk(ea + (cfg.d_model,), ("layers", "embed"), init="ones"),
         }
@@ -106,16 +110,26 @@ def _make_unit_params(mk, cfg: ArchConfig, layout: list[UnitPos],
                                        extra_axes=ea)
         elif pos.ffn == "moe":
             p["moe"] = moe.make_moe_params(mk, cfg, extra_axes=ea)
+        if pos.cross:
+            p["ln_cross"] = mk(ea + (cfg.d_model,), ("layers", "embed"),
+                               init="ones")
+            p["cross"] = attn.make_attn_params(mk, cfg, cross=True,
+                                               extra_axes=ea)
         blocks[f"pos{i}"] = p
     return blocks
 
 
 def make_params(cfg: ArchConfig, mk) -> dict:
     _check_family(cfg)
-    return {
+    params = {
         "embed": make_embed_params(mk, cfg.vocab, cfg.d_model),
         "blocks": _make_unit_params(mk, cfg, unit_layout(cfg), n_units(cfg)),
     }
+    if cfg.family == "encdec":
+        params["enc_blocks"] = _make_unit_params(mk, cfg, ENC_LAYOUT,
+                                                 cfg.enc_layers)
+        params["enc_norm"] = mk((cfg.d_model,), ("embed",), init="ones")
+    return params
 
 
 def tree_map(fn, tree):
@@ -165,29 +179,39 @@ class Model:
         return params["embed"]["embedding"][tokens].to(self.compute_dtype)
 
     @staticmethod
-    def _unit(params: dict, u: int) -> dict:
+    def _unit(params: dict, u: int, stack: str = "blocks") -> dict:
         """Unit ``u``'s params: ``pos0``..``pos{k-1}``, one per layer."""
-        return tree_map(lambda a: a[u], params["blocks"])
+        return tree_map(lambda a: a[u], params[stack])
 
     def _apply_unit(self, up: dict, x: torch.Tensor,
                     positions: torch.Tensor, u: int,
-                    state: Optional[dict]) -> torch.Tensor:
+                    state: Optional[dict], *, layout=None,
+                    causal: bool = True,
+                    memory: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One unit over the whole sequence.  With a decode ``state`` each
-        attention layer writes its K and V into the cache, each mamba
-        layer its final SSD state and conv window, and every MoE layer
-        routes all tokens without capacity: what S decode steps, each
-        routing B tokens, leave and compute."""
+        attention layer writes its K and V into the cache (int8 with
+        scales if the state holds ``k_scale``), each mamba layer its final
+        SSD state and conv window, and every MoE layer routes all tokens
+        without capacity: what S decode steps, each routing B tokens,
+        leave and compute.  A cross sub-block attends over the state's
+        ``cross_k``/``cross_v`` in the compute dtype, as the decode steps
+        read them, or else over ``memory``, the encoder's output."""
         cfg = self.cfg
         ai = si = 0
-        for i, pos in enumerate(self.layout):
+        for i, pos in enumerate(layout or self.layout):
             p = up[f"pos{i}"]
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
             if pos.mixer == "attn":
-                kv = None if state is None else (state["k"][u, ai],
-                                                 state["v"][u, ai])
+                kv = scales = None
+                if state is not None:
+                    kv = (state["k"][u, ai], state["v"][u, ai])
+                    if "k_scale" in state:
+                        scales = (state["k_scale"][u, ai],
+                                  state["v_scale"][u, ai])
                 h = attn.attn_forward(p["attn"], h, cfg, positions,
-                                      q_chunk=self.q_chunk,
-                                      backend=self.backend, kv_cache=kv)
+                                      causal=causal, q_chunk=self.q_chunk,
+                                      backend=self.backend, kv_cache=kv,
+                                      kv_scales=scales)
                 ai += 1
             elif state is None:
                 h = mamba.ssm_forward(p["ssm"], h, cfg, chunk=self.ssd_chunk)
@@ -197,6 +221,15 @@ class Model:
                                       state_dtype=state["conv"].dtype)
                 si += 1
             x = x + h
+            if pos.cross:
+                h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+                if memory is None:
+                    mem_kv = state["cross_k"][u], state["cross_v"][u]
+                else:
+                    mem_kv = attn.cross_memory_kv(p["cross"], memory, h.dtype)
+                x = x + attn.cross_attn_forward(p["cross"], h, cfg, *mem_kv,
+                                                q_chunk=self.q_chunk,
+                                                backend=self.backend)
             if pos.ffn:
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
                 if pos.ffn == "moe":
@@ -207,42 +240,82 @@ class Model:
                 x = x + h
         return x
 
-    def trunk(self, params: dict, tokens,
-              state: Optional[dict] = None) -> torch.Tensor:
+    def _memory(self, params: dict, state: Optional[dict], enc_embeds):
+        """The encoder output the trunk's cross sub-blocks attend over, or
+        None where they read the decode state's cross K/V (or the family
+        has none)."""
+        if self.cfg.family != "encdec":
+            return None
+        if state is not None:
+            if enc_embeds is not None:
+                raise ValueError("the decode state already holds the "
+                                 "encoder's cross K/V (init_decode_state("
+                                 "params=, enc_embeds=)): pass no "
+                                 "enc_embeds with it")
+            return None
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name} (encdec) needs encoder "
+                             f"embeddings: enc_embeds=")
+        return self.encode(params, enc_embeds)
+
+    def trunk(self, params: dict, tokens, state: Optional[dict] = None, *,
+              enc_embeds=None) -> torch.Tensor:
         """Embed + all blocks + final norm → hidden (B, S, D).  With a
         decode ``state``, the prefill: each attention layer writes its
         post-RoPE K and V into the cache at positions 0..S-1 and attends
         over them as stored (``attn_forward``'s ``kv_cache``), each mamba
         layer leaves its decode state, and the MoE layers route every
-        token (``_apply_unit``)."""
+        token (``_apply_unit``).  An encdec model encodes ``enc_embeds``
+        (B, S_enc, D) first; with a state its cross sub-blocks read the
+        state's cross K/V instead, and nothing is encoded again."""
         cfg = self.cfg
         params = self.cast(params)
+        memory = self._memory(params, state, enc_embeds)
         tokens = self._tokens(tokens)
         x = self._embed(params, tokens)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         for u in range(self.n_units):
             x = self._apply_unit(self._unit(params, u), x, positions, u,
-                                 state)
+                                 state, memory=memory)
         return rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
+
+    def encode(self, params: dict, enc_embeds) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B, S_enc, D), cast to
+        the compute dtype: positions 0..S_enc-1, non-causal self-attention
+        with RoPE and GQA, then ``enc_norm``."""
+        cfg = self.cfg
+        params = self.cast(params)
+        x = torch.as_tensor(enc_embeds, device=self.device) \
+            .to(self.compute_dtype)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for u in range(cfg.enc_layers):
+            x = self._apply_unit(self._unit(params, u, "enc_blocks"), x,
+                                 positions, u, None, layout=ENC_LAYOUT,
+                                 causal=False)
+        return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ params["embed"]["lm_head"].to(hidden.dtype)
 
-    def forward(self, params: dict, tokens) -> torch.Tensor:
-        return self.logits(params, self.trunk(params, tokens))
+    def forward(self, params: dict, tokens, enc_embeds=None) -> torch.Tensor:
+        return self.logits(params, self.trunk(params, tokens,
+                                              enc_embeds=enc_embeds))
 
     def loss_fn(self, params, tokens):
         waits("loss_fn (training)", "12.5")
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, params: dict, tokens,
-                state: Optional[dict] = None) -> torch.Tensor:
+    def prefill(self, params: dict, tokens, state: Optional[dict] = None,
+                *, enc_embeds=None) -> torch.Tensor:
         """Forward trunk, return the last position's logits (B, vocab).
         With a decode ``state`` it also fills the caches (``trunk``) and
         sets ``state["index"] = S``: one trunk pass giving what the
-        reference ``LMServer``'s S teacher-forced decode steps give."""
-        h = self.trunk(params, tokens, state)
+        reference ``LMServer``'s S teacher-forced decode steps give.  An
+        encdec model takes ``enc_embeds`` without a state; with one, the
+        state's cross K/V."""
+        h = self.trunk(params, tokens, state, enc_embeds=enc_embeds)
         if state is not None:
             state["index"] = h.shape[1]
         return self.logits(params, h[:, -1:, :])[:, 0]
@@ -264,20 +337,31 @@ class Model:
         wider of ``dtype`` and the compute dtype: the reference's
         ``ssm_decode_step`` returns its window in that dtype (its
         concatenation promotes), so its state holds that from the first
-        step on."""
-        if kv_quant:
-            waits("the int8 KV cache", "12.4")
+        step on.
+
+        ``kv_quant``: int8 KV caches with f32 scales ``k_scale``/``v_scale``
+        (U, na, B, max_len, K), one per (position, kv head).  An encdec
+        model needs ``params`` and ``enc_embeds``: it encodes them and
+        holds each decoder unit's cross K/V, ``cross_k``/``cross_v`` (U, B,
+        S_enc, H, hd) in ``dtype``, computed from ``params`` as given — f32
+        masters, as the reference passes, or weights already cast."""
         cfg = self.cfg
         U = self.n_units
         na, ns = self.mixer_counts()
         dev = self.device
         state: dict[str, Any] = {"index": 0}
         if na:
-            cache = attn.init_kv_cache(cfg, batch, max_len, U * na, dtype,
+            cache = attn.init_kv_cache(cfg, batch, max_len, U * na,
+                                       torch.int8 if kv_quant else dtype,
                                        dev)
             for key in ("k", "v"):
                 state[key] = cache[key].reshape(
                     (U, na) + cache[key].shape[1:])
+            if kv_quant:
+                for key in ("k_scale", "v_scale"):
+                    state[key] = torch.zeros((U, na, batch, max_len,
+                                              cfg.n_kv),
+                                             dtype=torch.float32, device=dev)
         if ns:
             H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
             state["ssm_h"] = torch.zeros((U, ns, batch, H, P, N),
@@ -286,17 +370,27 @@ class Model:
                 (U, ns, batch, cfg.conv_width - 1, cfg.d_inner),
                 dtype=torch.promote_types(dtype, self.compute_dtype),
                 device=dev)
+        if cfg.family == "encdec":
+            if params is None or enc_embeds is None:
+                raise ValueError(f"{cfg.name} (encdec): init_decode_state "
+                                 f"needs params= and enc_embeds=")
+            memory = self.encode(params, enc_embeds)
+            kv = [attn.cross_memory_kv(self._unit(params, u)["pos0"]["cross"],
+                                       memory, dtype) for u in range(U)]
+            state["cross_k"], state["cross_v"] = (
+                torch.stack(t) for t in zip(*kv))
         return state
 
     def decode_step(self, params: dict, state: dict,
                     tokens) -> tuple[torch.Tensor, dict]:
-        """tokens (B, 1) → (logits (B, vocab), state).  The caches and
-        mamba states are updated in place and ``index`` advanced; the
-        returned dict is a new one over the same tensors."""
+        """tokens (B, 1) → (logits (B, vocab), state).  The caches (and
+        int8 scales) and mamba states are updated in place and ``index``
+        advanced; the returned dict is a new one over the same tensors."""
         cfg = self.cfg
         params = self.cast(params)
         x = self._embed(params, self._tokens(tokens))
         index = int(state["index"])
+        quant = "k_scale" in state
         for u in range(self.n_units):
             up = self._unit(params, u)
             ai = si = 0
@@ -304,9 +398,14 @@ class Model:
                 p = up[f"pos{i}"]
                 h = rmsnorm(x, p["ln1"], cfg.norm_eps)
                 if pos.mixer == "attn":
-                    h, _, _ = attn.attn_decode_step(p["attn"], h, cfg,
-                                                    state["k"][u, ai],
-                                                    state["v"][u, ai], index)
+                    scales = {}
+                    if quant:
+                        scales = dict(k_scale=state["k_scale"][u, ai],
+                                      v_scale=state["v_scale"][u, ai])
+                    h = attn.attn_decode_step(p["attn"], h, cfg,
+                                              state["k"][u, ai],
+                                              state["v"][u, ai], index,
+                                              **scales)[0]
                     ai += 1
                 else:
                     h, state["ssm_h"][u, si], state["conv"][u, si] = \
@@ -315,6 +414,11 @@ class Model:
                                               state["conv"][u, si])
                     si += 1
                 x = x + h
+                if pos.cross:
+                    h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+                    x = x + attn.cross_attn_decode(
+                        p["cross"], h, cfg, state["cross_k"][u],
+                        state["cross_v"][u])
                 if pos.ffn:
                     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
                     if pos.ffn == "moe":

@@ -949,3 +949,81 @@ def test_lm_families_on_card_launch_flash_per_attention_layer(card, name):
         want = na * model.n_units if backend == "cuda" else 0
         assert flash_forward.launches - before == want
     np.testing.assert_array_equal(outs["cuda"], outs["torch"])
+
+
+# --------------------------------------------------------------------------- #
+# the encdec family and the int8 KV cache on the card
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_prefill_on_card_launches_flash_per_attention(card, dtype):
+    """Reduced seamless-m4t-large-v2 on the card: ``init_decode_state``
+    encodes (one non-causal launch per encoder layer), the prefill with
+    that state launches once per decoder layer for the causal
+    self-attention and once for the cross-attention (Sq != Sk), all on
+    the dtype's route; decode launches nothing.  In f32 the greedy tokens
+    equal ``backend="torch"``'s and the prefill logits agree."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("seamless_m4t_large_v2").reduced()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, size=(2, 12)).astype(np.int32)
+    enc = rng.normal(size=(2, 40, cfg.d_model)).astype(np.float32)
+    route = "wgmma" if dtype == "bfloat16" else "simt"
+    outs, logits = {}, {}
+    for backend in ("cuda", "torch"):
+        model = Model(cfg, dt, backend=backend)
+        params = model.init_params(0)
+        before = flash_forward.launches
+        routes = dict(flash_forward.launches_by_route)
+        state = model.init_decode_state(2, 20, params=params,
+                                        enc_embeds=enc)
+        after_encode = flash_forward.launches
+        logits[backend] = model.prefill(params, prompts, state).float()
+        tok = logits[backend].argmax(-1)
+        toks = [tok]
+        for _ in range(6):
+            lg, state = model.decode_step(params, state, tok[:, None])
+            tok = lg.float().argmax(-1)
+            toks.append(tok)
+        outs[backend] = torch.stack(toks, 1).cpu().numpy()
+        n = flash_forward.launches - before
+        if backend == "cuda":
+            assert after_encode - before == cfg.enc_layers == 2
+            assert n == cfg.enc_layers + 2 * cfg.n_layers == 6
+            routes[route] += n
+            assert flash_forward.launches_by_route == routes
+        else:
+            assert n == 0
+    if dtype == "float32":
+        np.testing.assert_array_equal(outs["cuda"], outs["torch"])
+        torch.testing.assert_close(logits["cuda"], logits["torch"],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_int8_lmserver_on_card_matches_cpu(card):
+    """``LMServer(kv_quant=True)`` on the card, f32 reduced smollm with
+    one set of weights: the same greedy tokens as on the CPU (the kernel
+    against its plain version), one flash launch per layer, the int8
+    state on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import LMServer
+    from repro_torch.models import Model
+    from repro_torch.models.model import tree_map
+    cfg = get_config("smollm_360m").reduced()
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 40)).astype(np.int32)
+    cpu = Model(cfg, torch.float32, backend="cuda", device="cpu")
+    params = cpu.init_params(0)
+    want = LMServer(cpu, params, batch=2, max_len=56,
+                    kv_quant=True).generate(prompts, 12)
+    model = Model(cfg, torch.float32, backend="cuda")
+    on_card = tree_map(lambda t: t.to(card), params)
+    server = LMServer(model, on_card, batch=2, max_len=56, kv_quant=True)
+    before = flash_forward.launches
+    got = server.generate(prompts, 12)
+    assert flash_forward.launches - before == cfg.n_layers
+    np.testing.assert_array_equal(got, want)
+    state = model.init_decode_state(2, 8, kv_quant=True)
+    assert state["k"].dtype == torch.int8 and state["k"].is_cuda
+

@@ -143,6 +143,16 @@ for fname in chip_smoke.LM_FAMILIES:
     assert fam["launches"] == 0 and fam["tokens"].shape == (2, 23)
     assert (fam["n_attn"] == 0) == (fcfg.family == "ssm"), fcfg.name
     assert (fam["flips"][torch.float32][1] > 0) == (fcfg.n_experts > 0)
+# phase 13 at a tiny size: the encdec path, the int8 KV cache
+ecfg = get_config(chip_smoke.ENCDEC_ARCH).reduced()
+ed = chip_smoke.encdec_path(ecfg, chip_smoke.lm_prompts(ecfg, 2, 12),
+                            torch.randn(2, 24, ecfg.d_model), 3, cpu)
+assert ed["launches"] == {"init": 0, "prefill": 0, "decode": 0}
+assert ed["tokens"].shape == (2, 15) and ed["err32"] < 1e-4
+kq = chip_smoke.kv_quant_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3, cpu,
+                              max_ratio=0.65)
+assert kq["launches"] == 0 and kq["ratio"] == 0.625
+assert chip_smoke.enc_len(chip_smoke.ENCDEC_SEQ) == 1024
 phi = chip_smoke.family_config("phi3_5_moe_42b",
                                chip_smoke.LM_FAMILIES["phi3_5_moe_42b"])
 assert (phi.n_layers, phi.d_model, phi.n_experts) == (4, 4096, 16)
@@ -150,6 +160,10 @@ for shape in chip_smoke.FLASH_SWEEP[:2]:
     for dt in (torch.float32, torch.bfloat16):
         assert chip_smoke.compare_flash(*shape, dt, torch.device("cpu")) == 0
 assert 120 * chip_smoke.visible_pairs(1024, 1024, True) == 62_976_000
+assert chip_smoke.compare_flash(2, 16, 40, 4, 4, 16, False, torch.bfloat16,
+                                cpu, steps=chip_smoke.FLASH_BF16_STEPS) == 0
+assert (chip_smoke.bf16_step(0.3457), chip_smoke.bf16_step(1.0),
+        chip_smoke.bf16_step(3.2)) == (2.0 ** -9, 2.0 ** -7, 2.0 ** -6)
 if not torch.cuda.is_available():
     try:
         core.compile_forest(forest)

@@ -35,8 +35,8 @@ from repro_torch.models.model import Model, make_params  # noqa: E402
 
 DENSE = [a for a in ref_configs.ARCH_IDS
          if ref_configs.get_config(a).family == "dense"]
-# the families still to port: encdec (ROADMAP Queue A 12.3); moe, ssm and
-# hybrid are held in tests/test_torch_lm_families.py
+# the encdec family, held in full in tests/test_torch_encdec.py; moe, ssm
+# and hybrid in tests/test_torch_lm_families.py
 OTHER = [a for a in ref_configs.ARCH_IDS
          if ref_configs.get_config(a).family == "encdec"]
 BACKENDS = ["torch", "cuda"]
@@ -284,10 +284,11 @@ def test_lmserver_generate_matches_reference(dense, backend):
 
 
 def test_lmserver_rejects_what_it_cannot_take(dense):
+    """Too long a completion or another batch raise; ``kv_quant=True`` is
+    taken (``tests/test_torch_kv_quant.py`` holds its tokens)."""
     name, cfg, _, _, npp = dense
     model, tp = _port(name, npp, "cuda")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        LMServer(model, tp, batch=B, max_len=20, kv_quant=True)
+    assert LMServer(model, tp, batch=B, max_len=20, kv_quant=True).kv_quant
     server = LMServer(model, tp, batch=B, max_len=20)
     with pytest.raises(ValueError, match="max_len"):
         server.generate(_tokens(cfg.vocab, (B, 16), 0), 8)
@@ -320,28 +321,48 @@ def test_convert_raises_on_a_bad_tree(dense):
     assert got["embed"]["lm_head"].dtype == torch.bfloat16
 
 
-# ------------------------------------------------------------ not yet in
+# ------------------------------------------- the encdec family and int8
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_wait(name):
+    """The encdec family builds (it waited for ROADMAP Queue A 12.3): the
+    decoder units carry ``ln_cross``/``cross``, the encoder stack its own
+    blocks and norm, and an encdec ``LMServer`` is refused, as the
+    reference's ``generate`` takes no encoder embeddings."""
     cfg = configs.get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        make_params(cfg, layers.RealMaker(0))
+    model = Model(cfg, torch.float32, device="cpu")
+    params = make_params(cfg, layers.RealMaker(0))
+    assert set(params) == {"embed", "blocks", "enc_blocks", "enc_norm"}
+    assert {"ln_cross", "cross"} <= set(params["blocks"]["pos0"])
+    assert params["enc_blocks"]["pos0"]["attn"]["wq"].shape[0] == \
+        cfg.enc_layers
+    with pytest.raises(ValueError, match="encdec"):
+        LMServer(model, params, batch=B, max_len=8)
 
 
 def test_int8_cache_and_cross_attention_wait(dense):
+    """The int8 KV cache and cross-attention run (they waited for Queue A
+    12.4 and 12.3): the int8 decode state's layout, a quantized token,
+    cross-attention decode over a memory; ``loss_fn`` still waits for
+    12.5."""
     name, cfg, _, _, npp = dense
     model, tp = _port(name, npp, "torch")
-    with pytest.raises(NotImplementedError, match="int8"):
-        model.init_decode_state(B, 8, kv_quant=True)
-    x = torch.zeros(B, 1, cfg.d_model)
-    for fn, args in ((attention.quantize_kv_token, (x,)),
-                     (attention.cross_attn_decode, ({}, x, cfg, x, x)),
-                     (attention.cross_memory_kv, ({}, x))):
-        with pytest.raises(NotImplementedError, match="Queue A 12"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    state = model.init_decode_state(B, 8, kv_quant=True)
+    U, K = model.n_units, cfg.n_kv
+    assert state["k"].dtype == state["v"].dtype == torch.int8
+    assert tuple(state["k_scale"].shape) == (U, 1, B, 8, K)
+    assert state["v_scale"].dtype == torch.float32
+    x = torch.randn(B, 1, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    q, scale = attention.quantize_kv_token(x)
+    assert q.dtype == torch.int8 and int(q.abs().max()) == 127
+    p = {k: v[0] for k, v in tp["blocks"]["pos0"]["attn"].items()}
+    mem_k, mem_v = attention.cross_memory_kv(p, x.expand(B, 5, -1),
+                                             torch.float32)
+    if K == cfg.n_heads:                     # cross-attention is full MHA
+        out = attention.cross_attn_decode(p, x, cfg, mem_k, mem_v)
+        assert out.shape == x.shape
+    assert tuple(mem_k.shape) == (B, 5, K, cfg.head_dim)
+    with pytest.raises(NotImplementedError, match="Queue A 12.5"):
         model.loss_fn(tp, np.zeros((B, 4), np.int32))
 
 

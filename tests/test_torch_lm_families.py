@@ -425,16 +425,30 @@ def test_lmserver_prefill_routes_every_token(name):
                               rtol=RTOL, atol=ATOL)
 
 
-# ---------------------------------------------------------- what waits
+# ------------------------------------- the encdec family and int8 cache
 def test_encdec_and_int8_cache_still_raise(fam):
+    """What raised before Queue A 12.3 and 12.4 now runs: the encdec
+    model builds (``LMServer`` refuses it, as the reference's cannot take
+    encoder embeddings), and ``LMServer(kv_quant=True)`` serves this
+    family with an int8 cache and f32 scales per attention layer — a
+    mamba-only model has none and ignores ``kv_quant``, as the
+    reference's does; ``tests/test_torch_kv_quant.py`` holds the tokens.
+    """
     name, cfg, _, _, npp, _ = fam
     enc = configs.get_config("seamless-m4t-large-v2").reduced()
-    with pytest.raises(NotImplementedError, match="Queue A 12.3"):
-        Model(enc, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 12.3"):
-        make_params(enc, layers.RealMaker(0))
+    enc_model = Model(enc, torch.float32, device="cpu")
+    enc_params = make_params(enc, layers.RealMaker(0))
+    with pytest.raises(ValueError, match="encdec"):
+        LMServer(enc_model, enc_params, batch=B, max_len=8)
     model, tp = _port(name, npp, "torch")
-    with pytest.raises(NotImplementedError, match="Queue A 12.4"):
-        LMServer(model, tp, batch=B, max_len=8, kv_quant=True)
-    with pytest.raises(NotImplementedError, match="Queue A 12.4"):
-        model.init_decode_state(B, 8, kv_quant=True)
+    server = LMServer(model, tp, batch=B, max_len=12, kv_quant=True)
+    prompts = _tokens(cfg.vocab, (B, 4), seed=3)
+    out = server.generate(prompts, 4)
+    assert out.shape == (B, 8) and np.array_equal(out[:, :4], prompts)
+    state = model.init_decode_state(B, 8, kv_quant=True)
+    na, _ = model.mixer_counts()
+    assert ("k_scale" in state) == (na > 0)
+    if na:
+        assert state["k"].dtype == torch.int8
+        assert tuple(state["v_scale"].shape) == (model.n_units, na, B, 8,
+                                                 cfg.n_kv)
