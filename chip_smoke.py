@@ -151,7 +151,24 @@ or JAX.  Phases:
     ``LMServer(batch=8, max_len=1057, kv_quant=True)``: 32 ``wgmma``
     launches per prefill, f32 tokens ``cuda`` == ``torch``, the state at
     most ``KV_QUANT_BYTES`` of the bf16 state's bytes, and decode ms per
-    token beside the bf16 cache's.
+    token beside the bf16 cache's;
+14. training (``launch/train.py``), with every launch count set to 0
+    first: smollm-360m at full width on ``Trainer(batch=4,
+    seq_len=4096)`` (``train_4k``'s sequence length, its batch cut 256 →
+    4), 3 steps in bf16 with f32 masters and f32 Adam moments: finite
+    losses and grad norms, the first loss within 0.2–3 × ln V, grad norm
+    > 0; ms per step (steps 2–3), tokens/s, peak memory and 6·N·tokens
+    per step time as a share of the bf16 peak.  The restart contract at
+    the reference CLI's defaults (8 × 256): 4 steps equal 2 steps,
+    ``save``, a new trainer's ``restore`` and 2 more, and equal
+    ``run_loop`` resuming from that checkpoint (it writes its own
+    checkpoint, a heartbeat and the JSONL log): losses, params and
+    moments bit for bit, with the checkpoint's save and restore seconds.
+    Two steps each with int8 moments and with compressed gradients
+    (finite), the int8 state's bytes against the f32 state's.  The loss
+    and gradients of the reduced config in f32 on the card against the
+    same trainer on the CPU (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``).
+    No kernel launches in any of it: training runs ``backend="torch"``.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -163,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -207,8 +225,12 @@ from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model, moe  # noqa: E402
-from repro_torch.models.model import tree_map  # noqa: E402
+from repro_torch.models.model import tree_flatten, tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.specs import enc_len  # noqa: E402
+from repro_torch.distributed import checkpoint as ckpt  # noqa: E402
+from repro_torch.distributed.fault_tolerance import Heartbeat  # noqa: E402
 from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
                              MetricsRegistry, get_registry,
                              set_default_registry)
@@ -417,6 +439,17 @@ ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_SEQ = 8, 16, 32, 4096
 # its decode state at most this share of the bf16 state's bytes ((1 +
 # 4/64) / 2 = 0.53 at hd 64: an int8 value and an f32 scale per head row)
 KV_QUANT_BYTES = 0.55
+# training (phase 14): smollm-360m at full width.  train_4k (S 4096, batch
+# 256, models/config.py) with its batch cut to 4 sequences; the restart
+# contract, int8 state and compressed gradients at the reference CLI's
+# defaults (batch 8, seq-len 256, src/repro/launch/train.py:264-265); the
+# card against the CPU on .reduced() in f32, at the CPU parity tests'
+# tolerances (tests/test_torch_train.py): loss rtol 1e-5, each gradient
+# leaf within 1e-4 of its largest |entry|
+TRAIN_ARCH = "smollm_360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
+RESTART_BATCH, RESTART_SEQ = 8, 256
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -2023,12 +2056,6 @@ def lm_family_path(name: str, spec: dict, device) -> tuple:
             torch.cuda.empty_cache()
 
 
-def enc_len(seq_len: int) -> int:
-    """The stub audio frontend's frames for a sequence: ~4x downsampled,
-    capped (``repro/launch/specs.py:13-15``)."""
-    return min(max(seq_len // 4, 16), 8192)
-
-
 def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -2225,6 +2252,190 @@ def kv_quant_path(cfg, prompts: np.ndarray, n_new: int, device,
                              f"state's bytes (at most {max_ratio})")
     return dict(tokens=out, launches=launches, routes=routes, times=times,
                 agree=agree, ratio=ratio, n_attn=n_attn)
+
+
+def timed_steps(trainer, n: int) -> tuple:
+    """``n`` train steps: (their records, the ms of each, host clock around
+    a synchronised step)."""
+    recs, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs.append(trainer.train_step())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return recs, ms
+
+
+def check_records(recs, what: str, vocab=None) -> None:
+    """Finite losses and grad norms, grad norm > 0; with ``vocab`` the
+    first loss within 0.2-3 x ln V (tests/test_models_smoke.py:51)."""
+    for r in recs:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0):
+            raise AssertionError(f"{what}: step record {r}")
+    if vocab and not (0.2 * math.log(vocab) < recs[0]["loss"]
+                      < 3.0 * math.log(vocab)):
+        raise AssertionError(f"{what}: first loss {recs[0]['loss']} not "
+                             f"within 0.2-3 x ln {vocab}")
+
+
+def same_state(a, b, what: str) -> None:
+    """Two trainers' params, moments and residuals bit for bit."""
+    la, lb = (tree_flatten(t.state_tree())[0] for t in (a, b))
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} vs {len(lb)} state leaves")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: state leaf {i} differs")
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
+
+
+def train_path(device, card: str) -> dict:
+    """Phase 14: the training slice at smollm-360m's full width."""
+    Trainer = train_launcher.Trainer
+    cfg = get_config(TRAIN_ARCH)
+    out = {}
+
+    # (a) full width, train_4k's sequence length
+    tr = Trainer(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, opt_state="f32",
+                 device=device)
+    tr.init_state(LM_SEED)
+    n_params = sum(p.numel() for p in tree_flatten(tr.params)[0])
+    torch.cuda.reset_peak_memory_stats(device)
+    recs, ms = timed_steps(tr, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated(device)
+    check_records(recs, "full width", cfg.vocab)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * n_params * tokens / (step_ms / 1e3) / BF16_OPS_PER_S
+    out.update(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               peak_bytes=peak, flop_share=share)
+    print(f"training full width: {cfg.name} ({n_params} params) "
+          f"Trainer(batch={TRAIN_BATCH}, seq_len={TRAIN_SEQ}) in bf16 with "
+          f"f32 masters and f32 Adam moments, remat, backend=torch: losses "
+          f"{[round(r['loss'], 4) for r in recs]} (ln V "
+          f"{math.log(cfg.vocab):.4f}), grad norms "
+          f"{[round(r['grad_norm'], 4) for r in recs]}; ms per step "
+          f"{[round(m, 1) for m in ms]} (steps 2-{TRAIN_STEPS} mean "
+          f"{step_ms:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak "
+          f"memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated), 6·N·tokens per step time "
+          f"{share:.2%} of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 [{card}]")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the restart contract at the reference CLI's defaults
+    def make(**kw):
+        t = Trainer(cfg, batch=RESTART_BATCH, seq_len=RESTART_SEQ,
+                    device=device, **kw)
+        t.init_state(LM_SEED)
+        return t
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        tr1 = make()
+        timed_steps(tr1, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr1.save(ck)
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(ck, "step_00000002", n))
+                       for n in os.listdir(os.path.join(ck, "step_00000002")))
+        ref, ref_ms = timed_steps(tr1, 2)
+        check_records(ref, "restart")
+        tr2 = make()
+        t0 = time.perf_counter()
+        got_step = tr2.restore(ck)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, _ = timed_steps(tr2, 2)
+        if got_step != 2 or got != ref:
+            raise AssertionError(f"restart contract: restored step "
+                                 f"{got_step}, records {got} != {ref}")
+        same_state(tr1, tr2, "restart contract (restore)")
+        del tr2
+        tr3 = Trainer(cfg, batch=RESTART_BATCH, seq_len=RESTART_SEQ,
+                      device=device)
+        log_path, hb_dir = os.path.join(tmp, "log.jsonl"),             os.path.join(tmp, "hb")
+        loop = train_launcher.run_loop(tr3, steps=4, ckpt_dir=ck,
+                                       ckpt_every=2, log_path=log_path,
+                                       keep=1, hb_dir=hb_dir)
+        with open(log_path) as f:
+            logged = [json.loads(line) for line in f]
+        hb = Heartbeat.survey(hb_dir, timeout_s=1e9)
+        if ([r["step"] for r in loop] != [3, 4] or
+                [(r["loss"], r["grad_norm"]) for r in loop] !=
+                [(r["loss"], r["grad_norm"]) for r in ref] or
+                ckpt.latest_step(ck) != 4 or
+                sorted(os.listdir(ck)) != ["LATEST", "step_00000004"] or
+                [r["step"] for r in logged] != [3, 4] or hb[0]["step"] != 4):
+            raise AssertionError(f"run_loop resume: records {loop}, log "
+                                 f"{logged}, heartbeat {hb}, checkpoints "
+                                 f"{sorted(os.listdir(ck))}")
+        same_state(tr1, tr3, "restart contract (run_loop)")
+        f32_state = tree_bytes(tr1.opt_state)
+        del tr1, tr3
+    out.update(save_s=save_s, restore_s=restore_s, ckpt_bytes=ck_bytes,
+               restart_step_ms=ref_ms)
+    print(f"training restart contract at {RESTART_BATCH} x {RESTART_SEQ}: 4 "
+          f"steps == 2 steps, save, a new Trainer's restore and 2 steps == "
+          f"run_loop resuming from that checkpoint (its checkpoint at step 4"
+          f", keep=1, the JSONL log and the heartbeat written): losses, "
+          f"grad norms, params and moments bit for bit (steps under "
+          f"torch.use_deterministic_algorithms); checkpoint "
+          f"{ck_bytes / 1e9:.3f} GB, save {save_s:.2f} s, restore "
+          f"{restore_s:.2f} s; steps 3-4 {[round(m, 1) for m in ref_ms]} ms "
+          f"[{card}]")
+
+    # (c) int8 moments and compressed gradients
+    for kw in (dict(opt_state="int8"), dict(compress_grads=True)):
+        t = make(**kw)
+        recs, _ = timed_steps(t, 2)
+        check_records(recs, f"training {kw}")
+        if "opt_state" in kw:
+            out["int8_state_bytes"] = tree_bytes(t.opt_state)
+        print(f"training {kw} at {RESTART_BATCH} x {RESTART_SEQ}: losses "
+              f"{[round(r['loss'], 4) for r in recs]}, grad norms "
+              f"{[round(r['grad_norm'], 4) for r in recs]}")
+        del t
+    out["f32_state_bytes"] = f32_state
+    print(f"Adam state bytes: int8 moments {out['int8_state_bytes']} "
+          f"against f32 moments {f32_state} "
+          f"({out['int8_state_bytes'] / f32_state:.4f})")
+
+    # (d) the card against the CPU, reduced config in f32
+    rcfg = cfg.reduced()
+    cpu = Trainer(rcfg, batch=2, seq_len=32, compute_dtype=torch.float32,
+                  device="cpu")
+    cpu.init_state(LM_SEED)
+    card_tr = Trainer(rcfg, batch=2, seq_len=32,
+                      compute_dtype=torch.float32, device=device)
+    card_tr.params, card_tr.opt_state, card_tr.residuals = (
+        tree_map(lambda a: a.to(device), t) for t in
+        (cpu.params, cpu.opt_state, cpu.residuals))
+    l_cpu, g_cpu = cpu._value_and_grad(cpu.batch_inputs(0)[0])
+    l_card, g_card = card_tr._value_and_grad(card_tr.batch_inputs(0)[0])
+    grad_err = 0.0
+    for a, b in zip(tree_flatten(g_cpu)[0], tree_flatten(g_card)[0]):
+        grad_err = max(grad_err, float((b.cpu() - a).abs().max()
+                                       / a.abs().max().clamp(min=1e-30)))
+    loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    steps = [(cpu.train_step()["loss"], card_tr.train_step()["loss"])
+             for _ in range(3)]
+    step_err = max(abs(b - a) / abs(a) for a, b in steps)
+    if loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL or \
+            step_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card vs CPU: loss {loss_err}, grads "
+                             f"{grad_err}, steps {steps}")
+    print(f"training card vs CPU ({rcfg.name} reduced, f32, 2 x 32): loss "
+          f"rel {loss_err:.3g}, gradients max|diff| / max|grad| per leaf "
+          f"{grad_err:.3g} (tol {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_TOL}); 3 "
+          f"train steps' losses rel {step_err:.3g}")
+    return out
 
 
 def sharded_path(qforest, forest, rows, kernel_out, device,
@@ -3092,7 +3303,7 @@ def main() -> int:
     # K/V under 64 queries, one whole wgmma query tile, to price the 48
     # masked rows of Sq = 16
     ecfg = get_config(ENCDEC_ARCH)
-    frames = enc_len(ENCDEC_SEQ)
+    frames = enc_len(ecfg, ENCDEC_SEQ)
     flash_shapes = {
         "served": (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True, 50),
         "32k": (1, LONG_S, LONG_S, H, K, hd, True, 3),
@@ -3233,6 +3444,22 @@ def main() -> int:
           f"decode {tb['decode_ms'] / LM_NEW:.3f} ms per token [{card}]")
     records[-1].update(encdec_launches=encdec_launches,
                        kv_quant_launches=kq["launches"])
+
+    # 14. training: no kernel in the step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    tp = train_path(device, card)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"training launched kernels: {counts}")
+    for rec in records:
+        rec["train_launches"] = 0
+    print(f"training phase: {time.perf_counter() - t0:.1f} s host wall; "
+          f"kernel launches in it {counts} (none: backend=\"torch\") "
+          f"[{card}]")
+    print(json.dumps({"training": tp}))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

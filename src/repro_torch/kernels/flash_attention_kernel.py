@@ -25,6 +25,11 @@ is widened with zero columns first (``tma_head_dim``); the kernel's tile
 then zero-fills up to its own width (16, 64 or 128).  Zero columns add
 nothing to q.k and give output columns that are dropped.
 
+The kernel has no backward pass (the Pallas kernel has none either), so
+``flash_forward`` refuses, on either device, inputs that autograd would
+differentiate: a result with no graph would silently drop the attention
+path's share of the gradient.  Training runs ``backend="torch"``.
+
 ``.launches`` counts the kernel's launches and ``.launches_by_route``
 splits them by route; ``.source`` and ``.replaces`` name the CUDA source
 and the TPU kernel.
@@ -120,7 +125,12 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, n_rep: int = 1) -> torch.Tensor:
     """q (BH, Sq, hd); k/v (BK, Sk, hd) with BH = BK·n_rep (heads of one
     batch element contiguous), all contiguous and of one dtype, f32 or
-    bf16.  Returns (BH, Sq, hd) in q's dtype."""
+    bf16.  Returns (BH, Sq, hd) in q's dtype.  Raises under autograd
+    (grad mode on and q, k or v requiring grad): there is no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_forward has no backward pass: train on "
+                           "Model(backend=\"torch\"), the chunked flash "
+                           "in torch")
     _check(q, k, v, n_rep)
     if not on_card(q, "flash_forward"):
         return flash_forward_reference(q, k, v, causal=causal, n_rep=n_rep)

@@ -30,7 +30,7 @@ BACKENDS = ("torch", "cuda")
 
 def waits(what: str, item: str = "12"):
     """Raise for a feature a later slice of the port brings, naming its
-    ROADMAP Queue A item (12.5 training)."""
+    ROADMAP Queue A item (12.6: sharding and the data-parallel mesh)."""
     raise NotImplementedError(f"{what} waits for a later slice of the port "
                               f"(ROADMAP Queue A {item})")
 

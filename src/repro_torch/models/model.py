@@ -25,8 +25,12 @@ The SSD scan, the MoE dispatch and the decode steps' attention (bf16 or
 int8 cache, cross-attention) are XLA code in the reference, outside any
 Pallas kernel, and plain torch here on both backends.
 
-Waiting for later slices (ROADMAP Queue A): ``loss_fn`` and training
-(12.5, ``NotImplementedError``) and the logical sharding specs (12.6).
+``loss_fn`` is the training loss (next-token cross entropy in sequence
+chunks plus the MoE load-balancing term), trained on ``backend="torch"``:
+the kernel that ``backend="cuda"`` runs has no backward pass (nor has the
+reference's Pallas kernel) and raises under autograd
+(``kernels.flash_attention_kernel.flash_forward``).  The logical sharding
+specs wait for a later slice (ROADMAP Queue A 12.6).
 """
 from __future__ import annotations
 
@@ -34,11 +38,11 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.registry import resolve_device
 from . import attention as attn
 from . import mamba, moe
-from .attention import waits
 from .config import ArchConfig
 from .layers import (RealMaker, make_embed_params, make_mlp_params,
                      mlp_forward, rmsnorm)
@@ -138,12 +142,41 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_flatten(tree, is_leaf=None) -> tuple[list, Any]:
+    """(leaves, treedef) in ``jax.tree.flatten``'s order: a dict's keys
+    sorted, depth first, so an int8 moment ``{"q", "scale"}`` gives q, then
+    scale.  The treedef is the tree with ``None`` for every leaf; a dict
+    for which ``is_leaf`` holds is one leaf."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        leaves, treedef = [], {}
+        for k in sorted(tree):
+            sub, treedef[k] = tree_flatten(tree[k], is_leaf)
+            leaves += sub
+        return leaves, treedef
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves):
+    """The inverse of ``tree_flatten``: ``leaves`` in its order."""
+    it = iter(leaves)
+
+    def build(d):
+        if isinstance(d, dict):
+            return {k: build(d[k]) for k in sorted(d)}
+        return next(it)
+    out = build(treedef)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the treedef holds")
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Model
 # --------------------------------------------------------------------------- #
 class Model:
     def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
-                 q_chunk: int = 1024, ssd_chunk: int = 128, *,
+                 q_chunk: int = 1024, ssd_chunk: int = 128,
+                 loss_chunk: int = 1024, remat: bool = True, *,
                  backend: str = "cuda", device=None):
         _check_family(cfg)
         if backend not in attn.BACKENDS:
@@ -154,6 +187,8 @@ class Model:
         self.compute_dtype = compute_dtype
         self.q_chunk = q_chunk
         self.ssd_chunk = ssd_chunk
+        self.loss_chunk = loss_chunk
+        self.remat = remat
         self.backend = backend
         self.device = resolve_device(device)
 
@@ -187,8 +222,10 @@ class Model:
                     positions: torch.Tensor, u: int,
                     state: Optional[dict], *, layout=None,
                     causal: bool = True,
-                    memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One unit over the whole sequence.  With a decode ``state`` each
+                    memory: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One unit over the whole sequence → (x, the summed MoE
+        load-balancing loss of its layers).  With a decode ``state`` each
         attention layer writes its K and V into the cache (int8 with
         scales if the state holds ``k_scale``), each mamba layer its final
         SSD state and conv window, and every MoE layer routes all tokens
@@ -198,6 +235,7 @@ class Model:
         read them, or else over ``memory``, the encoder's output."""
         cfg = self.cfg
         ai = si = 0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, pos in enumerate(layout or self.layout):
             p = up[f"pos{i}"]
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
@@ -233,14 +271,37 @@ class Model:
             if pos.ffn:
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
                 if pos.ffn == "moe":
-                    h, _ = moe.moe_forward(p["moe"], h, cfg,
+                    h, a = moe.moe_forward(p["moe"], h, cfg,
                                            lossless=state is not None)
+                    aux = aux + a
                 else:
                     h = mlp_forward(p["mlp"], h, cfg.mlp)
                 x = x + h
-        return x
+        return x, aux
 
-    def _memory(self, params: dict, state: Optional[dict], enc_embeds):
+    def _stack(self, params: dict, x: torch.Tensor, positions, *,
+               stack: str = "blocks", layout=None, causal: bool = True,
+               state: Optional[dict] = None, memory=None,
+               remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every unit of ``stack`` over x → (x, the summed aux loss).  With
+        ``remat`` each unit is recomputed in the backward pass and only its
+        input kept (``jax.checkpoint`` around the reference's scanned
+        unit)."""
+        n = self.n_units if stack == "blocks" else self.cfg.enc_layers
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for u in range(n):
+            def unit(x, up, u=u):
+                return self._apply_unit(up, x, positions, u, state,
+                                        layout=layout, causal=causal,
+                                        memory=memory)
+            up = self._unit(params, u, stack)
+            x, a = (checkpoint(unit, x, up, use_reentrant=False) if remat
+                    else unit(x, up))
+            aux = aux + a
+        return x, aux
+
+    def _memory(self, params: dict, state: Optional[dict], enc_embeds,
+                remat: bool = False):
         """The encoder output the trunk's cross sub-blocks attend over, or
         None where they read the decode state's cross K/V (or the family
         has none)."""
@@ -256,7 +317,7 @@ class Model:
         if enc_embeds is None:
             raise ValueError(f"{self.cfg.name} (encdec) needs encoder "
                              f"embeddings: enc_embeds=")
-        return self.encode(params, enc_embeds)
+        return self.encode(params, enc_embeds, remat)
 
     def trunk(self, params: dict, tokens, state: Optional[dict] = None, *,
               enc_embeds=None) -> torch.Tensor:
@@ -268,19 +329,26 @@ class Model:
         token (``_apply_unit``).  An encdec model encodes ``enc_embeds``
         (B, S_enc, D) first; with a state its cross sub-blocks read the
         state's cross K/V instead, and nothing is encoded again."""
+        return self._trunk(params, tokens, state, enc_embeds)[0]
+
+    def _trunk(self, params: dict, tokens, state: Optional[dict] = None,
+               enc_embeds=None, remat: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``trunk`` → (hidden, the summed MoE aux loss of the decoder
+        stack), each unit under ``remat`` if asked."""
         cfg = self.cfg
         params = self.cast(params)
-        memory = self._memory(params, state, enc_embeds)
+        memory = self._memory(params, state, enc_embeds, remat)
         tokens = self._tokens(tokens)
         x = self._embed(params, tokens)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
-        for u in range(self.n_units):
-            x = self._apply_unit(self._unit(params, u), x, positions, u,
-                                 state, memory=memory)
-        return rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
+        x, aux = self._stack(params, x, positions, state=state,
+                             memory=memory, remat=remat)
+        return rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps), aux
 
-    def encode(self, params: dict, enc_embeds) -> torch.Tensor:
+    def encode(self, params: dict, enc_embeds,
+               remat: bool = False) -> torch.Tensor:
         """The encoder stack over frame embeddings (B, S_enc, D), cast to
         the compute dtype: positions 0..S_enc-1, non-causal self-attention
         with RoPE and GQA, then ``enc_norm``."""
@@ -290,10 +358,8 @@ class Model:
             .to(self.compute_dtype)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
-        for u in range(cfg.enc_layers):
-            x = self._apply_unit(self._unit(params, u, "enc_blocks"), x,
-                                 positions, u, None, layout=ENC_LAYOUT,
-                                 causal=False)
+        x, _ = self._stack(params, x, positions, stack="enc_blocks",
+                           layout=ENC_LAYOUT, causal=False, remat=remat)
         return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
@@ -303,8 +369,44 @@ class Model:
         return self.logits(params, self.trunk(params, tokens,
                                               enc_embeds=enc_embeds))
 
-    def loss_fn(self, params, tokens):
-        waits("loss_fn (training)", "12.5")
+    # --------------------------------------------------------------- loss
+    def loss_fn(self, params: dict, tokens, enc_embeds=None) -> torch.Tensor:
+        """Next-token cross entropy + 0.01 × the MoE load-balancing loss,
+        as the reference's.  Position s predicts token s + 1; the last
+        position is masked.  The logits are the compute dtype's product,
+        then f32, taken over ``loss_chunk`` positions at a time so the
+        (B, S, vocab) tensor is never whole; the sum over unmasked
+        positions is divided by their count.  f32 master params are cast
+        inside the call, so gradients reach them.  With ``remat`` each unit
+        and each loss chunk is recomputed in the backward pass."""
+        h, aux = self._trunk(params, tokens, enc_embeds=enc_embeds,
+                             remat=self.remat)
+        tokens = self._tokens(tokens)
+        B, S, _ = h.shape
+        ck = min(self.loss_chunk, S)
+        if S % ck:
+            raise ValueError(f"sequence length {S} is not a multiple of "
+                             f"loss_chunk {ck}")
+        labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+        mask[:, -1] = 0.0
+        head = params["embed"]["lm_head"]
+
+        def chunk_loss(hh, ll, mm, head):
+            lg = (hh @ head.to(hh.dtype)).float()
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, ll[..., None])[..., 0]
+            return ((lse - gold) * mm).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S, ck):
+            args = (h[:, c0:c0 + ck], labels[:, c0:c0 + ck],
+                    mask[:, c0:c0 + ck], head)
+            total = total + (checkpoint(chunk_loss, *args,
+                                        use_reentrant=False)
+                             if self.remat else chunk_loss(*args))
+        ntok = torch.clamp(mask.sum(), min=1.0)
+        return total / ntok + 0.01 * aux
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: dict, tokens, state: Optional[dict] = None,

@@ -1027,3 +1027,82 @@ def test_int8_lmserver_on_card_matches_cpu(card):
     state = model.init_decode_state(2, 8, kv_quant=True)
     assert state["k"].dtype == torch.int8 and state["k"].is_cuda
 
+
+
+def _train_pair(card, dtype=torch.float32, **kw):
+    """The same reduced smollm Trainer on the CPU and on the card, from
+    one state (made on the CPU and copied)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.model import tree_map
+    cfg = get_config("smollm_360m").reduced()
+    cpu = Trainer(cfg, batch=2, seq_len=32, compute_dtype=dtype,
+                  device="cpu", **kw)
+    cpu.init_state(0)
+    gpu = Trainer(cfg, batch=2, seq_len=32, compute_dtype=dtype, **kw)
+    gpu.params, gpu.opt_state, gpu.residuals = (
+        tree_map(lambda t: t.to(card), t)
+        for t in (cpu.params, cpu.opt_state, cpu.residuals))
+    return cpu, gpu
+
+
+def test_train_loss_and_grads_on_card_match_cpu(card):
+    """f32 loss and gradients on the card against the same trainer on the
+    CPU, at the CPU parity tests' tolerances (loss rtol 1e-5, each leaf
+    within 1e-4 of its largest |entry|); no kernel launches."""
+    from repro_torch.models.model import tree_flatten
+    cpu, gpu = _train_pair(card)
+    before = flash_forward.launches
+    l_cpu, g_cpu = cpu._value_and_grad(cpu.batch_inputs(0)[0])
+    l_gpu, g_gpu = gpu._value_and_grad(gpu.batch_inputs(0)[0])
+    assert float(l_gpu) == pytest.approx(float(l_cpu), rel=1e-5)
+    for a, b in zip(tree_flatten(g_cpu)[0], tree_flatten(g_gpu)[0]):
+        assert b.is_cuda
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()) + 1e-12)
+    assert flash_forward.launches == before
+
+
+@pytest.mark.parametrize("opt_state, compress", [("f32", False),
+                                                 ("int8", True)])
+def test_train_step_on_card_is_bit_reproducible(card, opt_state, compress):
+    """Two runs of one bf16 Trainer step from the same state give the same
+    loss, grad norm, params, moments and residuals bit for bit."""
+    from repro_torch.models.model import tree_flatten, tree_map
+    _, gpu = _train_pair(card, torch.bfloat16, opt_state=opt_state,
+                         compress_grads=compress)
+    start = [tree_map(lambda t: t.clone(), t)
+             for t in (gpu.params, gpu.opt_state, gpu.residuals)]
+    first = gpu.train_step()
+    after = tree_flatten(gpu.state_tree())[0]
+    gpu.params, gpu.opt_state, gpu.residuals = start
+    gpu.step = 0
+    assert gpu.train_step() == first
+    for a, b in zip(after, tree_flatten(gpu.state_tree())[0]):
+        assert torch.equal(a, b)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert torch.utils.deterministic.fill_uninitialized_memory
+
+
+def test_cuda_backend_loss_fn_on_card_raises_under_autograd(card):
+    """The card's flash kernel has no backward: ``loss_fn`` on
+    ``backend="cuda"`` raises under autograd and launches nothing; without
+    grad it runs the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import tree_flatten, tree_unflatten
+    cfg = get_config("smollm_360m").reduced()
+    model = Model(cfg, torch.float32, loss_chunk=16, remat=False)
+    params = model.init_params(0)
+    leaves, treedef = tree_flatten(params)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 32))
+    before = flash_forward.launches
+    with pytest.raises(RuntimeError, match='backend="torch"'):
+        model.loss_fn(tree_unflatten(
+            treedef, [p.detach().requires_grad_(True) for p in leaves]),
+            tokens)
+    assert flash_forward.launches == before
+    with torch.no_grad():
+        loss = model.loss_fn(params, tokens)
+    assert bool(torch.isfinite(loss))
+    assert flash_forward.launches == before + cfg.n_layers

@@ -152,7 +152,8 @@ assert ed["tokens"].shape == (2, 15) and ed["err32"] < 1e-4
 kq = chip_smoke.kv_quant_path(cfg, chip_smoke.lm_prompts(cfg, 2, 20), 3, cpu,
                               max_ratio=0.65)
 assert kq["launches"] == 0 and kq["ratio"] == 0.625
-assert chip_smoke.enc_len(chip_smoke.ENCDEC_SEQ) == 1024
+assert chip_smoke.enc_len(get_config(chip_smoke.ENCDEC_ARCH),
+                          chip_smoke.ENCDEC_SEQ) == 1024
 phi = chip_smoke.family_config("phi3_5_moe_42b",
                                chip_smoke.LM_FAMILIES["phi3_5_moe_42b"])
 assert (phi.n_layers, phi.d_model, phi.n_experts) == (4, 4096, 16)
@@ -178,6 +179,19 @@ if not torch.cuda.is_available():
         assert "device='cpu'" in str(e)
     else:
         raise AssertionError("choose ran without a CUDA device")
+# phase 14 at a tiny size, on the CPU: the reduced config in place of the
+# full width, the card's clock and memory calls stubbed
+if not torch.cuda.is_available():
+    chip_smoke.get_config = lambda name: get_config(name).reduced()
+    chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ = 2, 64
+    chip_smoke.RESTART_BATCH, chip_smoke.RESTART_SEQ = 2, 32
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    chip_smoke.reset_launches()
+    tp = chip_smoke.train_path(cpu, "cpu")
+    assert not any(chip_smoke.launch_counts().values())
+    assert 0.25 < tp["int8_state_bytes"] / tp["f32_state_bytes"] < 0.3
 keep.cleanup()
 print("HYGIENE-OK", len(names))
 """
@@ -248,6 +262,36 @@ def test_scripts_import_no_jax_and_run_on_cpu(argv):
                          timeout=300)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
     assert "SCRIPT-OK" in res.stdout and "FAIL" not in res.stdout
+
+
+TRAIN = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.modules["msgpack"] = None
+sys.argv = ["train"] + sys.argv[1:]
+runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                 alter_sys=True)
+assert not any(m in ("jax", "msgpack") or m.startswith(("jax.", "repro."))
+               for m, mod in sys.modules.items() if mod is not None)
+print("TRAIN-OK")
+"""
+
+
+def test_train_launcher_runs_without_jax_or_msgpack(tmp_path):
+    """``python -m repro_torch.launch.train`` trains, checkpoints and
+    resumes where importing jax, repro or msgpack fails outright."""
+    argv = ["--reduced", "--steps", "2", "--batch", "2", "--seq-len", "32",
+            "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1",
+            "--opt-state", "int8", "--compress-grads", "--device", "cpu"]
+    for steps in ("2", "3"):
+        argv[2] = steps
+        res = subprocess.run([sys.executable, "-c", TRAIN] + argv,
+                             env=_env(), cwd=REPO, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-3000:]
+        assert "TRAIN-OK" in res.stdout
+    assert sorted(os.listdir(tmp_path / "ck"))[-1] == "step_00000003"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -342,8 +342,8 @@ def test_other_families_wait(name):
 def test_int8_cache_and_cross_attention_wait(dense):
     """The int8 KV cache and cross-attention run (they waited for Queue A
     12.4 and 12.3): the int8 decode state's layout, a quantized token,
-    cross-attention decode over a memory; ``loss_fn`` still waits for
-    12.5."""
+    cross-attention decode over a memory; and ``loss_fn`` (Queue A 12.5)
+    gives a finite loss on the same params."""
     name, cfg, _, _, npp = dense
     model, tp = _port(name, npp, "torch")
     state = model.init_decode_state(B, 8, kv_quant=True)
@@ -362,8 +362,8 @@ def test_int8_cache_and_cross_attention_wait(dense):
         out = attention.cross_attn_decode(p, x, cfg, mem_k, mem_v)
         assert out.shape == x.shape
     assert tuple(mem_k.shape) == (B, 5, K, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="Queue A 12.5"):
-        model.loss_fn(tp, np.zeros((B, 4), np.int32))
+    loss = model.loss_fn(tp, _tokens(cfg.vocab, (B, 4), 3))
+    assert loss.shape == () and bool(torch.isfinite(loss))
 
 
 def test_model_needs_a_card_unless_told_cpu():
