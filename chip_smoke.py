@@ -169,6 +169,20 @@ or JAX.  Phases:
     and gradients of the reduced config in f32 on the card against the
     same trainer on the CPU (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_TOL``).
     No kernel launches in any of it: training runs ``backend="torch"``.
+15. data-parallel training (``Trainer(mesh=)``), with every launch count
+    set to 0 first: a one-rank NCCL group on the card
+    (``launch.cluster.initialize_from_env`` over a free localhost port,
+    an explicit timeout; the host has one card and NCCL takes one rank a
+    card) and ``make_debug_mesh(1, 1)``; phase 14's runs through the
+    mesh, each bit for bit the mesh-less run (losses, grad norms, params;
+    an all-reduce over one rank and a division by 1 change no bit):
+    smollm-360m at 4 × 4096 for 3 steps (ms, tokens/s, the all-reduce's
+    ms by CUDA events and its bytes, peak memory against phase 14's), the
+    restart contract at 8 × 256 (save at step 2, a new trainer's restore,
+    2 more), int8 moments and compressed gradients 2 steps each; then
+    ``compressed_psum`` over NCCL on card tensors, bit for bit its plain
+    version on the CPU; the group is destroyed at the end.  No kernel
+    launches.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -186,6 +200,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -201,6 +216,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import torch  # noqa: E402
 
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
@@ -228,8 +244,14 @@ from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.model import tree_flatten, tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.cluster import initialize_from_env  # noqa: E402
+from repro_torch.launch.dryrun import _model_flops  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.launch.specs import enc_len  # noqa: E402
 from repro_torch.distributed import checkpoint as ckpt  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    compressed_psum, compressed_psum_reference)
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.distributed.fault_tolerance import Heartbeat  # noqa: E402
 from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
                              MetricsRegistry, get_registry,
@@ -450,6 +472,11 @@ TRAIN_ARCH = "smollm_360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
 RESTART_BATCH, RESTART_SEQ = 8, 256
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# data-parallel training (phase 15): phase 14's runs through a one-rank
+# NCCL mesh; a collective that waits longer than this fails; the
+# compressed all-reduce on a gradient of smollm's embedding's shape
+DP_TIMEOUT_S = 300.0
+PSUM_SHAPE = (49152, 960)
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -2294,11 +2321,33 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0])
 
 
-def train_path(device, card: str) -> dict:
-    """Phase 14: the training slice at smollm-360m's full width."""
+def pairs(recs) -> list:
+    """(loss, grad norm) of each step record."""
+    return [(r["loss"], r["grad_norm"]) for r in recs]
+
+
+def host_leaves(tree) -> list:
+    return [t.detach().cpu() for t in tree_flatten(tree)[0]]
+
+
+def same_leaves(want: list, tree, what: str) -> None:
+    """``tree``'s leaves bit for bit ``want`` (host copies)."""
+    got = tree_flatten(tree)[0]
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} leaves")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if not torch.equal(a, b.detach().cpu()):
+            raise AssertionError(f"{what}: leaf {i} differs")
+
+
+def train_path(device, card: str, keep: dict = None) -> dict:
+    """Phase 14: the training slice at smollm-360m's full width.  ``keep``
+    gets each run's (loss, grad norm) pairs and final params on the host,
+    what phase 15 holds its mesh runs to."""
     Trainer = train_launcher.Trainer
     cfg = get_config(TRAIN_ARCH)
     out = {}
+    keep = {} if keep is None else keep
 
     # (a) full width, train_4k's sequence length
     tr = Trainer(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, opt_state="f32",
@@ -2309,9 +2358,12 @@ def train_path(device, card: str) -> dict:
     recs, ms = timed_steps(tr, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated(device)
     check_records(recs, "full width", cfg.vocab)
+    keep["full"] = (pairs(recs), host_leaves(tr.params), peak)
     step_ms = sum(ms[1:]) / len(ms[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    share = 6 * n_params * tokens / (step_ms / 1e3) / BF16_OPS_PER_S
+    flops = _model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train"))
+    share = flops / (step_ms / 1e3) / BF16_OPS_PER_S
     out.update(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
                peak_bytes=peak, flop_share=share)
     print(f"training full width: {cfg.name} ({n_params} params) "
@@ -2323,7 +2375,8 @@ def train_path(device, card: str) -> dict:
           f"{[round(m, 1) for m in ms]} (steps 2-{TRAIN_STEPS} mean "
           f"{step_ms:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak "
           f"memory {peak / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated), 6·N·tokens per step time "
+          f"(torch.cuda.max_memory_allocated), MODEL_FLOPS "
+          f"(launch.dryrun._model_flops: 6·N_active·tokens) per step time "
           f"{share:.2%} of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 [{card}]")
     del tr
     gc.collect()
@@ -2377,6 +2430,7 @@ def train_path(device, card: str) -> dict:
                                  f"{logged}, heartbeat {hb}, checkpoints "
                                  f"{sorted(os.listdir(ck))}")
         same_state(tr1, tr3, "restart contract (run_loop)")
+        keep["restart"] = (pairs(ref), host_leaves(tr1.params))
         f32_state = tree_bytes(tr1.opt_state)
         del tr1, tr3
     out.update(save_s=save_s, restore_s=restore_s, ckpt_bytes=ck_bytes,
@@ -2396,6 +2450,7 @@ def train_path(device, card: str) -> dict:
         t = make(**kw)
         recs, _ = timed_steps(t, 2)
         check_records(recs, f"training {kw}")
+        keep[next(iter(kw))] = (pairs(recs), host_leaves(t.params))
         if "opt_state" in kw:
             out["int8_state_bytes"] = tree_bytes(t.opt_state)
         print(f"training {kw} at {RESTART_BATCH} x {RESTART_SEQ}: losses "
@@ -2435,6 +2490,134 @@ def train_path(device, card: str) -> dict:
           f"rel {loss_err:.3g}, gradients max|diff| / max|grad| per leaf "
           f"{grad_err:.3g} (tol {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_TOL}); 3 "
           f"train steps' losses rel {step_err:.3g}")
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_path(device, card: str, ref: dict) -> dict:
+    """Phase 15: phase 14's runs through ``Trainer(mesh=)`` on a one-rank
+    group (NCCL on the card, gloo on the CPU), each bit for bit the
+    mesh-less run in ``ref`` (``train_path``'s ``keep``), and
+    ``compressed_psum`` against its plain version.  The group is
+    destroyed on the way out."""
+    Trainer = train_launcher.Trainer
+    cfg = get_config(TRAIN_ARCH)
+    initialize_from_env(f"127.0.0.1:{free_port()}", 1, 0, device=device,
+                        timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = make_debug_mesh(1, 1, device=device)
+        out = {"backend": dist.get_backend(), "mesh": mesh.shape,
+               "mesh_device": str(mesh.device)}
+
+        # (a) full width, through the mesh
+        tr = Trainer(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     opt_state="f32", mesh=mesh)
+        tr.init_state(LM_SEED)
+        torch.cuda.reset_peak_memory_stats(device)
+        recs, ms = timed_steps(tr, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated(device)
+        want, want_params, ref_peak = ref["full"]
+        if pairs(recs) != want:
+            raise AssertionError(f"mesh run {pairs(recs)} != phase 14's "
+                                 f"{want}")
+        same_leaves(want_params, tr.params, "mesh run params")
+        step_ms = sum(ms[1:]) / len(ms[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        ar = [r["all_reduce_ms"] for r in recs]
+        out.update(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+                   ms=ms, all_reduce_ms=ar,
+                   pack_ms=[r["pack_ms"] for r in recs],
+                   scale_ms=[r["scale_ms"] for r in recs],
+                   all_reduce_bytes=recs[-1]["all_reduce_bytes"],
+                   grad_bytes=recs[-1]["grad_bytes"], peak_bytes=peak,
+                   ref_peak_bytes=ref_peak, tok_spec=list(tr.tok_spec),
+                   replicas=tr.replicas)
+        print(f"data parallel full width over {out['backend']} (one rank, "
+              f"mesh {mesh.shape} on {mesh.device}): {cfg.name} "
+              f"Trainer(batch={TRAIN_BATCH}, seq_len={TRAIN_SEQ}, mesh=...) "
+              f"{TRAIN_STEPS} steps: losses and grad norms {want} and "
+              f"params bit for bit phase 14's; ms per step "
+              f"{[round(m, 1) for m in ms]} (steps 2-{TRAIN_STEPS} mean "
+              f"{step_ms:.1f} ms), {out['tokens_per_s']:.0f} tokens/s; "
+              f"by {'CUDA events' if mesh.device.type == 'cuda' else 'host clock'}"
+              f", the copy into the buffer "
+              f"{[round(m, 3) for m in out['pack_ms']]} ms, the all-reduce "
+              f"{[round(m, 3) for m in ar]} ms, the division "
+              f"{[round(m, 3) for m in out['scale_ms']]} ms, over "
+              f"{out['all_reduce_bytes']} bytes ({out['grad_bytes']} of "
+              f"gradients, the rest ALIGN padding and the loss); peak "
+              f"memory {peak / 2**30:.2f} GiB against phase 14's "
+              f"{ref_peak / 2**30:.2f} GiB [{card}]")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the restart contract through the mesh
+        def make(**kw):
+            t = Trainer(cfg, batch=RESTART_BATCH, seq_len=RESTART_SEQ,
+                        mesh=mesh, **kw)
+            t.init_state(LM_SEED)
+            return t
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            tr1 = make()
+            timed_steps(tr1, 2)
+            tr1.save(ck)
+            r34, _ = timed_steps(tr1, 2)
+            tr2 = Trainer(cfg, batch=RESTART_BATCH, seq_len=RESTART_SEQ,
+                          mesh=mesh)
+            got_step = tr2.restore(ck)
+            got, _ = timed_steps(tr2, 2)
+            want, want_params = ref["restart"]
+            if got_step != 2 or pairs(got) != pairs(r34) or \
+                    pairs(r34) != want:
+                raise AssertionError(f"mesh restart: step {got_step}, "
+                                     f"{pairs(got)} / {pairs(r34)} != "
+                                     f"{want}")
+            same_state(tr1, tr2, "mesh restart (restore)")
+            same_leaves(want_params, tr1.params, "mesh restart params")
+            del tr1, tr2
+        print(f"data parallel restart contract at {RESTART_BATCH} x "
+              f"{RESTART_SEQ} through the mesh: 2 steps, save, 2 steps == a "
+              f"new Trainer(mesh=)'s restore and 2 steps == phase 14's "
+              f"mesh-less run, losses, grad norms and params bit for bit")
+
+        # (c) int8 moments and compressed gradients through the mesh
+        for kw in (dict(opt_state="int8"), dict(compress_grads=True)):
+            t = make(**kw)
+            recs, _ = timed_steps(t, 2)
+            want, want_params = ref[next(iter(kw))]
+            if pairs(recs) != want:
+                raise AssertionError(f"mesh {kw}: {pairs(recs)} != {want}")
+            same_leaves(want_params, t.params, f"mesh {kw} params")
+            print(f"data parallel {kw} at {RESTART_BATCH} x {RESTART_SEQ}: "
+                  f"{pairs(recs)} and params bit for bit phase 14's")
+            del t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) compressed_psum over the group, on tensors on the device
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        g = torch.randn(PSUM_SHAPE, device=device, generator=gen)
+        r = torch.randn(PSUM_SHAPE, device=device, generator=gen) * 0.01
+        with mesh:
+            got, got_res = compressed_psum(g, r, "data")
+        want, want_res = compressed_psum_reference([g.cpu()], [r.cpu()])
+        if not (torch.equal(got.cpu(), want) and
+                torch.equal(got_res.cpu(), want_res[0])):
+            raise AssertionError("compressed_psum on the device differs "
+                                 "from its plain version")
+        out["psum_shape"] = list(PSUM_SHAPE)
+        print(f"compressed_psum over {out['backend']} on {g.device}, "
+              f"{tuple(PSUM_SHAPE)} f32: output and residual bit for bit "
+              f"its plain version on the CPU")
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -3450,7 +3633,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     reset_launches()
-    tp = train_path(device, card)
+    train_ref = {}
+    tp = train_path(device, card, train_ref)
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"training launched kernels: {counts}")
@@ -3460,6 +3644,23 @@ def main() -> int:
           f"kernel launches in it {counts} (none: backend=\"torch\") "
           f"[{card}]")
     print(json.dumps({"training": tp}))
+
+    # 15. data-parallel training over a one-rank NCCL group
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    dp = dp_path(device, card, train_ref)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"data-parallel training launched kernels: "
+                             f"{counts}")
+    del train_ref
+    for rec in records:
+        rec["dp_launches"] = 0
+    print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s host "
+          f"wall; kernel launches in it {counts} [{card}]")
+    print(json.dumps({"data_parallel": dp}))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -6,8 +6,10 @@ Two engines, as in the reference's backend pairing: ``backend="torch"``
 runs ``flash_attention``, the chunked online softmax of the reference's
 XLA path ported to torch; ``backend="cuda"`` runs the hand-written kernel
 (``kernels/flash_attention_kernel.flash_attention_bshd``), which on a CPU
-tensor runs its plain version.  The reference's sharding constraints are
-no-ops on one device and are left out.
+tensor runs its plain version.  The reference's sharding constraints pin XLA layouts and
+have no counterpart here (``models/act_sharding.py``); its policy decides
+``_attn_shard_mode``, the split a tensor-parallel "model" axis would take
+(ROADMAP Queue A 12.7).
 
 Cross-attention (the encdec family's decoder) reads K and V from the
 encoder's output with no RoPE, no mask and full MHA (``make_attn_params(
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention_kernel import flash_attention_bshd
+from .act_sharding import model_axis_size
 from .config import ArchConfig
 from .layers import apply_rope
 
@@ -30,9 +33,21 @@ BACKENDS = ("torch", "cuda")
 
 def waits(what: str, item: str = "12"):
     """Raise for a feature a later slice of the port brings, naming its
-    ROADMAP Queue A item (12.6: sharding and the data-parallel mesh)."""
+    ROADMAP Queue A item (12.7: tensor parallelism and FSDP storage)."""
     raise NotImplementedError(f"{what} waits for a later slice of the port "
                               f"(ROADMAP Queue A {item})")
+
+
+def _attn_shard_mode(n_heads: int) -> str:
+    """How attention splits over the "model" axis of the policy:
+      "heads" — head parallelism (H % model == 0);
+      "seq"   — sequence-parallel q when the head count does not divide
+                (smollm 15H, starcoder2 24H on 16), K/V replicated;
+      "none"  — no model axis."""
+    ms = model_axis_size()
+    if ms == 1:
+        return "none"
+    return "heads" if n_heads % ms == 0 else "seq"
 
 
 def make_attn_params(mk, cfg: ArchConfig, cross: bool = False,

@@ -4,8 +4,10 @@ nested dicts of tensors with the reference's names and shapes, so a tree
 of the reference's weights (as numpy) carries across leaf for leaf
 (``models/convert.py``).
 
-``SpecMaker`` (the logical sharding axes) waits for the sharding slice
-(ROADMAP Queue A 12.6)."""
+The same call sites build three other trees: ``SpecMaker`` the logical
+sharding axes (``distributed/sharding.py`` maps them onto a mesh),
+``ShapeMaker`` the shapes and ``MetaMaker`` meta tensors (shape and dtype,
+no storage)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -48,6 +50,27 @@ class RealMaker:
         else:
             raise ValueError(init)
         return torch.randn(shape, generator=self.gen, **kw) * scale
+
+
+class SpecMaker:
+    """Returns the logical-axis tuple instead of a tensor (same call
+    sites)."""
+
+    def __call__(self, shape, logical, init="fan_in"):
+        assert len(shape) == len(logical), (shape, logical)
+        return tuple(logical)
+
+
+class MetaMaker:
+    """Returns a meta tensor of the shape in ``dtype``: a tree that costs no
+    memory, for shape-only work (sharding plans, input stand-ins)."""
+
+    def __init__(self, dtype=torch.float32):
+        self.dtype = dtype
+
+    def __call__(self, shape, logical, init="fan_in"):
+        assert len(shape) == len(logical), (shape, logical)
+        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
 
 
 class ShapeMaker:

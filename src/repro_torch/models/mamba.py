@@ -14,8 +14,9 @@ Chunked form (chunk Q), with the running log-decay
 All exponents are ≤ 0 (A < 0).  The reference threads the chunk states
 with ``lax.scan`` and needs S to be a multiple of the chunk; here a Python
 loop over the chunks takes a short last chunk, so a prompt of any length
-prefills.  The reference's batch sharding constraints are no-ops on one
-device and are left out (ROADMAP Queue A 12.6).
+prefills.  The reference's batch sharding constraints have no counterpart:
+under the port's data-parallel step each rank's activations are its batch
+shard already (``models/act_sharding.py``).
 """
 from __future__ import annotations
 

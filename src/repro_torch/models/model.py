@@ -29,8 +29,14 @@ Pallas kernel, and plain torch here on both backends.
 chunks plus the MoE load-balancing term), trained on ``backend="torch"``:
 the kernel that ``backend="cuda"`` runs has no backward pass (nor has the
 reference's Pallas kernel) and raises under autograd
-(``kernels.flash_attention_kernel.flash_forward``).  The logical sharding
-specs wait for a later slice (ROADMAP Queue A 12.6).
+(``kernels.flash_attention_kernel.flash_forward``).
+
+``param_logical_specs`` is the reference's tree of logical axes, which
+``distributed/sharding.py`` resolves onto a mesh; ``param_shapes`` the
+same tree as meta tensors.  The reference's activation constraints
+(``models/act_sharding.py``) pin the batch dim for XLA; under the port's
+data-parallel step each rank's activations already are its batch shard,
+so the model calls none.
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ from ..core.registry import resolve_device
 from . import attention as attn
 from . import mamba, moe
 from .config import ArchConfig
-from .layers import (RealMaker, make_embed_params, make_mlp_params,
-                     mlp_forward, rmsnorm)
+from .layers import (MetaMaker, RealMaker, SpecMaker, make_embed_params,
+                     make_mlp_params, mlp_forward, rmsnorm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
@@ -92,7 +98,7 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 # --------------------------------------------------------------------------- #
-# Parameter construction (shared by RealMaker and layers.ShapeMaker)
+# Parameter construction (shared by every maker of layers.py)
 # --------------------------------------------------------------------------- #
 def _make_unit_params(mk, cfg: ArchConfig, layout: list[UnitPos],
                       U: int) -> dict:
@@ -195,6 +201,14 @@ class Model:
     # ------------------------------------------------------------- params
     def init_params(self, seed: int = 0, dtype=torch.float32) -> dict:
         return make_params(self.cfg, RealMaker(seed, dtype, self.device))
+
+    def param_logical_specs(self) -> dict:
+        """The params' tree with each leaf's logical-axis tuple."""
+        return make_params(self.cfg, SpecMaker())
+
+    def param_shapes(self, dtype=torch.float32) -> dict:
+        """The params' tree as meta tensors: no memory, no draws."""
+        return make_params(self.cfg, MetaMaker(dtype))
 
     def cast(self, params: dict) -> dict:
         """f32 master params → the compute dtype.  The reference casts at

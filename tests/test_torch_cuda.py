@@ -1106,3 +1106,59 @@ def test_cuda_backend_loss_fn_on_card_raises_under_autograd(card):
         loss = model.loss_fn(params, tokens)
     assert bool(torch.isfinite(loss))
     assert flash_forward.launches == before + cfg.n_layers
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL group on the card (the rendezvous through a file in
+    ``tmp_path``) and its (1, 1) mesh; torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.cluster import initialize_from_env
+    from repro_torch.launch.mesh import make_debug_mesh
+    initialize_from_env(f"file://{tmp_path}/store", 1, 0, device=card,
+                        timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_debug_mesh(1, 1, device=card)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw", [{}, {"compress_grads": True},
+                                {"opt_state": "int8", "accum_steps": 2}],
+                         ids=["f32", "compress", "int8-accum2"])
+def test_dp_trainer_on_one_nccl_rank_is_bit_identical(nccl_mesh, kw):
+    """The reduced smollm Trainer through a one-rank NCCL mesh against
+    ``mesh=None`` on the card, bf16 compute, 3 steps: records, params,
+    moments and residuals bit for bit; no kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.model import tree_flatten
+    cfg = get_config("smollm_360m").reduced()
+    before = flash_forward.launches
+    a = Trainer(cfg, batch=4, seq_len=32, **kw)
+    b = Trainer(cfg, batch=4, seq_len=32, mesh=nccl_mesh, **kw)
+    a.init_state(0)
+    b.init_state(0)
+    ra = [a.train_step() for _ in range(3)]
+    rb = [b.train_step() for _ in range(3)]
+    assert [(r["loss"], r["grad_norm"]) for r in ra] == \
+        [(r["loss"], r["grad_norm"]) for r in rb]
+    for x, y in zip(tree_flatten(a.state_tree())[0],
+                    tree_flatten(b.state_tree())[0]):
+        assert y.is_cuda and torch.equal(x, y)
+    assert rb[-1]["replicas"] == 1 and rb[-1]["all_reduce_ms"] > 0
+    assert flash_forward.launches == before
+
+
+def test_compressed_psum_on_one_nccl_rank_matches_plain(nccl_mesh):
+    from repro_torch.distributed.compression import (
+        compressed_psum, compressed_psum_reference)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(300, 257, device="cuda", generator=gen)
+    r = torch.randn(300, 257, device="cuda", generator=gen) * 0.01
+    with nccl_mesh:
+        out, res = compressed_psum(g, r, "data")
+    want, want_res = compressed_psum_reference([g.cpu()], [r.cpu()])
+    assert out.is_cuda and torch.equal(out.cpu(), want)
+    assert torch.equal(res.cpu(), want_res[0])

@@ -144,12 +144,32 @@ def test_error_feedback_unbiased_over_steps():
     assert np.abs(true_sum - deq_sum).max() < 0.1
 
 
-def test_init_residuals_zeros_and_psum_waits():
+def test_init_residuals_zeros_and_psum_waits(tmp_path):
+    """Zero residuals; ``compressed_psum`` over one gloo rank (the name is
+    from before the data-parallel slice, when it raised) against the
+    reference's under ``jax.vmap`` over one slice, bit for bit."""
+    from repro_torch.launch.cluster import initialize_from_env
+    from repro_torch.launch.mesh import make_debug_mesh
     r = comp.init_residuals({"a": torch.ones(3), "b": torch.ones(())})
     assert all(float(x.abs().sum()) == 0 and x.dtype == torch.float32
                for x in tree_flatten(r)[0])
-    with pytest.raises(NotImplementedError, match="Queue A 12.6"):
-        comp.compressed_psum(torch.ones(3), torch.zeros(3), "data")
+    rng = np.random.default_rng(3)
+    g = rng.normal(size=(1, 6, 10)).astype(np.float32)
+    res = (rng.normal(size=(1, 6, 10)) * 0.01).astype(np.float32)
+    ref_out, ref_res = jax.vmap(
+        lambda a, b: ref_comp.compressed_psum(a, b, "data"),
+        axis_name="data")(g, res)
+    initialize_from_env(f"file://{tmp_path}/store", 1, 0, device="cpu",
+                        timeout_s=60)
+    try:
+        with make_debug_mesh(1, 1, device="cpu"):
+            out, new_res = comp.compressed_psum(torch.from_numpy(g[0]),
+                                                torch.from_numpy(res[0]),
+                                                "data")
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_out[0]))
+    np.testing.assert_array_equal(new_res.numpy(), np.asarray(ref_res[0]))
 
 
 # ---------------------------------------------------------------- optimizer

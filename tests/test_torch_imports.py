@@ -22,6 +22,9 @@ sys.modules["jax"] = None
 sys.modules["repro"] = None
 import numpy as np
 import torch
+# the shapes here are tiny: spare intra-op threads only contend with the
+# other test workers
+torch.set_num_threads(1)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -189,9 +192,18 @@ if not torch.cuda.is_available():
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.max_memory_allocated = lambda *a: 0
     chip_smoke.reset_launches()
-    tp = chip_smoke.train_path(cpu, "cpu")
+    train_ref = {}
+    tp = chip_smoke.train_path(cpu, "cpu", train_ref)
     assert not any(chip_smoke.launch_counts().values())
     assert 0.25 < tp["int8_state_bytes"] / tp["f32_state_bytes"] < 0.3
+    # phase 15 on a one-rank gloo group: the mesh runs bit for bit phase
+    # 14's, compressed_psum its plain version, the group torn down
+    chip_smoke.PSUM_SHAPE = (64, 96)
+    dp = chip_smoke.dp_path(cpu, "cpu", train_ref)
+    assert dp["backend"] == "gloo" and dp["replicas"] == 1
+    assert dp["grad_bytes"] < dp["all_reduce_bytes"]
+    assert not any(chip_smoke.launch_counts().values())
+    assert not torch.distributed.is_initialized()
 keep.cleanup()
 print("HYGIENE-OK", len(names))
 """
