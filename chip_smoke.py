@@ -183,6 +183,29 @@ or JAX.  Phases:
     ``compressed_psum`` over NCCL on card tensors, bit for bit its plain
     version on the CPU; the group is destroyed at the end.  No kernel
     launches.
+16. tensor-parallel training (``Trainer(mesh=)`` with a "model" axis),
+    with every launch count set to 0 first: four spawned ranks share the
+    one card and join a gloo group (NCCL takes one rank a card), with a
+    collective timeout and a join timeout; each builds its (2, 2) and
+    (1, 4) ``Mesh`` itself (a CPU ``DeviceMesh`` of gloo groups, the card
+    as the mesh's device).  A rehearsal of the exchanges with the card's
+    compute, not a measure of them: gloo stages each collective through
+    host memory.  The ranks probe every collective the port calls on card
+    tensors; then (a) smollm-360m at full width and depth on (2, 2) and
+    (1, 4), (b) mamba2-370m at its published size and (c) phi3-mini-3.8b
+    at its published width with its depth cut 32 -> 2, both on (1, 4),
+    each at 4 x 1024 in bf16 for 2 steps: step 0's loss within 2^-8 of
+    the mesh-less trainer's on the card and the gathered gradient's
+    cosine with its gradient at least 0.999, and per rank the stored f32
+    param bytes beside ``launch.dryrun._analytic_memory``'s "params"
+    term, the Adam state's bytes, peak memory, ms per step and the bytes
+    each collective kind moved; (d) the five families' .reduced() in f32
+    on (2, 2) against the mesh-less trainer on the card (step 0 rel 1e-5,
+    steps 1-2 1e-3) and a (2, 2) checkpoint restored on (1, 4) (rtol
+    1e-4).  With four cards the ranks run again over NCCL, one a card;
+    with fewer it prints that this did not run.  No rank launches a
+    kernel; every kernel record gains ``tp_launches`` (0) and a
+    ``{"tensor_parallel": ...}`` line follows the data-parallel line.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -194,6 +217,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import datetime
 import gc
 import itertools
 import json
@@ -477,6 +501,27 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 # compressed all-reduce on a gradient of smollm's embedding's shape
 DP_TIMEOUT_S = 300.0
 PSUM_SHAPE = (49152, 960)
+# tensor-parallel training (phase 16): four ranks share the one card and
+# talk over gloo, a rehearsal of the exchanges; (a) smollm-360m at full
+# width and depth, train_4k cut to 4 sequences of 1024 tokens (two rows a
+# replica on (2, 2)); (b) mamba2-370m at its published size and (c)
+# phi3-mini-3.8b at its published width with its depth cut 32 -> 2
+# layers, on (1, 4); step 0's loss within 2^-8 and the gathered gradient's
+# cosine with the mesh-less one at least 0.999 (bf16 products summed in
+# other orders); (d) every family's .reduced() in f32 on (2, 2) at the CPU
+# tests' bounds (tests/test_torch_tp.py), a (2, 2) checkpoint restored on
+# (1, 4) to rtol 1e-4
+TP_RANKS = 4
+TP_BATCH, TP_SEQ, TP_STEPS = 4, 1024, 2
+TP_FULL = (("smollm_360m", None, ((2, 2), (1, 4))),
+           ("mamba2_370m", None, ((1, 4),)),
+           ("phi3_mini_3_8b", 2, ((1, 4),)))
+TP_LOSS_REL, TP_COSINE = 2.0 ** -8, 0.999
+TP_REDUCED = ("smollm_360m", "phi3_5_moe_42b", "mamba2_370m",
+              "jamba_1_5_large_398b", "seamless_m4t_large_v2")
+TP_REDUCED_BATCH, TP_REDUCED_SEQ, TP_REDUCED_STEPS = 4, 32, 3
+TP_STEP0_REL, TP_LATER_REL, TP_RESTORE_RTOL = 1e-5, 1e-3, 1e-4
+TP_JOIN_S = 900.0
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -2285,11 +2330,13 @@ def timed_steps(trainer, n: int) -> tuple:
     """``n`` train steps: (their records, the ms of each, host clock around
     a synchronised step)."""
     recs, ms = [], []
+    sync = torch.cuda.synchronize if trainer.device.type == "cuda" \
+        else (lambda: None)
     for _ in range(n):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         recs.append(trainer.train_step())
-        torch.cuda.synchronize()
+        sync()
         ms.append((time.perf_counter() - t0) * 1e3)
     return recs, ms
 
@@ -2618,6 +2665,349 @@ def dp_path(device, card: str, ref: dict) -> dict:
               f"its plain version on the CPU")
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def tp_plan(device_type: str = "cuda", small: bool = False) -> dict:
+    """What phase 16 runs; ``small`` shrinks it to .reduced() configs at a
+    tiny shape, for a rehearsal on the CPU."""
+    plan = dict(device_type=device_type, full=TP_FULL, batch=TP_BATCH,
+                seq=TP_SEQ, steps=TP_STEPS, reduced=TP_REDUCED, small=small)
+    if small:
+        plan.update(batch=4, seq=32, reduced=TP_REDUCED[:1],
+                    full=((TP_FULL[0][0], None, TP_FULL[0][2]),))
+    return plan
+
+
+def tp_config(arch: str, layers, plan):
+    cfg = get_config(arch)
+    if plan["small"]:
+        return cfg.reduced()
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def tp_mesh(shape, device, backend: str):
+    """A (data, model) ``Mesh`` over the whole group.  Over gloo on the one
+    card the ``DeviceMesh`` is built on the CPU (its groups are gloo's) and
+    the mesh's device is the card; over NCCL it is ``make_debug_mesh``."""
+    from repro_torch.launch.mesh import Mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    if backend == "nccl":
+        return make_debug_mesh(*shape, device=device)
+    return Mesh(dict(zip(("data", "model"), shape)),
+                init_device_mesh("cpu", shape,
+                                 mesh_dim_names=("data", "model")), device)
+
+
+def tp_probe(device) -> dict:
+    """Each collective the port calls, on card tensors over the group:
+    "ok" or the first line of its error."""
+    x = torch.arange(8, dtype=torch.float32, device=device) + dist.get_rank()
+    n = dist.get_world_size()
+    out = {}
+    for name, fn in (
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(n)], x)),
+            ("reduce_scatter", lambda: dist.reduce_scatter(
+                torch.empty(8 // n, device=device), list(x.chunk(n)))),
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("all_reduce_max", lambda: dist.all_reduce(
+                x.clone(), op=dist.ReduceOp.MAX)),
+            ("broadcast", lambda: dist.broadcast(x.clone(), src=0))):
+        try:
+            fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 — reported, then raised
+            out[name] = str(e).splitlines()[0]
+    return out
+
+
+def tp_full_run(arch, layers, mesh, device, tmp, rank, plan) -> dict:
+    """One full-size run: step 0's loss and gradient (the cosine with the
+    mesh-less gradient on rank 0), then ``TP_STEPS`` timed steps; this
+    rank's stored bytes, peak memory and the step's collective bytes."""
+    from repro_torch.launch.dryrun import _analytic_memory
+    cfg = tp_config(arch, layers, plan)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    tr = train_launcher.Trainer(cfg, batch=plan["batch"],
+                                seq_len=plan["seq"], mesh=mesh)
+    tr.init_state(LM_SEED)
+    loss0, grads = tr.loss_and_grads()
+    whole = tr.gathered(grads, tr.p_specs)
+    del grads
+    cos = None
+    if rank == 0:
+        want = torch.load(os.path.join(tmp, f"{arch}.pt"),
+                          map_location=device)
+        dot = na = nb = 0.0
+        for a, b in zip(tree_flatten(whole)[0], want):
+            a, b = a.double(), b.double()
+            dot += float((a * b).sum())
+            na += float((a * a).sum())
+            nb += float((b * b).sum())
+        cos = dot / math.sqrt(na * nb)
+        del want
+    del whole
+    recs, ms = timed_steps(tr, plan["steps"])
+    n = math.prod(mesh.shape.values())
+    analytic = _analytic_memory(cfg, ShapeConfig(
+        "train", plan["seq"], plan["batch"], "train"), mesh, 1, "f32")
+    out = {"loss0": float(loss0), "cosine": cos, "records": pairs(recs),
+           "ms": ms, "param_bytes": tree_bytes(tr.params),
+           "analytic_param_bytes": analytic["params"],
+           "n_params": cfg.param_count(), "ranks": n,
+           "adam_bytes": tree_bytes(tr.opt_state),
+           "peak_bytes": torch.cuda.max_memory_allocated(device)
+           if cuda else 0,
+           "collective_bytes": recs[-1]["collective_bytes"],
+           "all_reduce_ms": [r["all_reduce_ms"] for r in recs]}
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_reduced(arch, mesh=None, device=None):
+    """A trainer of ``arch``'s .reduced() in f32 at (d)'s shape, its state
+    drawn from ``LM_SEED``."""
+    tr = train_launcher.Trainer(get_config(arch).reduced(),
+                                batch=TP_REDUCED_BATCH,
+                                seq_len=TP_REDUCED_SEQ, mesh=mesh,
+                                compute_dtype=torch.float32, device=device)
+    tr.init_state(LM_SEED)
+    return tr
+
+
+def tp_rank(rank, world, init, tmp, backend, plan, results) -> None:
+    """One rank of phase 16: join the group, probe the collectives, run
+    (a)-(c) at full size and (d) on the reduced configs, and put its
+    results (or its traceback) on ``results``."""
+    import traceback
+    try:
+        if plan["device_type"] == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device("cpu")
+            torch.set_num_threads(1)
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(
+                                    seconds=DP_TIMEOUT_S))
+        reset_launches()
+        out = {"probe": tp_probe(device), "full": {}, "reduced": {}}
+        meshes = {}
+        for shape in ((2, 2), (1, 4)):
+            meshes[shape] = tp_mesh(shape, device, backend)
+        for arch, layers, shapes in plan["full"]:
+            for shape in shapes:
+                t0 = time.perf_counter()
+                out["full"][arch, shape] = tp_full_run(
+                    arch, layers, meshes[shape], device, tmp, rank, plan)
+                out["full"][arch, shape]["wall_s"] = \
+                    time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for arch in plan["reduced"]:
+            tr = tp_reduced(arch, meshes[2, 2])
+            out["reduced"][arch] = pairs([tr.train_step()
+                                          for _ in range(TP_REDUCED_STEPS)])
+        tr = tp_reduced(plan["reduced"][0], meshes[2, 2])
+        for _ in range(2):
+            tr.train_step()
+        tr.save(os.path.join(tmp, "ck"))
+        out["uninterrupted"] = pairs([tr.train_step()])
+        t2 = tp_reduced(plan["reduced"][0], meshes[1, 4])
+        out["restored"] = (t2.restore(os.path.join(tmp, "ck")),
+                           pairs([t2.train_step()]))
+        out["reduced_wall_s"] = time.perf_counter() - t0
+        out["launches"] = launch_counts()
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 — carried to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn_ranks(world, tmp, backend, plan) -> list:
+    """``tp_rank`` in ``world`` spawned processes over a localhost TCP
+    rendezvous; their results by rank.  Raises on an error in any rank or
+    after ``TP_JOIN_S``; every process is joined or killed."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, world, init, tmp, backend, plan,
+                               results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + TP_JOIN_S
+    try:
+        while len(out) < world:
+            try:
+                rank, ok, val = results.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise AssertionError(f"tensor-parallel ranks "
+                                     f"{sorted(set(range(world)) - set(out))}"
+                                     f" gave no result in {TP_JOIN_S} s")
+            if not ok:
+                raise AssertionError(f"tensor-parallel rank {rank} "
+                                     f"failed:\n{val}")
+            out[rank] = val
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[r] for r in range(world)]
+
+
+def tp_references(device, tmp, plan) -> dict:
+    """The mesh-less trainer on the device: for (a)-(c) step 0's loss (its
+    gradient saved to ``tmp`` for rank 0), for (d) each reduced config's
+    records."""
+    ref = {"full": {}, "reduced": {}}
+    for arch, layers, _ in plan["full"]:
+        tr = train_launcher.Trainer(tp_config(arch, layers, plan),
+                                    batch=plan["batch"], seq_len=plan["seq"],
+                                    device=device)
+        tr.init_state(LM_SEED)
+        loss, grads = tr.loss_and_grads()
+        torch.save([g.float().cpu() for g in tree_flatten(grads)[0]],
+                   os.path.join(tmp, f"{arch}.pt"))
+        ref["full"][arch] = float(loss)
+        del tr, grads
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for arch in plan["reduced"]:
+        tr = tp_reduced(arch, device=device)
+        ref["reduced"][arch] = pairs([tr.train_step()
+                                      for _ in range(TP_REDUCED_STEPS)])
+    return ref
+
+
+def tp_path(device, card: str, plan=None) -> dict:
+    """Phase 16: tensor-parallel training on meshes over gloo whose four
+    ranks share the one card (NCCL takes one rank a card).  This rehearses
+    the exchanges (their order, shapes and bytes) with the card's compute;
+    it does not measure them: gloo stages every collective through host
+    memory, so no time here says what NVLink would take.  (a)-(c) hold the
+    mesh runs to the mesh-less trainer on the card (``tp_references``) by
+    the loss and the gradient's cosine, (d) by ``tests/test_torch_tp.py``'s
+    bounds and a checkpoint restored on another mesh.  With four cards the
+    same ranks run again over NCCL, one a card."""
+    plan = plan or tp_plan()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = tp_references(device, tmp, plan)
+        out["reference_s"] = time.perf_counter() - t0
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_ranks(TP_RANKS, tmp, "gloo", plan)
+        out["ranks_s"] = time.perf_counter() - t0
+        n_cards = torch.cuda.device_count()
+        nccl = spawn_ranks(TP_RANKS, tmp, "nccl", plan) \
+            if n_cards >= TP_RANKS else None
+    for label, runs in (("gloo", res), ("nccl", nccl)):
+        if runs is None:
+            print(f"nccl tensor-parallel run: {n_cards} card(s), not run "
+                  f"(NCCL takes one rank a card; {TP_RANKS} are needed)")
+            continue
+        out[label] = tp_check(runs, ref, label, card, plan)
+    return out
+
+
+def tp_check(res: list, ref: dict, label: str, card: str, plan) -> dict:
+    """Phase 16's checks on one set of ranks' results, and its lines."""
+    out = {"probe": res[0]["probe"], "full": {}, "reduced": {}}
+    for rank, r in enumerate(res):
+        if any(v != "ok" for v in r["probe"].values()):
+            raise AssertionError(f"rank {rank}: {label} refused a "
+                                 f"collective on card tensors: "
+                                 f"{r['probe']}")
+        if any(r["launches"].values()):
+            raise AssertionError(f"rank {rank} launched kernels: "
+                                 f"{r['launches']}")
+    print(f"tensor parallel over {label}: every collective the port calls "
+          f"takes card tensors ({', '.join(res[0]['probe'])}) [{card}]")
+    for arch, layers, shapes in plan["full"]:
+        for shape in shapes:
+            runs = [r["full"][arch, shape] for r in res]
+            want = ref["full"][arch]
+            rel = abs(runs[0]["loss0"] - want) / abs(want)
+            cos = runs[0]["cosine"]
+            if any(x["loss0"] != runs[0]["loss0"] or
+                   x["records"] != runs[0]["records"] for x in runs):
+                raise AssertionError(f"{arch} {shape}: the ranks disagree")
+            check_records([{"loss": a, "grad_norm": b}
+                           for a, b in runs[0]["records"]],
+                          f"{arch} {shape}")
+            if rel > TP_LOSS_REL or cos < TP_COSINE:
+                raise AssertionError(f"{arch} {shape}: step 0 loss rel "
+                                     f"{rel}, gradient cosine {cos}")
+            key = f"{arch} {shape[0]}x{shape[1]}"
+            out["full"][key] = {k: [x[k] for x in runs] for k in (
+                "param_bytes", "adam_bytes", "peak_bytes", "ms",
+                "collective_bytes", "all_reduce_ms")}
+            out["full"][key].update(
+                loss_rel=rel, cosine=cos, loss0=runs[0]["loss0"],
+                records=runs[0]["records"], want_loss0=want,
+                analytic_param_bytes=runs[0]["analytic_param_bytes"],
+                wall_s=runs[0]["wall_s"])
+            cut = "" if layers is None else \
+                f", depth cut {get_config(arch).n_layers} -> {layers}"
+            print(f"tensor parallel {key} over {label}: {arch}"
+                  f"{cut} ({runs[0]['n_params']} params) "
+                  f"Trainer(batch={plan['batch']}, seq_len={plan['seq']}) "
+                  f"bf16: step "
+                  f"0 loss {runs[0]['loss0']:.6f} vs mesh-less {want:.6f} "
+                  f"(rel {rel:.3g}, tol {TP_LOSS_REL:.3g}), gradient cosine "
+                  f"{cos:.6f} (at least {TP_COSINE}); losses and grad norms "
+                  f"{runs[0]['records']}; {runs[0]['wall_s']:.1f} s [{card}]")
+            for rank, x in enumerate(runs):
+                print(f"  rank {rank}: stored f32 params {x['param_bytes']} B"
+                      f" (_analytic_memory params P*4/n "
+                      f"{x['analytic_param_bytes']:.0f} B), Adam state "
+                      f"{x['adam_bytes']} B, peak memory "
+                      f"{x['peak_bytes'] / 2**30:.2f} GiB, ms per step "
+                      f"{[round(m, 1) for m in x['ms']]}, bytes by kind "
+                      f"{x['collective_bytes']} [{card}]")
+    for arch in plan["reduced"]:
+        got, want = res[0]["reduced"][arch], ref["reduced"][arch]
+        if any(r["reduced"][arch] != got for r in res):
+            raise AssertionError(f"{arch} reduced: the ranks disagree")
+        errs = [max(abs(a - b) / abs(b) for a, b in zip(g, w))
+                for g, w in zip(got, want)]
+        if errs[0] > TP_STEP0_REL or max(errs[1:]) > TP_LATER_REL:
+            raise AssertionError(f"{arch} reduced on (2, 2): {got} vs the "
+                                 f"mesh-less {want}")
+        out["reduced"][arch] = errs
+    step, recs = res[0]["restored"]
+    want = res[0]["uninterrupted"][0][0]
+    if step != 2 or abs(recs[0][0] - want) > TP_RESTORE_RTOL * abs(want):
+        raise AssertionError(f"(2, 2) checkpoint on (1, 4): step {step}, "
+                             f"loss {recs[0][0]} vs {want}")
+    out["restored_rel"] = abs(recs[0][0] - want) / abs(want)
+    print(f"tensor parallel reduced f32 on (2, 2) over {label}: "
+          + ", ".join(f"{a} step rel errors {[f'{e:.2g}' for e in errs]}"
+                      for a, errs in out["reduced"].items())
+          + f" (tol {TP_STEP0_REL}, then {TP_LATER_REL}); a (2, 2) "
+          f"checkpoint at step 2 restored on (1, 4) continues the loss to "
+          f"rel {out['restored_rel']:.3g} (tol {TP_RESTORE_RTOL}); "
+          f"{res[0]['reduced_wall_s']:.1f} s [{card}]")
     return out
 
 
@@ -3661,6 +4051,24 @@ def main() -> int:
     print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s host "
           f"wall; kernel launches in it {counts} [{card}]")
     print(json.dumps({"data_parallel": dp}))
+
+    # 16. tensor-parallel training, four ranks on the one card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    tp = tp_path(device, card)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"tensor-parallel training launched kernels: "
+                             f"{counts}")
+    for rec in records:
+        rec["tp_launches"] = 0
+    print(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s host "
+          f"wall (mesh-less references {tp['reference_s']:.1f} s, ranks "
+          f"{tp['ranks_s']:.1f} s); kernel launches in it {counts} and in "
+          f"every rank none [{card}]")
+    print(json.dumps({"tensor_parallel": tp}))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -12,6 +12,11 @@ all-reduce over a mesh axis: one scale shared by every rank (an all-reduce
 MAX), the int8 payload summed as int32 (an all-reduce SUM), both exact,
 so it gives the reference's bits; ``compressed_psum_reference`` is the
 same arithmetic over every rank's inputs in one process.
+
+The trainer runs the codec on the global gradient; on a mesh each rank
+holds its shard of it, and a leaf whose last axis is split takes each
+row's amax over the ranks that split it (``compress_tree``'s
+``row_groups``), so the bits are one device's.
 """
 from __future__ import annotations
 
@@ -20,16 +25,18 @@ import torch.distributed as dist
 
 from ..launch.mesh import current_mesh
 from ..models.model import tree_flatten, tree_map, tree_unflatten
+from .collectives import all_reduce_max
 
 
-def compress(g: torch.Tensor, residual: torch.Tensor):
-    """(grad, residual) → (q int8, scale f32, new residual f32)."""
+def compress(g: torch.Tensor, residual: torch.Tensor, group=None):
+    """(grad, residual) → (q int8, scale f32, new residual f32).
+    ``group``: the ranks that hold the rest of each row."""
     x = g.float() + residual
     if x.dim() == 0:
         scale = torch.clamp(x.abs(), min=1e-12) / 127.0
     else:
-        scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True),
-                            min=1e-12) / 127.0
+        amax = all_reduce_max(x.abs().amax(dim=-1, keepdim=True), group)
+        scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale, x - decompress(q, scale)
 
@@ -38,14 +45,16 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_tree(grads, residuals):
+def compress_tree(grads, residuals, row_groups=None):
     """(grads as seen after the all-reduce, dequantized; new residuals),
-    both trees of ``grads``' structure."""
+    both trees of ``grads``' structure.  ``row_groups`` as
+    ``Adam.update``'s."""
     flat_g, treedef = tree_flatten(grads)
     flat_r = tree_flatten(residuals)[0]
+    groups = row_groups or [None] * len(flat_g)
     deqs, res = [], []
-    for g, r in zip(flat_g, flat_r):
-        q, s, nr = compress(g, r)
+    for g, r, group in zip(flat_g, flat_r, groups):
+        q, s, nr = compress(g, r, group)
         deqs.append(decompress(q, s))
         res.append(nr)
     return tree_unflatten(treedef, deqs), tree_unflatten(treedef, res)

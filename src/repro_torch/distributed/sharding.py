@@ -20,15 +20,22 @@ at most one dim per mesh axis:
 A spec is a ``PartitionSpec``: one entry per tensor dim, ``None``, an axis
 name or a tuple of names, equal entry for entry to JAX's.  A
 ``NamedSharding`` pairs it with its DTensor placements over the mesh
-(``Shard(dim)`` or ``Replicate()`` per mesh dim).  The port's trainer
-records these plans; it stores every tensor replicated and runs data
-parallel over the FSDP axes (``launch/train.py``).  Splitting the stored
-tensors by them is ROADMAP Queue A 12.7.
+(``Shard(dim)`` or ``Replicate()`` per mesh dim).
+
+The port's trainer stores each rank's shard of every tensor as its spec
+places it (``launch/train.py``): ``local_shape`` is the shard's shape,
+``shard_tensor`` cuts it from the global tensor and ``gather_tensor``
+joins the ranks' shards again.  A split dim holds contiguous equal chunks
+in mesh-coordinate order, a dim split over a tuple of axes the first axis
+major, as JAX lays out ``P(("pod", "data"))``.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, NamedTuple, Sequence
+
+import torch
+import torch.distributed as dist
 
 # priority 0 tried first
 MODEL_PRIORITY = {
@@ -112,6 +119,65 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[str],
                 out[i] = fa if len(fa) > 1 else fa[0]
                 break
     return P(*out)
+
+
+def _dim_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, mesh) -> tuple:
+    """The shape of one rank's shard of a ``shape`` tensor under ``spec``."""
+    out = []
+    for n, e in zip(shape, spec):
+        k = _axis_size(mesh, _dim_axes(e))
+        if n % k:
+            raise ValueError(f"dim {n} of {tuple(shape)} does not split "
+                             f"{k} ways ({tuple(spec)})")
+        out.append(n // k)
+    return tuple(out) + tuple(shape[len(spec):])
+
+
+def shard_tensor(t, spec: Sequence, mesh, coords: dict = None):
+    """This rank's shard of the global tensor ``t``: along each split dim
+    the chunk at the rank's coordinate over that dim's axes (``coords``,
+    axis → index, stands in for a live mesh's own).  A view of ``t``."""
+    local = local_shape(t.shape, spec, mesh)
+    for d, e in enumerate(spec):
+        axes = _dim_axes(e)
+        if not axes or local[d] == t.shape[d]:
+            continue
+        if coords is None:
+            i = mesh.coordinate(axes)
+        else:
+            i = 0
+            for a in axes:
+                i = i * mesh.shape[a] + coords[a]
+        t = t.narrow(d, i * local[d], local[d])
+    return t
+
+
+def gather_tensor(t, spec: Sequence, mesh):
+    """The global tensor from every rank's shard ``t``: all-gathered over
+    each split dim's axes in coordinate order.  On an abstract mesh, a
+    meta tensor of the global shape (shapes only)."""
+    if not mesh.live:
+        shape = [n * _axis_size(mesh, _dim_axes(e))
+                 for n, e in zip(t.shape, spec)]
+        return t.new_empty(shape + list(t.shape[len(spec):]),
+                           device="meta")
+    for d, e in enumerate(spec):
+        axes = tuple(a for a in _dim_axes(e) if mesh.shape[a] > 1)
+        if not axes:
+            continue
+        group = mesh.group(axes)
+        t = t.contiguous()
+        parts = [t.new_empty(t.shape) for _ in range(
+            dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        t = torch.cat(parts, d)
+    return t
 
 
 def _zip_map(fn, tree, logical):

@@ -3,7 +3,7 @@
 A ``Mesh`` names the axes of a grid of ranks, one device a rank: its
 ``axis_names``, ``shape`` (name → size, in axis order) and, when live,
 the ``torch.distributed`` ``DeviceMesh`` over the process group with a
-process group per axis (``group``).  ``Mesh.abstract`` is the counterpart
+process group for every set of its axes (``group``).  ``Mesh.abstract`` is the counterpart
 of JAX's ``AbstractMesh``: names and sizes only, what sharding plans
 resolve against.  ``with mesh:`` makes a mesh the ambient one of the
 calling thread, which ``distributed.compression.compressed_psum`` reads to
@@ -17,6 +17,7 @@ other.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 from typing import Optional, Sequence
@@ -25,7 +26,6 @@ import torch
 import torch.distributed as dist
 
 from ..core.registry import resolve_device
-from ..models.attention import waits
 
 _AMBIENT = threading.local()
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -43,6 +43,27 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self.device_mesh = device_mesh
         self.device = device
+        self._groups = {}
+        if device_mesh is not None:
+            self._make_groups()
+
+    def _make_groups(self) -> None:
+        """A process group for every set of two or more axes that spans
+        less than the world: the ranks that share the other axes'
+        coordinates, in this set's row-major order.  Every rank creates
+        every group (``dist.new_group`` is collective), in one order."""
+        ranks = self.device_mesh.mesh
+        n = len(self.axis_names)
+        for k in range(2, n):
+            for axes in itertools.combinations(range(n), k):
+                rest = [d for d in range(n) if d not in axes]
+                rows = ranks.permute(*rest, *axes).reshape(
+                    -1, math.prod(ranks.shape[d] for d in axes))
+                names = tuple(self.axis_names[d] for d in axes)
+                for row in rows.tolist():
+                    g = dist.new_group(ranks=row)
+                    if dist.get_rank() in row:
+                        self._groups[names] = g
 
     @classmethod
     def abstract(cls, shape: Sequence[int], names: Sequence[str]) -> "Mesh":
@@ -84,16 +105,15 @@ class Mesh:
 
     def group(self, axes):
         """The process group over ``axes`` (a name or a tuple of names)
-        that holds this rank.  Several axes: those that span every rank
-        (a group over part of them needs a "model" axis above 1, ROADMAP
-        Queue A 12.7)."""
+        that holds this rank: the ranks that share its coordinates on the
+        other axes, in the order of ``coordinate(axes)``."""
         self._need_live("process groups")
         axes = self._axes(axes)
         if len(axes) == 1:
             return self.device_mesh.get_group(axes[0])
-        if math.prod(self.shape[a] for a in axes) != dist.get_world_size():
-            waits(f"a process group over {axes} of {self.shape}", "12.7")
-        return dist.group.WORLD
+        if len(axes) == len(self.axis_names):
+            return dist.group.WORLD
+        return self._groups[axes]
 
     def __enter__(self) -> "Mesh":
         if not hasattr(_AMBIENT, "stack"):

@@ -20,19 +20,26 @@ The model trains on ``backend="torch"`` (the chunked flash in torch): the
 reference's training path reaches no Pallas kernel, and the card's flash
 kernel has no backward pass.
 
-``Trainer(mesh=)`` trains data parallel over the mesh's data axes ("pod"
-× "data"), one rank a replica (``launch/mesh.py``, ``launch/cluster.py``):
-the rank takes its rows of the global batch as ``data_spec`` splits dim
-0, computes its gradient, and one coalesced f32 all-reduce gives every
-rank the replicas' mean; then the codec, the grad norm and Adam run on
-that global gradient, as on one device (the reference's GSPMD step
-computes its compression on the global gradient too).  Params and Adam
-state are replicated; ``p_shards``/``o_shards`` hold the placements the
-sharding rules give them.  A "model" axis larger than 1 (tensor
-parallelism) and FSDP storage are ROADMAP Queue A 12.7.  Rank 0 writes
-checkpoints, every rank reads them, so a run restores onto another
-number of replicas (``plan_elastic_restart``).  The launcher joins a
-process group when REPRO_MULTIHOST=1 (``launch/cluster.py``).
+``Trainer(mesh=)`` trains on a live mesh (``launch/mesh.py``,
+``launch/cluster.py``), one rank a device, and each rank stores only its
+shard of every param, Adam moment (int8 values and row scales alike) and
+compression residual, as the sharding rules place them (``p_shards``,
+``o_shards``; ``distributed/sharding.py``).  The rank takes its rows of
+the global batch (``data_spec`` splits dim 0 over the data axes); the
+model runs tensor and sequence parallel over "model" and gathers each
+unit's "embed" shards over the data axes as it runs it (FSDP,
+``models/model.py``).  Gradients a gather left partial are summed by its
+backward reduce-scatter; a coalesced f32 all-reduce sums the rest over
+the data axes (leaves the rules replicate there, and the loss) and over
+"model" (leaves replicated over it, whose ranks each saw their sequence
+chunk), and everything is divided by the replicas.  The codec, the grad
+norm and Adam then run on the shards of that global gradient, as on one
+device: a row split over ranks takes its amax over them, and the grad
+norm counts each distinct shard once.  ``save`` gathers every leaf and
+rank 0 writes the reference's layout; ``restore`` reads the global arrays
+and keeps this rank's shards, so a run restores onto another mesh or onto
+none (``plan_elastic_restart``).  The launcher joins a process group when
+REPRO_MULTIHOST=1 (``launch/cluster.py``).
 """
 from __future__ import annotations
 
@@ -53,12 +60,14 @@ from ..configs import get_config
 from ..core.registry import resolve_device
 from ..data.tokens import SyntheticTokens, TokenPipelineConfig
 from ..distributed import checkpoint as ckpt
+from ..distributed import collectives
+from ..distributed.collectives import Parallel, spec_axes
 from ..distributed.compression import compress_tree, init_residuals
 from ..distributed.fault_tolerance import (Heartbeat, PreemptionFlag,
                                            StragglerDetector)
 from ..distributed.optimizer import Adam, AdamConfig
-from ..distributed.sharding import data_spec, fsdp_axes, tree_shardings
-from ..models.attention import waits
+from ..distributed.sharding import (P, data_spec, fsdp_axes, gather_tensor,
+                                    shard_tensor, tree_shardings)
 from ..models.model import Model, tree_flatten, tree_map, tree_unflatten
 from ..obs.log import get_logger
 from .cluster import initialize_from_env, multihost_requested
@@ -114,10 +123,11 @@ class Trainer:
     is the dtype the reference plans its sharding for; on one device it
     changes nothing (the masters are f32).
 
-    ``mesh``: ``None`` trains on ``device`` alone.  A live ``Mesh`` whose
-    "model" axis is 1 trains data parallel over its ranks on the mesh's
-    device: ``batch`` is the global batch, ``accum_steps`` splits each
-    rank's rows."""
+    ``mesh``: ``None`` trains on ``device`` alone.  A live ``Mesh`` of
+    "pod"/"data"/"model" axes trains over its ranks on the mesh's device,
+    each holding its shards: ``batch`` is the global batch,
+    ``accum_steps`` splits each rank's rows, and ``seq_len`` (and an
+    encdec model's encoder length) must divide the "model" axis."""
 
     def __init__(self, cfg, *, batch: int, seq_len: int, mesh=None,
                  lr: float = 3e-4, opt_state: str = "f32",
@@ -125,7 +135,7 @@ class Trainer:
                  seed: int = 0, param_dtype=torch.float32,
                  accum_steps: int = 1, compute_dtype=torch.bfloat16,
                  device=None):
-        self.mesh = _data_parallel_mesh(mesh)
+        self.mesh = _check_mesh(mesh)
         # gradient accumulation: the global batch is invariant in
         # accum_steps (an elastic restart on fewer hosts raises it)
         if accum_steps < 1 or batch % accum_steps:
@@ -151,31 +161,58 @@ class Trainer:
         self.params = None
         self.opt_state = None
         self.residuals = None
+        self.par = None
         self.step = 0
         self.rank, self.replicas = 0, 1
         self.p_shards = self.o_shards = self.tok_spec = None
         self.comm: dict = {}
         if self.mesh is not None:
-            self._plan_mesh()
+            self._plan_mesh(compute_dtype)
 
-    def _plan_mesh(self) -> None:
-        """The reference's sharding plan on the mesh, recorded; this rank's
-        rows of the global batch; the group of the replicas."""
+    def _plan_mesh(self, compute_dtype) -> None:
+        """The reference's sharding plan on the mesh; this rank's rows of
+        the global batch; the model's ``Parallel`` context; per param leaf
+        the axes that split it and the group that holds the rest of its
+        rows."""
         mesh = self.mesh
         if mesh.device.type != self.device.type:
             raise ValueError(f"the mesh runs on {mesh.device}, the trainer "
                              f"on {self.device}")
+        m = mesh.shape["model"]
+        lengths = [self.seq_len] + ([enc_len(self.cfg, self.seq_len)]
+                                    if self._needs_enc else [])
+        if any(n % m for n in lengths):
+            raise ValueError(f"sequence lengths {lengths} do not split over "
+                             f"a \"model\" axis of {m}")
         logical = self.model.param_logical_specs()
         p_shapes = self.model.param_shapes(self.param_dtype)
         self.p_shards = tree_shardings(p_shapes, logical, mesh)
         self.o_shards = tree_shardings(
             self.opt.init(p_shapes), self.opt.state_logical_specs(logical),
             mesh)
+        self.p_specs = tree_map(lambda s: s.spec, self.p_shards)
+        self.o_specs = tree_map(lambda s: s.spec, self.o_shards)
         self.tok_spec = data_spec(mesh, 2, self.batch)
-        self._group = mesh.group(fsdp_axes(mesh) or mesh.axis_names)
-        self.rank, self.replicas = dist.get_rank(), mesh.size
-        split = self.tok_spec[0] or ()
-        split = (split,) if isinstance(split, str) else split
+        split = spec_axes(self.tok_spec[0])
+        self.par = Parallel(mesh, self.p_specs, split, compute_dtype)
+        # a mesh of one rank runs the one-device model: its per-unit casts
+        # would be fresh tensors where one device slices a cast stack, and
+        # the bf16 products' bits follow the operands' alignment
+        self.model.parallel = self.par if mesh.size > 1 else None
+        self.rank = dist.get_rank()
+        fa = fsdp_axes(mesh)
+        self.replicas = math.prod(mesh.shape[a] for a in fa)
+        # the replicas' group, one rank too (a no-op all-reduce)
+        self._replica_group = mesh.group(fa) if fa else None
+        self._leaf_axes, self.row_groups = [], []
+        for spec in tree_flatten(self.p_specs)[0]:
+            axes = {a for e in spec for a in spec_axes(e)
+                    if mesh.shape[a] > 1}
+            self._leaf_axes.append(mesh._axes(tuple(axes)) if axes else ())
+            last = [a for a in spec_axes(spec[-1] if spec else None)
+                    if mesh.shape[a] > 1]
+            self.row_groups.append(mesh.group(tuple(last)) if last
+                                    else None)
         self.rows_per_rank = self.batch // math.prod(mesh.shape[a]
                                                      for a in split)
         self._first_row = (mesh.coordinate(split) if split else 0) \
@@ -184,15 +221,18 @@ class Trainer:
             raise ValueError(f"{self.rows_per_rank} rows a replica are not "
                              f"a multiple of accum_steps {self.accum_steps}")
 
-    def init_state(self, seed: int = 0) -> None:
-        """Fresh f32 masters (torch's seeded draws, not ``jax.random``'s),
-        zero moments and residuals, step 0.  On a mesh every rank then
-        takes rank 0's masters."""
-        self.params = self.model.init_params(seed, torch.float32)
+    def init_state(self, seed: int = 0, params: Optional[dict] = None
+                   ) -> None:
+        """Fresh f32 masters (torch's seeded draws, not ``jax.random``'s,
+        or the global tree ``params``), zero moments and residuals, step 0.
+        On a mesh every rank takes rank 0's global masters, then keeps its
+        shards."""
+        self.params = params if params is not None else \
+            self.model.init_params(seed, torch.float32)
         if self.mesh is not None:
-            src = dist.get_global_rank(self._group, 0)
             for p in tree_flatten(self.params)[0]:
-                dist.broadcast(p, src=src, group=self._group)
+                dist.broadcast(p, src=0)
+            self.params = self._shard(self.params, self.p_specs)
         self.opt_state = self.opt.init(self.params)
         if self.compress_grads:
             self.residuals = init_residuals(self.params)
@@ -207,25 +247,70 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state,
                 "residuals": self.residuals}
 
+    def state_specs(self) -> dict:
+        """The ``PartitionSpec`` tree of ``state_tree`` on the mesh."""
+        res = self.p_specs if self.compress_grads else \
+            tree_map(lambda s: P(), self.p_specs)
+        return {"params": self.p_specs, "opt": self.o_specs,
+                "residuals": res}
+
+    def _shard(self, tree, specs):
+        """Each leaf's shard for this rank, in its own storage on the
+        trainer's device."""
+        flat, treedef = tree_flatten(tree)
+        out = []
+        for t, spec in zip(flat, tree_flatten(specs)[0]):
+            local = shard_tensor(t, spec, self.mesh)
+            out.append(torch.empty(local.shape, dtype=local.dtype,
+                                   device=self.device).copy_(local))
+        return tree_unflatten(treedef, out)
+
+    def gathered(self, tree, specs) -> dict:
+        """``tree`` (of this rank's shards, ``specs`` theirs) whole on every
+        rank; ``tree`` itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        flat, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [
+            gather_tensor(t, s, self.mesh)
+            for t, s in zip(flat, tree_flatten(specs)[0])])
+
     def save(self, path: str) -> str:
-        """Write the state as step ``self.step``.  On a mesh rank 0 writes
-        (the state is replicated) and every rank waits for it."""
+        """Write the state as step ``self.step``.  On a mesh every leaf is
+        gathered whole, rank 0 writes the global tree, and every rank
+        waits for it."""
+        if self.mesh is None:
+            return ckpt.save(path, self.step, self.state_tree())
+        flat, treedef = tree_flatten(self.state_tree())
+        host = []
+        for t, spec in zip(flat, tree_flatten(self.state_specs())[0]):
+            g = gather_tensor(t, spec, self.mesh)
+            host.append(g.cpu() if self.rank == 0 else None)
+            del g
+        out = os.path.join(path, f"step_{self.step:08d}")
         if self.rank == 0:
-            out = ckpt.save(path, self.step, self.state_tree())
-        else:
-            out = os.path.join(path, f"step_{self.step:08d}")
-        if self.mesh is not None:
-            dist.barrier(group=self._group)
+            out = ckpt.save(path, self.step, tree_unflatten(treedef, host))
+        dist.barrier()
         return out
 
     def restore(self, path: str, step: Optional[int] = None) -> int:
         """Load a checkpoint (of either package) onto this trainer's
         device; the target tree is this trainer's own state.  On a mesh
-        every rank reads it."""
-        if self.params is None:
-            self.init_state()
-        tree, got = ckpt.restore(path, self.state_tree(), step=step,
-                                 device=self.device)
+        every rank reads the global arrays and keeps its shards, so the
+        checkpoint may come from another mesh or from none."""
+        if self.mesh is None:
+            if self.params is None:
+                self.init_state()
+            tree, got = ckpt.restore(path, self.state_tree(), step=step,
+                                     device=self.device)
+        else:
+            shapes = self.model.param_shapes(torch.float32)
+            like = {"params": shapes, "opt": self.opt.init(shapes),
+                    "residuals": init_residuals(shapes)
+                    if self.compress_grads else tree_map(
+                        lambda p: p.new_zeros(()), shapes)}
+            tree, got = ckpt.restore(path, like, step=step, device="cpu")
+            tree = self._shard(tree, self.state_specs())
         self.params = tree["params"]
         self.opt_state = tree["opt"]
         self.residuals = tree["residuals"]
@@ -285,81 +370,135 @@ class Trainer:
         else:
             marks.append(time.perf_counter())
 
-    def _all_reduce(self, loss, grads):
-        """The replicas' mean of the f32 gradients and the loss: one
-        coalesced all-reduce (SUM, then ÷ replicas) of a buffer holding
-        every leaf (at ``ALIGN``ed offsets) and the loss last; the reduced
-        leaves are views of it.  ``self.comm`` gets its bytes and the
-        marks around the copy in, the all-reduce and the division."""
-        flat, treedef = tree_flatten(grads)
-        marks: list = []
-        self._mark(marks)
+    def _coalesced(self, parts: list, group, marks=None) -> tuple:
+        """``parts`` summed over ``group`` by one f32 all-reduce of a buffer
+        holding each (at ``ALIGN``ed offsets): (the summed parts as views
+        of the buffer, the buffer).  ``marks`` gets a mark between the copy
+        in and the all-reduce."""
         pad = torch.zeros(ALIGN, dtype=torch.float32, device=self.device)
-        parts, offsets, at = [], [], 0
-        for g in flat:
-            parts.append(g.reshape(-1).float())
+        packed, offsets, at = [], [], 0
+        for g in parts:
+            packed.append(g.reshape(-1).float())
             gap = -g.numel() % ALIGN
             if gap:
-                parts.append(pad[:gap])
+                packed.append(pad[:gap])
             offsets.append(at)
             at += g.numel() + gap
-        parts.append(loss.reshape(1).float())
-        buf = torch.cat(parts)
-        del parts
+        buf = torch.cat(packed) if packed else pad[:0]
+        if marks is not None:
+            self._mark(marks)
+        collectives.all_reduce_sum(buf, group)
+        return [buf[o:o + g.numel()].view(g.shape)
+                for o, g in zip(offsets, parts)], buf
+
+    def _reduce_grads(self, loss, grads):
+        """The global gradient's shards and the replicas' mean loss.  The
+        loss, and with replicas the leaves no gather has summed over the
+        data axes, go through one coalesced all-reduce over them (over a
+        one-rank group without); the leaves replicated
+        over "model" through one over it; then every leaf and the loss are
+        divided by the replicas.  ``self.comm`` gets the bytes and the
+        marks around the copy in, each all-reduce and the division."""
+        flat, treedef = tree_flatten(grads)
+        par = self.par
+        marks: list = []
         self._mark(marks)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self._group)
+        data_idx = [i for i, axes in enumerate(self._leaf_axes)
+                    if self.replicas > 1
+                    and not set(axes) & set(par.data_axes)]
+        summed, buf = self._coalesced([flat[i] for i in data_idx]
+                                      + [loss.reshape(1)],
+                                      self._replica_group, marks)
+        for i, g in zip(data_idx, summed):
+            flat[i] = g
+        loss = summed[-1][0]
         self._mark(marks)
-        buf.div_(self.replicas)
+        model_idx = [i for i, axes in enumerate(self._leaf_axes)
+                     if par.m > 1 and "model" not in axes]
+        if model_idx:
+            for i, g in zip(model_idx, self._coalesced(
+                    [flat[i] for i in model_idx], par.model)[0]):
+                flat[i] = g
+        self._mark(marks)
+        flat = [g.float().div_(self.replicas) for g in flat]
+        loss = loss / self.replicas
         self._mark(marks)
         self.comm = {"all_reduce_bytes": buf.numel() * buf.element_size(),
-                     "grad_bytes": 4 * sum(g.numel() for g in flat),
+                     "grad_bytes": 4 * sum(flat[i].numel()
+                                           for i in data_idx),
                      "marks": marks}
-        out = [buf[o:o + g.numel()].view(g.shape)
-               for o, g in zip(offsets, flat)]
-        return buf[-1], tree_unflatten(treedef, out)
+        return loss, tree_unflatten(treedef, flat)
+
+    def _grad_norm(self, grads) -> torch.Tensor:
+        """sqrt of the global gradient's sum of squares: each leaf's local
+        sum, then one sum over the ranks that hold the distinct shards of
+        the leaves split over the same axes (a copy is counted once)."""
+        sq = [torch.sum(torch.square(g.float()))
+              for g in tree_flatten(grads)[0]]
+        if self.mesh is None:
+            return torch.sqrt(sum(sq))
+        by_axes: dict = {}
+        for s_, axes in zip(sq, self._leaf_axes):
+            by_axes.setdefault(axes, []).append(s_)
+        total = sum(by_axes.pop((), []))
+        for axes in sorted(by_axes):
+            total = total + collectives.all_reduce_sum(
+                sum(by_axes[axes]), self.mesh.group(axes))
+        return torch.sqrt(total)
 
     def _comm_record(self) -> dict:
-        """The last all-reduce's bytes and the ms of the copy into its
-        buffer, of the collective and of the division (CUDA events on the
-        card, read once the step has synchronised)."""
+        """The step's exchanges: the data all-reduce's bytes and the ms of
+        the copy into its buffer, of that all-reduce (with the "model"
+        one) and of the division (CUDA events on the card, read once the
+        step has synchronised), and every collective's bytes by kind."""
         m = self.comm["marks"]
         if self.device.type == "cuda":
             ms = [a.elapsed_time(b) for a, b in zip(m, m[1:])]
         else:
             ms = [(b - a) * 1e3 for a, b in zip(m, m[1:])]
         return {"pack_ms": ms[0], "all_reduce_ms": ms[1],
-                "scale_ms": ms[2],
+                "model_reduce_ms": ms[2], "scale_ms": ms[3],
                 "all_reduce_bytes": self.comm["all_reduce_bytes"],
                 "grad_bytes": self.comm["grad_bytes"],
-                "replicas": self.replicas}
+                "replicas": self.replicas,
+                "collective_bytes": collectives.bytes_moved()}
 
     def any_rank(self, flag: bool) -> bool:
         """``flag`` as any replica holds it (itself without a mesh)."""
         if self.mesh is None:
             return bool(flag)
         t = torch.tensor([int(bool(flag))], device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
-    def train_step(self) -> dict:
-        """Loss and grads (on a mesh: of this rank's rows, then the
-        replicas' mean), then the int8 codec if asked, the f32 grad norm
-        of what Adam sees, and Adam's update: {"step", "loss",
-        "grad_norm"}, and on a mesh the all-reduce's ms and bytes."""
+    def loss_and_grads(self):
+        """This step's loss and gradient before the codec, under
+        ``reproducible``: on a mesh the replicas' mean loss and this rank's
+        shards of the global gradient (the step's collective bytes are
+        counted from here)."""
         tokens, enc = self.batch_inputs(self.step)
-        if self.mesh is not None:
-            rows = slice(self._first_row, self._first_row + self.rows_per_rank)
-            tokens, enc = tokens[rows], None if enc is None else enc[rows]
         with reproducible(self.device):
-            loss, grads = self._grads(tokens, enc)
-            if self.mesh is not None:
-                loss, grads = self._all_reduce(loss, grads)
+            if self.mesh is None:
+                return self._grads(tokens, enc)
+            collectives.reset_bytes()
+            take = slice(self._first_row,
+                         self._first_row + self.rows_per_rank)
+            tokens, enc = tokens[take], None if enc is None else enc[take]
+            return self._reduce_grads(*self._grads(tokens, enc))
+
+    def apply_grads(self, loss, grads) -> dict:
+        """The step from ``loss_and_grads``' result: the int8 codec if
+        asked, the f32 grad norm of what Adam sees, and Adam's update:
+        {"step", "loss", "grad_norm"}, and on a mesh the exchanges' ms and
+        bytes."""
+        rows = self.row_groups if self.mesh is not None else None
+        with reproducible(self.device):
             if self.compress_grads:
-                grads, self.residuals = compress_tree(grads, self.residuals)
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in tree_flatten(grads)[0]))
+                grads, self.residuals = compress_tree(grads, self.residuals,
+                                                      rows)
+            gnorm = self._grad_norm(grads)
             self.params, self.opt_state = self.opt.update(
-                grads, self.opt_state, self.params)
+                grads, self.opt_state, self.params, rows)
         self.step += 1
         rec = {"step": self.step, "loss": float(loss),
                "grad_norm": float(gnorm)}
@@ -367,10 +506,14 @@ class Trainer:
             rec.update(self._comm_record())
         return rec
 
+    def train_step(self) -> dict:
+        """One step: ``loss_and_grads``, then ``apply_grads``."""
+        return self.apply_grads(*self.loss_and_grads())
 
-def _data_parallel_mesh(mesh):
-    """``mesh`` if the trainer can run on it: a live mesh of data axes and
-    a "model" axis of 1."""
+
+def _check_mesh(mesh):
+    """``mesh`` if the trainer can run on it: a live mesh of "pod",
+    "data" and "model" axes."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):
@@ -380,9 +523,6 @@ def _data_parallel_mesh(mesh):
     if other or "model" not in mesh.shape:
         raise ValueError(f"mesh axes {mesh.axis_names}: the trainer takes "
                          f"'pod', 'data' and 'model'")
-    if mesh.shape["model"] > 1:
-        waits(f"Trainer on a \"model\" axis of {mesh.shape['model']} "
-              f"(tensor parallelism)", "12.7")
     if not mesh.live:
         raise ValueError("Trainer(mesh=) needs a live mesh "
                          "(make_debug_mesh, make_production_mesh)")

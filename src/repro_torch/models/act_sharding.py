@@ -8,10 +8,10 @@ because XLA's propagation through ``while`` loops loses it.  The policy
 bit, and ``models.attention._attn_shard_mode`` reads it.
 
 ``constrain_batch``, ``constrain`` and ``constrain_tree_batch`` return
-their input itself.  Under the port's data-parallel step
-(``launch/train.py``) each rank's activations already are its batch
-shard, the layout the reference asks XLA to pin; the "model" splits they
-name are tensor parallelism, ROADMAP Queue A 12.7.
+their input itself.  On the trainer's mesh (``launch/train.py``) each
+rank's activations already are its batch shard, the layout the reference
+asks XLA to pin, and the "model" splits they name are the explicit
+sequence- and tensor-parallel exchanges of ``models/model.py``.
 """
 from __future__ import annotations
 

@@ -6,10 +6,15 @@ Two engines, as in the reference's backend pairing: ``backend="torch"``
 runs ``flash_attention``, the chunked online softmax of the reference's
 XLA path ported to torch; ``backend="cuda"`` runs the hand-written kernel
 (``kernels/flash_attention_kernel.flash_attention_bshd``), which on a CPU
-tensor runs its plain version.  The reference's sharding constraints pin XLA layouts and
-have no counterpart here (``models/act_sharding.py``); its policy decides
-``_attn_shard_mode``, the split a tensor-parallel "model" axis would take
-(ROADMAP Queue A 12.7).
+tensor runs its plain version.
+
+Under the trainer's tensor parallelism (``attn_parallel``, a
+``distributed.collectives.Parallel``) attention splits over the "model"
+axis as the reference's ``_attn_shard_mode`` says: by heads when the head
+count divides the axis (wq/wk/wv column-parallel, wo row-parallel, the
+sequence gathered at the entry and reduce-scattered at the exit), else
+by q positions (every weight whole, q from this rank's sequence chunk at
+its absolute offset, K/V from the gathered sequence, no reduce).
 
 Cross-attention (the encdec family's decoder) reads K and V from the
 encoder's output with no RoPE, no mask and full MHA (``make_attn_params(
@@ -29,13 +34,6 @@ from .layers import apply_rope
 
 NEG_INF = -1e30
 BACKENDS = ("torch", "cuda")
-
-
-def waits(what: str, item: str = "12"):
-    """Raise for a feature a later slice of the port brings, naming its
-    ROADMAP Queue A item (12.7: tensor parallelism and FSDP storage)."""
-    raise NotImplementedError(f"{what} waits for a later slice of the port "
-                              f"(ROADMAP Queue A {item})")
 
 
 def _attn_shard_mode(n_heads: int) -> str:
@@ -76,7 +74,8 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_chunk: int = 1024,
-                    k_chunk: int = 1024, n_rep: int = 1) -> torch.Tensor:
+                    k_chunk: int = 1024, n_rep: int = 1,
+                    q_offset: int = 0) -> torch.Tensor:
     """Memory-bounded softmax attention: a loop over KV chunks with running
     (max, sum, acc), as ``repro.models.attention.flash_attention``.
     q (B, Sq, H, hd), k/v (B, Sk, K, hd) with H = K·n_rep, the GQA repeat
@@ -86,7 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Chunks wholly above the causal diagonal are skipped: in the reference
     they add exp(-1e30 - m) = 0 with a correction of exactly 1, so the
     result is the same.  Unlike the reference, Sq and Sk need not divide
-    by the chunks.  The causal mask is top-left aligned (the prefill's)."""
+    by the chunks.  The causal mask is top-left aligned (the prefill's),
+    q's first row at position ``q_offset``."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if K * n_rep != H:
@@ -97,14 +97,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, Sq, q_chunk):
         q_blk = q[:, q0:q0 + q_chunk].float()
         qc = q_blk.shape[1]
-        q_pos = torch.arange(q0, q0 + qc, device=q.device)
+        q_pos = torch.arange(q_offset + q0, q_offset + q0 + qc,
+                             device=q.device)
         m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, H, qc, hd), dtype=torch.float32,
                           device=q.device)
         for k0 in range(0, Sk, k_chunk):
-            if causal and q0 + qc - 1 < k0:
+            if causal and q_offset + q0 + qc - 1 < k0:
                 break                      # this chunk and all later: masked
             k_blk = _repeat_kv(k[:, k0:k0 + k_chunk], n_rep)
             v_blk = _repeat_kv(v[:, k0:k0 + k_chunk], n_rep)
@@ -195,6 +196,70 @@ def cross_attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     out = _attend(q, mem_k.to(q.dtype), mem_v.to(q.dtype), False, q_chunk,
                   backend)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ------------------------------------------------------ tensor parallelism
+def _kv_heads(k: torch.Tensor, h0: int, n_heads: int, n_rep: int,
+              lo: int) -> torch.Tensor:
+    """k (B, S, kv heads lo.., hd) → the kv heads that q heads h0..h0+n-1
+    read, as ``_attend`` takes them: whole groups of ``n_rep``, one kv
+    head for all, or else one per q head."""
+    hi = (h0 + n_heads - 1) // n_rep + 1
+    if (h0 % n_rep == 0 and n_heads % n_rep == 0) or hi - h0 // n_rep == 1:
+        return k[:, :, h0 // n_rep - lo:hi - lo]
+    idx = torch.arange(h0, h0 + n_heads, device=k.device) // n_rep - lo
+    return k[:, :, idx]
+
+
+def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, par, md: dict, *,
+                  causal: bool = True, memory=None,
+                  q_chunk: int = 1024) -> torch.Tensor:
+    """Self-attention (or cross-attention over the gathered encoder output
+    ``memory`` (B, Sm, D)) of this rank's sequence chunk x (B, S/m, D) →
+    its chunk of the output, on the torch engine.  ``positions`` (B, S)
+    are global; ``md`` each weight's "model" dim."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    K = H if memory is not None else cfg.n_kv
+    n_rep = H // K
+    if H % par.m:                                   # "seq": q positions
+        w = {k: par.want(v, md[k]) for k, v in p.items()}
+        S = x.shape[1]
+        off = par.r * S
+        q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
+        if memory is not None:
+            k, v = cross_memory_kv(w, memory, x.dtype)
+            out = flash_attention(q, k, v, causal=False, q_chunk=q_chunk)
+        else:
+            xf = par.gather_seq(x)
+            k = torch.einsum("bsd,dhk->bshk", xf, w["wk"])
+            v = torch.einsum("bsd,dhk->bshk", xf, w["wv"])
+            q = apply_rope(q, positions[:, off:off + S], cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                  n_rep=n_rep, q_offset=off)
+        return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+    Hl = H // par.m                                 # "heads"
+    h0 = par.r * Hl
+    wq, wo = par.want(p["wq"], md["wq"], 1), par.want(p["wo"], md["wo"], 0)
+    if K % par.m == 0:
+        lo = h0 // n_rep
+        wk, wv = (par.want(p[n], md[n], 1) for n in ("wk", "wv"))
+    else:
+        lo = 0
+        wk, wv = (par.want(p[n], md[n]) for n in ("wk", "wv"))
+    xf = par.gather_seq(x)
+    q = torch.einsum("bsd,dhk->bshk", xf, wq)
+    if memory is not None:
+        k, v = cross_memory_kv({"wk": wk, "wv": wv}, memory, x.dtype)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", xf, wk)
+        v = torch.einsum("bsd,dhk->bshk", xf, wv)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = (_kv_heads(t, h0, Hl, n_rep, lo) for t in (k, v))
+    out = _attend(q, k, v, causal and memory is None, q_chunk, "torch")
+    return par.scatter_seq(torch.einsum("bshk,hkd->bsd", out, wo))
 
 
 # ----------------------------------------------------------------------- KV

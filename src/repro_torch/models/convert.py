@@ -11,6 +11,10 @@ numpy arrays.  Every leaf's path and shape is checked against
 f32 masters, before anything is copied, and a
 missing, extra or misshapen leaf raises, as ``core/convert.py`` does for
 forests.
+
+With a live ``mesh`` each function returns this rank's shards, as the
+sharding rules place every leaf (``distributed/sharding.py``): what a
+``Trainer(mesh=)`` stores.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..distributed.sharding import resolve_spec, shard_tensor
 from .config import ArchConfig
-from .layers import ShapeMaker
+from .layers import ShapeMaker, SpecMaker
 from .model import make_params, tree_map
 
 SOURCE_DTYPES = (np.float32,)      # the reference's master params
@@ -40,11 +45,21 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
+def _local(t: torch.Tensor, logical, mesh) -> torch.Tensor:
+    """``t``, or with a mesh this rank's shard of it (a copy)."""
+    if mesh is None:
+        return t
+    return shard_tensor(t, resolve_spec(tuple(t.shape), logical, mesh),
+                        mesh).clone()
+
+
 def params_from_reference(tree: Mapping, cfg: ArchConfig, *, device="cpu",
-                          dtype=torch.float32) -> dict:
+                          dtype=torch.float32, mesh=None) -> dict:
     """The port's param tree for ``cfg`` from a reference tree of numpy
-    arrays: every leaf checked, then copied to ``device`` in ``dtype``."""
+    arrays: every leaf checked, then copied to ``device`` in ``dtype``
+    (with a ``mesh``, this rank's shard of it)."""
     want = dict(_leaves(make_params(cfg, ShapeMaker())))
+    logical = dict(_leaves(make_params(cfg, SpecMaker())))
     got = dict(_leaves(tree))
     missing = sorted("/".join(p) for p in want.keys() - got.keys())
     extra = sorted("/".join(p) for p in got.keys() - want.keys())
@@ -64,8 +79,8 @@ def params_from_reference(tree: Mapping, cfg: ArchConfig, *, device="cpu",
             raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
     out: dict = {}
     for path, a in got.items():
-        _set(out, path, torch.from_numpy(np.array(a)).to(device=device,
-                                                          dtype=dtype))
+        t = _local(torch.from_numpy(np.array(a)), logical[path], mesh)
+        _set(out, path, t.to(device=device, dtype=dtype))
     return out
 
 
@@ -89,11 +104,13 @@ def _array(a, name: str, dtype, shape) -> torch.Tensor:
 
 
 def train_state_from_reference(tree: Mapping, cfg: ArchConfig, *,
-                               device="cpu") -> dict:
+                               device="cpu", mesh=None) -> dict:
     """The port's train state from a reference trainer's ``state_tree()``
     as numpy: ``{"params", "opt": {"m", "v", "step"}, "residuals"}``.
 
-    Params go through ``params_from_reference``.  Each moment leaf is an
+    Params go through ``params_from_reference``; with a ``mesh`` every
+    leaf is this rank's shard, each moment's values and row scales as
+    the rules place them.  Each moment leaf is an
     f32 array of its param's shape, or an int8 moment ``{"q": int8 of the
     param's shape, "scale": f32 of its shape[:-1] + (1,)}``, one kind for
     all; ``step`` an int32 scalar; each residual an f32 array of its
@@ -104,8 +121,9 @@ def train_state_from_reference(tree: Mapping, cfg: ArchConfig, *,
         raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
                          "'step'}, 'residuals'}")
     shapes = dict(_leaves(make_params(cfg, ShapeMaker())))
+    logical = dict(_leaves(make_params(cfg, SpecMaker())))
     out = {"params": params_from_reference(tree["params"], cfg,
-                                           device=device),
+                                           device=device, mesh=mesh),
            "opt": {}, "residuals": {}}
     kinds: dict = {"moments": set(), "residuals": set()}
     for part in ("m", "v", "residuals"):
@@ -120,6 +138,8 @@ def train_state_from_reference(tree: Mapping, cfg: ArchConfig, *,
                 kind = "full" if shape and np.shape(a) == shape else "zero"
                 t = _array(a, name, np.float32,
                            shape if kind == "full" else ())
+                if kind == "full":
+                    t = _local(t, logical[path], mesh)
             elif isinstance(a, Mapping):
                 kind = "int8"
                 if set(a) != {"q", "scale"}:
@@ -128,9 +148,11 @@ def train_state_from_reference(tree: Mapping, cfg: ArchConfig, *,
                 t = {"q": _array(a["q"], name + "/q", np.int8, shape),
                      "scale": _array(a["scale"], name + "/scale",
                                      np.float32, shape[:-1] + (1,))}
+                t = {k: _local(v, logical[path], mesh) for k, v in t.items()}
             else:
                 kind = "f32"
-                t = _array(a, name, np.float32, shape)
+                t = _local(_array(a, name, np.float32, shape),
+                           logical[path], mesh)
             kinds["residuals" if part == "residuals" else "moments"] \
                 .add(kind)
             used += 2 if kind == "int8" else 1

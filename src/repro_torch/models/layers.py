@@ -136,7 +136,20 @@ def make_mlp_params(mk, d_model: int, d_ff: int, kind: str,
     }
 
 
-def mlp_forward(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_forward(p: dict, x: torch.Tensor, kind: str, par=None,
+                md=None) -> torch.Tensor:
+    """x (B, S, D) → (B, S, D).  With a tensor-parallel ``par`` (and
+    ``md``, each weight's "model" dim), x is this rank's sequence chunk:
+    when ff splits over "model", gathered along the sequence, run column-
+    then row-parallel and reduce-scattered back; otherwise run on the
+    chunk with the weights whole."""
+    if par is not None and par.m > 1:
+        split = md["w_down"] == 0
+        w = {k: par.want(v, md[k], (0 if k == "w_down" else 1) if split
+                         else None) for k, v in p.items()}
+        if not split:
+            return mlp_forward(w, x, kind)
+        return par.scatter_seq(mlp_forward(w, par.gather_seq(x), kind))
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:

@@ -15,8 +15,15 @@ All exponents are ≤ 0 (A < 0).  The reference threads the chunk states
 with ``lax.scan`` and needs S to be a multiple of the chunk; here a Python
 loop over the chunks takes a short last chunk, so a prompt of any length
 prefills.  The reference's batch sharding constraints have no counterpart:
-under the port's data-parallel step each rank's activations are its batch
-shard already (``models/act_sharding.py``).
+on a mesh each rank's activations are its batch shard already
+(``models/act_sharding.py``).
+
+``ssm_parallel`` is the trainer's form on a mesh whose "model" axis
+divides the SSD heads: each rank runs its heads (its d_inner columns of
+in_z/in_x/conv_x/norm, its in_dt columns and per-head constants) on the
+gathered sequence, in_B/in_C whole, the gated norm's sum of squares
+all-reduced over "model", and ``out`` row-parallel, reduce-scattered into
+its sequence chunk.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import copy_to_group, reduce_from_group
 from .config import ArchConfig
 
 
@@ -85,9 +93,12 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
         cum = torch.cumsum(dA, dim=1)                          # (B,Q,H)
         iu = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=xh.device))
-        Ldec = torch.where(iu[None, :, :, None],
-                           torch.exp(cum[:, :, None, :] - cum[:, None, :, :]),
-                           0.0)
+        # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+        # overflow to inf, and where's gradient 0 times inf is NaN (the
+        # reference's, which masks after, is NaN there; ROADMAP Queue C)
+        Ldec = torch.exp(torch.where(iu[None, :, :, None],
+                                     cum[:, :, None, :] - cum[:, None, :, :],
+                                     float("-inf")))
         CB = torch.einsum("bihn,bjhn->bijh", Ch, Bh)
         y_intra = torch.einsum("bijh,bjh,bjhp->bihp", CB * Ldec, dtq, xq)
         y_inter = torch.einsum("bihn,bhpn->bihp",
@@ -100,11 +111,19 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
 
 
 def _gated_norm_out(p: dict, y: torch.Tensor, z: torch.Tensor,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, group=None,
+                    d_inner: int = 0) -> torch.Tensor:
     """y (..., H*P) f32 → gate by silu(z), grouped RMSNorm (Mamba2 norms
-    before the out-projection), out-projection, all as the reference."""
+    before the out-projection), out-projection, all as the reference.
+    With a ``group`` y holds this rank's ``d_inner`` columns: the sum of
+    squares is all-reduced over it (forward and backward: every rank
+    normalises its columns by the total) before the mean."""
     y = y.to(dtype) * F.silu(z)
-    var = (y.float() * y.float()).mean(dim=-1, keepdim=True)
+    if group is None:
+        var = (y.float() * y.float()).mean(dim=-1, keepdim=True)
+    else:
+        ss = (y.float() * y.float()).sum(dim=-1, keepdim=True)
+        var = copy_to_group(reduce_from_group(ss, group), group) / d_inner
     y = (y.float() * torch.rsqrt(var + 1e-5)).to(dtype) * p["norm"]
     return y @ p["out"]
 
@@ -137,6 +156,46 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     conv = F.pad(xs_in, (0, 0, max(keep - S, 0), 0))[:, -keep:] \
         if keep else xs_in[:, :0]
     return out, h_final, conv.to(state_dtype)
+
+
+def ssm_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
+                 chunk: int = 128) -> torch.Tensor:
+    """This rank's sequence chunk x (b, S/m, D) → its chunk of the block's
+    output.  Heads split over "model" when it divides them; otherwise
+    every rank runs the whole block (weights gathered) on the gathered
+    sequence and keeps its chunk."""
+    H, P, G = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_ngroups
+    split = H % par.m == 0
+    cols = {"in_z": 1, "in_x": 1, "in_dt": 1, "conv_x": 1, "out": 0,
+            "norm": 0, "dt_bias": 0, "A_log": 0, "Dskip": 0}
+    w = {n: par.want(v, md[n], cols.get(n) if split else None)
+         for n, v in p.items()}
+    xf = par.gather_seq(x)
+    if not split:
+        return par.chunk(ssm_forward(w, xf, cfg, chunk=chunk), 1)
+    B, S, _ = xf.shape
+    Hl = H // par.m
+    h0 = par.r * Hl
+    z = torch.einsum("bsd,de->bse", xf, w["in_z"])
+    xs = F.silu(_causal_conv(torch.einsum("bsd,de->bse", xf, w["in_x"]),
+                             w["conv_x"]))
+    dt = F.softplus(torch.einsum("bsd,dh->bsh", xf, w["in_dt"])
+                    + w["dt_bias"])
+    BC = []
+    for n in ("in_B", "in_C"):
+        t = torch.einsum("bsd,dgn->bsgn", xf, w[n])
+        gpp = H // G                       # heads a group
+        lo, hi = h0 // gpp, (h0 + Hl - 1) // gpp + 1
+        if not ((hi - lo) * gpp == Hl or hi - lo == 1):
+            t, lo = t.repeat_interleave(gpp, dim=2), h0
+            hi = h0 + Hl
+        BC.append(t[:, :, lo:hi])
+    A = -torch.exp(w["A_log"].float())
+    y, _ = ssd_chunked(xs.reshape(B, S, Hl, P), dt, A, *BC, chunk)
+    y = y + xs.reshape(B, S, Hl, P).float() * w["Dskip"][None, None, :, None]
+    out = _gated_norm_out(w, y.reshape(B, S, Hl * P), z, x.dtype,
+                          par.model, cfg.d_inner)
+    return par.scatter_seq(out)
 
 
 # --------------------------------------------------------------------- decode

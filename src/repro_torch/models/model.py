@@ -33,10 +33,19 @@ reference's Pallas kernel) and raises under autograd
 
 ``param_logical_specs`` is the reference's tree of logical axes, which
 ``distributed/sharding.py`` resolves onto a mesh; ``param_shapes`` the
-same tree as meta tensors.  The reference's activation constraints
-(``models/act_sharding.py``) pin the batch dim for XLA; under the port's
-data-parallel step each rank's activations already are its batch shard,
-so the model calls none.
+same tree as meta tensors.
+
+On a mesh the trainer sets ``parallel`` (``distributed.collectives.
+Parallel``) and ``loss_fn`` runs on this rank's shards: each unit gathers
+its params' "embed" shards over the data axes inside the (checkpointed)
+unit function, so remat gathers them again in the backward pass; the
+residual stream is this rank's sequence chunk (b, S/m, D), as the
+reference's ``constrain(x, {0: "batch", 1: "model"})`` lays it out, and
+each sub-block normalises its chunk, runs its tensor-parallel body
+(``attention.attn_parallel``, ``mamba.ssm_parallel``,
+``moe.moe_parallel``, ``layers.mlp_forward``) and returns its chunk of the
+output.  The embedding and the loss are vocab-parallel.  The sequence
+length must divide the "model" axis.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.registry import resolve_device
+from ..distributed.collectives import all_reduce_max, reduce_from_group
+from ..distributed.sharding import P
 from . import attention as attn
 from . import mamba, moe
 from .config import ArchConfig
@@ -197,6 +208,7 @@ class Model:
         self.remat = remat
         self.backend = backend
         self.device = resolve_device(device)
+        self.parallel = None
 
     # ------------------------------------------------------------- params
     def init_params(self, seed: int = 0, dtype=torch.float32) -> dict:
@@ -225,7 +237,39 @@ class Model:
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["embedding"][tokens].to(self.compute_dtype)
+        """Token embeddings; on a mesh this rank's sequence chunk of them:
+        with the vocab split over "model", a lookup of the rank's vocab
+        rows (zero elsewhere) reduce-scattered along the sequence."""
+        par = self.parallel
+        if par is None:
+            return params["embed"]["embedding"][tokens] \
+                .to(self.compute_dtype)
+        emb = self._leaf(params, "embed", "embedding")
+        if self._model_dim("embed", "embedding") != 0:
+            return emb[par.chunk(tokens, 1)]
+        local = tokens - par.r * emb.shape[0]
+        inside = (local >= 0) & (local < emb.shape[0])
+        x = emb[local.clamp(0, emb.shape[0] - 1)] * inside[..., None]
+        return par.scatter_seq(x.to(emb.dtype))
+
+    def _spec(self, *path):
+        s = self.parallel.specs
+        for k in path:
+            s = s[k]
+        return s
+
+    def _model_dim(self, *path):
+        return self.parallel.model_dim(self._spec(*path))
+
+    def _leaf(self, params: dict, *path) -> torch.Tensor:
+        """A top-level param as this rank computes with it: gathered over
+        the data axes and cast (``Parallel.take``) on a mesh."""
+        t = params
+        for k in path:
+            t = t[k]
+        if self.parallel is None:
+            return t
+        return self.parallel.take(t, self._spec(*path))
 
     @staticmethod
     def _unit(params: dict, u: int, stack: str = "blocks") -> dict:
@@ -236,7 +280,7 @@ class Model:
                     positions: torch.Tensor, u: int,
                     state: Optional[dict], *, layout=None,
                     causal: bool = True,
-                    memory: Optional[torch.Tensor] = None
+                    memory: Optional[torch.Tensor] = None, md=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One unit over the whole sequence → (x, the summed MoE
         load-balancing loss of its layers).  With a decode ``state`` each
@@ -246,14 +290,26 @@ class Model:
         without capacity: what S decode steps, each routing B tokens,
         leave and compute.  A cross sub-block attends over the state's
         ``cross_k``/``cross_v`` in the compute dtype, as the decode steps
-        read them, or else over ``memory``, the encoder's output."""
+        read them, or else over ``memory``, the encoder's output.  On a mesh
+        x is this rank's sequence chunk and ``md`` the tree of each
+        weight's "model" dim; ``memory`` is then gathered whole."""
         cfg = self.cfg
+        par = self.parallel
+        tp = par if par is not None and par.m > 1 else None
         ai = si = 0
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, pos in enumerate(layout or self.layout):
             p = up[f"pos{i}"]
+            mp = md[f"pos{i}"] if md is not None else {}
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if pos.mixer == "attn":
+            if tp is not None and pos.mixer == "attn":
+                h = attn.attn_parallel(p["attn"], h, cfg, positions, tp,
+                                       mp["attn"], causal=causal,
+                                       q_chunk=self.q_chunk)
+            elif tp is not None:
+                h = mamba.ssm_parallel(p["ssm"], h, cfg, tp, mp["ssm"],
+                                       chunk=self.ssd_chunk)
+            elif pos.mixer == "attn":
                 kv = scales = None
                 if state is not None:
                     kv = (state["k"][u, ai], state["v"][u, ai])
@@ -273,7 +329,12 @@ class Model:
                                       state_dtype=state["conv"].dtype)
                 si += 1
             x = x + h
-            if pos.cross:
+            if pos.cross and tp is not None:
+                h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+                x = x + attn.attn_parallel(p["cross"], h, cfg, positions,
+                                           tp, mp["cross"], memory=memory,
+                                           q_chunk=self.q_chunk)
+            elif pos.cross:
                 h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
                 if memory is None:
                     mem_kv = state["cross_k"][u], state["cross_v"][u]
@@ -284,12 +345,15 @@ class Model:
                                                 backend=self.backend)
             if pos.ffn:
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-                if pos.ffn == "moe":
+                if pos.ffn == "moe" and par is not None:
+                    h, a = moe.moe_parallel(p["moe"], h, cfg, par, mp["moe"])
+                    aux = aux + a
+                elif pos.ffn == "moe":
                     h, a = moe.moe_forward(p["moe"], h, cfg,
                                            lossless=state is not None)
                     aux = aux + a
                 else:
-                    h = mlp_forward(p["mlp"], h, cfg.mlp)
+                    h = mlp_forward(p["mlp"], h, cfg.mlp, tp, mp.get("mlp"))
                 x = x + h
         return x, aux
 
@@ -303,11 +367,18 @@ class Model:
         unit)."""
         n = self.n_units if stack == "blocks" else self.cfg.enc_layers
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        par = self.parallel
+        specs = md = None
+        if par is not None:
+            specs = tree_map(lambda s: P(*s[1:]), par.specs[stack])
+            md = tree_map(par.model_dim, specs)
         for u in range(n):
             def unit(x, up, u=u):
+                if par is not None:
+                    up = par.take_tree(up, specs)
                 return self._apply_unit(up, x, positions, u, state,
                                         layout=layout, causal=causal,
-                                        memory=memory)
+                                        memory=memory, md=md)
             up = self._unit(params, u, stack)
             x, a = (checkpoint(unit, x, up, use_reentrant=False) if remat
                     else unit(x, up))
@@ -351,15 +422,19 @@ class Model:
         """``trunk`` → (hidden, the summed MoE aux loss of the decoder
         stack), each unit under ``remat`` if asked."""
         cfg = self.cfg
-        params = self.cast(params)
+        if self.parallel is None:
+            params = self.cast(params)
         memory = self._memory(params, state, enc_embeds, remat)
+        if memory is not None and self.parallel is not None:
+            memory = self.parallel.gather_seq(memory)
         tokens = self._tokens(tokens)
         x = self._embed(params, tokens)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         x, aux = self._stack(params, x, positions, state=state,
                              memory=memory, remat=remat)
-        return rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps), aux
+        return rmsnorm(x, self._leaf(params, "embed", "final_norm"),
+                       cfg.norm_eps), aux
 
     def encode(self, params: dict, enc_embeds,
                remat: bool = False) -> torch.Tensor:
@@ -367,14 +442,17 @@ class Model:
         the compute dtype: positions 0..S_enc-1, non-causal self-attention
         with RoPE and GQA, then ``enc_norm``."""
         cfg = self.cfg
-        params = self.cast(params)
+        if self.parallel is None:
+            params = self.cast(params)
         x = torch.as_tensor(enc_embeds, device=self.device) \
             .to(self.compute_dtype)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
+        if self.parallel is not None:
+            x = self.parallel.chunk(x, 1)
         x, _ = self._stack(params, x, positions, stack="enc_blocks",
                            layout=ENC_LAYOUT, causal=False, remat=remat)
-        return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+        return rmsnorm(x, self._leaf(params, "enc_norm"), cfg.norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         return hidden @ params["embed"]["lm_head"].to(hidden.dtype)
@@ -396,22 +474,26 @@ class Model:
         h, aux = self._trunk(params, tokens, enc_embeds=enc_embeds,
                              remat=self.remat)
         tokens = self._tokens(tokens)
-        B, S, _ = h.shape
+        B, S = tokens.shape
+        labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+        mask[:, -1] = 0.0
+        ntok = torch.clamp(mask.sum(), min=1.0)
+        head = self._leaf(params, "embed", "lm_head")
+        chunk_loss = self._chunk_loss
+        par = self.parallel
+        tp = par is not None and par.m > 1
+        if tp and self._model_dim("embed", "lm_head") == 1:
+            h = par.gather_seq(h)
+            chunk_loss = self._vocab_parallel_loss
+        elif tp:
+            # the head whole: each rank's own positions, summed over "model"
+            labels, mask = par.chunk(labels, 1), par.chunk(mask, 1)
+        S = h.shape[1]
         ck = min(self.loss_chunk, S)
         if S % ck:
             raise ValueError(f"sequence length {S} is not a multiple of "
                              f"loss_chunk {ck}")
-        labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
-        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
-        mask[:, -1] = 0.0
-        head = params["embed"]["lm_head"]
-
-        def chunk_loss(hh, ll, mm, head):
-            lg = (hh @ head.to(hh.dtype)).float()
-            lse = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, ll[..., None])[..., 0]
-            return ((lse - gold) * mm).sum()
-
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c0 in range(0, S, ck):
             args = (h[:, c0:c0 + ck], labels[:, c0:c0 + ck],
@@ -419,8 +501,32 @@ class Model:
             total = total + (checkpoint(chunk_loss, *args,
                                         use_reentrant=False)
                              if self.remat else chunk_loss(*args))
-        ntok = torch.clamp(mask.sum(), min=1.0)
+        if tp and chunk_loss is self._chunk_loss:
+            total = reduce_from_group(total, par.model)
         return total / ntok + 0.01 * aux
+
+    @staticmethod
+    def _chunk_loss(hh, ll, mm, head):
+        lg = (hh @ head.to(hh.dtype)).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, ll[..., None])[..., 0]
+        return ((lse - gold) * mm).sum()
+
+    def _vocab_parallel_loss(self, hh, ll, mm, head):
+        """``_chunk_loss`` with this rank's vocab columns of the head: the
+        logsumexp from the ranks' max (no gradient) and their summed
+        exponentials, the gold logit from the rank that holds it."""
+        par = self.parallel
+        lg = (hh @ head.to(hh.dtype)).float()
+        mx = all_reduce_max(lg.detach().amax(dim=-1), par.model)
+        se = torch.exp(lg - mx[..., None]).sum(dim=-1)
+        lse = mx + torch.log(reduce_from_group(se, par.model))
+        local = ll - par.r * lg.shape[-1]
+        inside = (local >= 0) & (local < lg.shape[-1])
+        gold = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)
+                            [..., None])[..., 0] * inside
+        gold = reduce_from_group(gold, par.model)
+        return ((lse - gold) * mm).sum()
 
     # ------------------------------------------------------------ prefill
     def prefill(self, params: dict, tokens, state: Optional[dict] = None,

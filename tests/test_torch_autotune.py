@@ -314,7 +314,7 @@ def test_explicit_kernel_engines_run_their_plain_versions_on_the_cpu(
                                            device=CPU).predict(X))
 
 
-def test_multi_device_waits_for_the_sharding_slice(small_forest):
+def test_multi_device_tunes_the_tree_sharded_wrapper(small_forest):
     """The sharding slice is in: ``n_devices=2`` tunes the tree-sharded
     wrapper over two CPU replicas, keyed on the device count, and its
     winner predicts as the reference's single-device engine."""

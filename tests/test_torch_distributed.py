@@ -144,9 +144,8 @@ def test_error_feedback_unbiased_over_steps():
     assert np.abs(true_sum - deq_sum).max() < 0.1
 
 
-def test_init_residuals_zeros_and_psum_waits(tmp_path):
-    """Zero residuals; ``compressed_psum`` over one gloo rank (the name is
-    from before the data-parallel slice, when it raised) against the
+def test_init_residuals_zeros_and_psum_over_one_rank(tmp_path):
+    """Zero residuals; ``compressed_psum`` over one gloo rank against the
     reference's under ``jax.vmap`` over one slice, bit for bit."""
     from repro_torch.launch.cluster import initialize_from_env
     from repro_torch.launch.mesh import make_debug_mesh

@@ -167,9 +167,16 @@ def test_run_loop_on_four_ranks(four):
     assert sorted(os.listdir(tmp / "ck")) == ["LATEST", "step_00000002"]
 
 
-def test_model_axis_of_two_raises_naming_12_7(four):
-    msg = four[1][0]["tp_error"]
-    assert "12.7" in msg and '"model" axis of 2' in msg
+def test_model_axis_of_two_matches_one_device(four, one_device):
+    """A (2, 2) mesh: two replicas, each tensor parallel over two ranks,
+    trains the one-device trajectory, and every rank reports it."""
+    res = four[1]
+    got, want = res[0]["tp"], one_device["f32"][:3]
+    for k in (0, 1):
+        _close(got[0][k], want[0][k], STEP0_REL)
+        for a, b in zip(got[1:], want[1:]):
+            _close(a[k], b[k], LATER_REL)
+    assert all(r["tp"] == got for r in res)
 
 
 def test_elastic_restore_four_to_two_replicas(four, two):

@@ -28,6 +28,7 @@ torch.set_num_threads(1)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.distributed.collectives" in names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -204,6 +205,10 @@ if not torch.cuda.is_available():
     assert dp["grad_bytes"] < dp["all_reduce_bytes"]
     assert not any(chip_smoke.launch_counts().values())
     assert not torch.distributed.is_initialized()
+    # phase 16 on four spawned gloo ranks at a tiny size (its small plan)
+    tpp = chip_smoke.tp_path(cpu, "cpu", chip_smoke.tp_plan("cpu", True))
+    assert tpp["gloo"]["restored_rel"] <= chip_smoke.TP_RESTORE_RTOL
+    assert not any(chip_smoke.launch_counts().values())
 keep.cleanup()
 print("HYGIENE-OK", len(names))
 """

@@ -405,15 +405,15 @@ def test_encdec_frames_and_enc_len_match_the_reference(tiny_cfg):
 
 
 def test_trainer_refuses_what_waits_for_12_6(tiny_cfg):
-    """What the trainer refuses now that meshes exist (the name is from
-    before, when every mesh raised): a mesh that is not a ``Mesh``, a
-    "model" axis above 1 (tensor parallelism, Queue A 12.7), an abstract
-    mesh, the production mesh on one process, and a batch that
-    ``accum_steps`` does not divide."""
+    """What the trainer refuses now that meshes train (the name is from
+    before, when every mesh raised): a mesh that is not a ``Mesh``, an
+    abstract mesh (with a "model" axis above 1 or not), the production
+    mesh on one process, and a batch that ``accum_steps`` does not
+    divide."""
     from repro_torch.launch.mesh import Mesh
     with pytest.raises(TypeError, match="Mesh"):
         Trainer(tiny_cfg, batch=2, seq_len=32, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 12.7"):
+    with pytest.raises(ValueError, match="live mesh"):
         Trainer(tiny_cfg, batch=2, seq_len=32, device="cpu",
                 mesh=Mesh.abstract((1, 2), ("data", "model")))
     with pytest.raises(ValueError, match="live mesh"):

@@ -42,10 +42,11 @@ def _entry(fn, rank, world, store, args, results):
 
 
 def run_ranks(fn, world: int, store: str, *args,
-              timeout_s: float = JOIN_TIMEOUT_S) -> list:
+              timeout_s: float = JOIN_TIMEOUT_S, during=None) -> list:
     """``fn(rank, world, *args)`` in ``world`` spawned processes with the
     REPRO_* variables of a file-store rendezvous at ``store``; their
-    results by rank.  Raises on an error in any rank or on the timeout."""
+    results by rank.  ``during()`` runs in this process while they do.
+    Raises on an error in any rank or on the timeout."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_entry,
@@ -55,6 +56,8 @@ def run_ranks(fn, world: int, store: str, *args,
         p.start()
     out, deadline = {}, time.monotonic() + timeout_s
     try:
+        if during is not None:
+            during()
         while len(out) < world:
             try:
                 rank, ok, val = results.get(
@@ -104,7 +107,7 @@ def four_ranks(rank, world, tmp):
     groups, ``compressed_psum`` on this rank's slice, the data-parallel
     runs (the f32 one through ``run_loop`` with a checkpoint at step 2, a
     heartbeat and the log), a (2, 2, 1) pod mesh on an indivisible batch,
-    and a (2, 2) mesh's refusal."""
+    and a (2, 2) mesh, "model" = 2."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.compression import compressed_psum
@@ -140,8 +143,9 @@ def four_ranks(rank, world, tmp):
         out[name + "_comm"] = {k: recs[-1][k] for k in
                                ("all_reduce_bytes", "grad_bytes",
                                 "replicas")}
-        out[name + "_params"] = [p.numpy() for p in
-                                 tree_flatten(tr.params)[0][:3]]
+        out[name + "_params"] = [
+            p.numpy() for p in
+            tree_flatten(tr.gathered(tr.params, tr.p_specs))[0][:3]]
     pod = Mesh({"pod": 2, "data": 2, "model": 1},
                init_device_mesh("cpu", (2, 2, 1),
                                 mesh_dim_names=("pod", "data", "model")),
@@ -150,10 +154,9 @@ def four_ranks(rank, world, tmp):
     tr.init_state()
     out["pod"] = _records([tr.train_step() for _ in range(3)])
     out["pod_rows"] = (tr.tok_spec, tr._first_row, tr.rows_per_rank)
-    try:
-        trainer(DP_BATCH, make_debug_mesh(2, 2, device="cpu"))
-    except NotImplementedError as e:
-        out["tp_error"] = str(e)
+    tr = trainer(DP_BATCH, make_debug_mesh(2, 2, device="cpu"))
+    tr.init_state()
+    out["tp"] = _records([tr.train_step() for _ in range(3)])
     return out
 
 
@@ -182,4 +185,175 @@ def two_ranks(rank, world, tmp, accum):
                        f"{tmp}/cli.jsonl", "--device", "cpu"])
     out["cli"] = recs
     out["cli_after"] = dist.is_initialized()
+    return out
+
+
+# ----------------------------------------------------- tensor parallelism
+# (name, arch, config overrides) of tests/test_torch_tp.py: every family's
+# reduced config, plus two whose dims split over (2, 2) but not over
+# (1, 4), each then taking its whole-weight path: a dense one with 3
+# heads ("seq" attention at both), vocab 510 and d_ff 126, and a hybrid
+# one with 3 experts and 2 SSD heads in one group
+TP_CASES = (("dense", "smollm_360m", {}),
+            ("dense_seq", "smollm_360m", {"n_heads": 3, "n_kv": 1,
+                                          "vocab": 510, "d_ff": 126}),
+            ("moe", "phi3_5_moe_42b", {}),
+            ("ssm", "mamba2_370m", {}),
+            ("hybrid", "jamba_1_5_large_398b", {}),
+            ("hybrid_odd", "jamba_1_5_large_398b",
+             {"n_experts": 3, "ssm_headdim": 64, "ssm_ngroups": 1}),
+            ("encdec", "seamless_m4t_large_v2", {}))
+TP_MESHES = ((2, 2), (1, 4))
+TP_BATCH, TP_STEPS = 2, 3
+# the case whose codec and int8 moments are held to one device's bits (its
+# w_down, wo and lm_head rows split over the data axes or "model")
+TP_CODEC = ("dense",)
+COLLECTIVE_SHAPE = (4, 8, 6)        # (ranks, rows, cols)
+
+
+def tp_config(case):
+    import dataclasses
+    from repro_torch.configs import get_config
+    _, arch, kw = next(c for c in TP_CASES if c[0] == case)
+    return dataclasses.replace(get_config(arch).reduced(), **kw)
+
+
+def tp_trainer(case, mesh=None, **kw):
+    import torch
+    from repro_torch.launch.train import Trainer
+    return Trainer(tp_config(case), batch=TP_BATCH, seq_len=SEQ, mesh=mesh,
+                   compute_dtype=torch.float32, device="cpu", **kw)
+
+
+def load_tree(path):
+    """A nested dict of numpy arrays from an npz of '/'-joined keys."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            d = out
+            *head, last = key.split("/")
+            for k in head:
+                d = d.setdefault(k, {})
+            d[last] = z[key]
+    return out
+
+
+def collective_inputs():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=COLLECTIVE_SHAPE).astype(np.float32)
+    g = rng.normal(size=COLLECTIVE_SHAPE).astype(np.float32)
+    return x, g
+
+
+def _collectives(rank, group):
+    """Each collective's output and input gradient on this rank."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    x, g = (torch.from_numpy(a[rank]) for a in collective_inputs())
+    out = {}
+    for name, fn, seed in (
+            ("all_gather", lambda t: C.all_gather(t, 1, group),
+             lambda y: torch.cat([g] * 4, 1)),
+            ("reduce_scatter", lambda t: C.reduce_scatter(t, 0, group),
+             lambda y: g[:2]),
+            ("copy_to_group", lambda t: C.copy_to_group(t, group),
+             lambda y: g),
+            ("reduce_from_group", lambda t: C.reduce_from_group(t, group),
+             lambda y: g)):
+        t = x.clone().requires_grad_(True)
+        y = fn(t)
+        y.backward(seed(y))
+        out[name] = (y.detach().numpy(), t.grad.numpy())
+    out["all_reduce_max"] = C.all_reduce_max(x.clone(), group).numpy()
+    return out
+
+
+def tp_ranks(rank, world, tmp, cases, extras):
+    """The tensor-parallel scenario: each of ``cases`` on the (2, 2) and
+    (1, 4) meshes (step 0's loss and gathered gradients, three steps, the
+    stored shapes); with ``extras`` also collectives over the (1, 4)
+    mesh's "model" group, shard/gather round trips, the codec and int8
+    moments on (2, 2), and a (2, 2) checkpoint restored by (1, 4) and
+    (4, 1)."""
+    import torch
+    from repro_torch.distributed.compression import compress_tree
+    from repro_torch.distributed.sharding import P, gather_tensor, \
+        shard_tensor
+    from repro_torch.launch.cluster import initialize_from_env
+    from repro_torch.launch.train import Trainer
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.model import tree_flatten
+
+    initialize_from_env(device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    meshes = {s: make_debug_mesh(*s, device="cpu") for s in TP_MESHES}
+    m22 = meshes[2, 2]
+    out = {}
+    for case in cases:
+        cfg = tp_config(case)
+        tree = load_tree(f"{tmp}/{case}.npz")
+        for shape, mesh in meshes.items():
+            tr = tp_trainer(case, mesh)
+            tr.init_state(params=params_from_reference(tree, cfg))
+            mine = params_from_reference(tree, cfg, mesh=mesh)
+            out[case, shape, "convert"] = all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_flatten(mine)[0], tree_flatten(tr.params)[0]))
+            loss, grads = tr.loss_and_grads()
+            out[case, shape, "step0"] = (
+                float(loss), [a.numpy() for a in tree_flatten(
+                    tr.gathered(grads, tr.p_specs))[0]])
+            recs = [tr.apply_grads(loss, grads)]
+            recs += [tr.train_step() for _ in range(TP_STEPS - 1)]
+            out[case, shape] = _records(recs)
+            out[case, shape, "bytes"] = recs[-1]["collective_bytes"]
+            out[case, shape, "shapes"] = [
+                tuple(t.shape) for t in tree_flatten(tr.state_tree())[0]]
+
+    if not extras:
+        return out
+    out["collectives"] = _collectives(rank, meshes[1, 4].group("model"))
+    g = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    out["round_trip"] = [
+        torch.equal(gather_tensor(shard_tensor(g, s, m22), s, m22), g)
+        for s in (P("data", "model"), P("model", None), P(None, "data"),
+                  P(("data", "model"), None), P(None, None))]
+    try:
+        Trainer(tp_config("dense"), batch=TP_BATCH, seq_len=SEQ + 2,
+                mesh=meshes[1, 4], device="cpu")
+    except ValueError as e:
+        out["seq_error"] = str(e)
+    for case in TP_CODEC:
+        tr = tp_trainer(case, m22, compress_grads=True, opt_state="int8")
+        tr.init_state(params=params_from_reference(
+            load_tree(f"{tmp}/{case}.npz"), tp_config(case)))
+        tr.train_step()
+        state = tr.state_tree()
+        _, grads = tr.loss_and_grads()
+        deq, res = compress_tree(grads, tr.residuals, tr.row_groups)
+        params, opt = tr.opt.update(deq, tr.opt_state, tr.params,
+                                    tr.row_groups)
+        whole = {n: tree_flatten(tr.gathered(t, s))[0] for n, t, s in (
+            ("grads", grads, tr.p_specs), ("deq", deq, tr.p_specs),
+            ("res", res, tr.p_specs), ("params", params, tr.p_specs),
+            ("opt", opt, tr.o_specs))}
+        whole["before"] = tree_flatten(tr.gathered(state,
+                                                   tr.state_specs()))[0]
+        out[case, "codec"] = {k: [a.numpy() for a in v]
+                              for k, v in whole.items()}
+
+    tr = tp_trainer("dense", m22)
+    tr.init_state(params=params_from_reference(load_tree(f"{tmp}/dense.npz"),
+                                               tp_config("dense")))
+    for _ in range(2):
+        tr.train_step()
+    tr.save(f"{tmp}/ck")
+    out["uninterrupted"] = _records([tr.train_step()])
+    restored = {}
+    for shape in ((1, 4), (4, 1)):
+        t2 = tp_trainer("dense", meshes.get(shape) or make_debug_mesh(
+            *shape, device="cpu"))
+        restored[shape] = (t2.restore(f"{tmp}/ck"),
+                           _records([t2.train_step()]))
+    out["restored"] = restored
     return out
