@@ -164,6 +164,8 @@ or JAX.  Phases:
     ``run_loop`` resuming from that checkpoint (it writes its own
     checkpoint, a heartbeat and the JSONL log): losses, params and
     moments bit for bit, with the checkpoint's save and restore seconds.
+    A fourth full-width step runs under ``FlopCounterMode`` (phase 17
+    reads its count).
     Two steps each with int8 moments and with compressed gradients
     (finite), the int8 state's bytes against the f32 state's.  The loss
     and gradients of the reduced config in f32 on the card against the
@@ -206,6 +208,21 @@ or JAX.  Phases:
     with fewer it prints that this did not run.  No rank launches a
     kernel; every kernel record gains ``tp_launches`` (0) and a
     ``{"tensor_parallel": ...}`` line follows the data-parallel line.
+17. the dry run of the training cells, no card and no JAX in it: in
+    processes on the host's cores (``DRYRUN_ARCHS``, the longest
+    first), (a) ``python -m repro_torch.launch.dryrun --arch A --shape
+    train_4k --mesh M`` for the ten architectures on the (16, 16) and
+    (2, 16, 16) meshes, each on a fake world of 256 or 512 ranks with its
+    step traced on meta tensors: per cell the status (an ``error`` fails),
+    arguments plus temporaries in GiB against the card's 80 GiB, the
+    compute, memory and collective ms of the roofline (H100 datasheet
+    constants), the dominant term and ``trace_s``; (b) phase 14's own
+    cell (smollm-360m, 4 x 4096, bf16, remat) on a one-rank mesh: its
+    FLOPs equal the ``FlopCounterMode`` count of a step of phase 14's,
+    and its arguments plus temporaries lie within ``DRYRUN_PEAK_BAND`` of
+    phase 14's ``torch.cuda.max_memory_allocated``.  No kernel launches;
+    the kernel records are unchanged and a ``{"dry_run": ...}`` line
+    follows the tensor-parallel line.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -242,6 +259,7 @@ import torch  # noqa: E402
 
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch import core, io, optim, tune  # noqa: E402
@@ -522,6 +540,17 @@ TP_REDUCED = ("smollm_360m", "phi3_5_moe_42b", "mamba2_370m",
 TP_REDUCED_BATCH, TP_REDUCED_SEQ, TP_REDUCED_STEPS = 4, 32, 3
 TP_STEP0_REL, TP_LATER_REL, TP_RESTORE_RTOL = 1e-5, 1e-3, 1e-4
 TP_JOIN_S = 900.0
+# the dry run (phase 17): every production training cell, one process a
+# (arch, mesh) on the host's cores, the longest traces first (on one
+# CPU core: jamba 248 s, mamba2 93 s, command-r 68 s, grok 48 s, the rest
+# 7-24 s a cell); phase 14's cell traced on a one-rank fake world, its
+# arguments plus temporaries within this band of phase 14's measured peak
+DRYRUN_ARCHS = ("jamba_1_5_large_398b", "mamba2_370m",
+                "command_r_plus_104b", "grok_1_314b", "chameleon_34b",
+                "seamless_m4t_large_v2", "phi3_mini_3_8b", "phi3_5_moe_42b",
+                "smollm_360m", "starcoder2_3b")
+DRYRUN_PEAK_BAND = (0.75, 1.25)
+DRYRUN_TIMEOUT_S = 600.0
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
 # the rate at which the card issues them, so a bound built on it is a
@@ -2406,13 +2435,19 @@ def train_path(device, card: str, keep: dict = None) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     check_records(recs, "full width", cfg.vocab)
     keep["full"] = (pairs(recs), host_leaves(tr.params), peak)
+    # one more step, its products counted for phase 17's dry run of this
+    # cell; apart, since FlopCounterMode decomposes some backward ops
+    # (the embedding's), which changes the gradient's bits
+    with FlopCounterMode(display=False) as step_flops:
+        tr.train_step()
     step_ms = sum(ms[1:]) / len(ms[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
                                           "train"))
     share = flops / (step_ms / 1e3) / BF16_OPS_PER_S
     out.update(step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
-               peak_bytes=peak, flop_share=share)
+               peak_bytes=peak, flop_share=share,
+               step_flops=step_flops.get_total_flops())
     print(f"training full width: {cfg.name} ({n_params} params) "
           f"Trainer(batch={TRAIN_BATCH}, seq_len={TRAIN_SEQ}) in bf16 with "
           f"f32 masters and f32 Adam moments, remat, backend=torch: losses "
@@ -2424,7 +2459,10 @@ def train_path(device, card: str, keep: dict = None) -> dict:
           f"memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated), MODEL_FLOPS "
           f"(launch.dryrun._model_flops: 6·N_active·tokens) per step time "
-          f"{share:.2%} of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 [{card}]")
+          f"{share:.2%} of {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
+          f"a 4th step's products {out['step_flops']} FLOPs "
+          f"(FlopCounterMode) "
+          f"[{card}]")
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -3009,6 +3047,129 @@ def tp_check(res: list, ref: dict, label: str, card: str, plan) -> dict:
           f"rel {out['restored_rel']:.3g} (tol {TP_RESTORE_RTOL}); "
           f"{res[0]['reduced_wall_s']:.1f} s [{card}]")
     return out
+
+
+# the dry run's child for phase 14's cell: the same Trainer on a one-rank
+# mesh of a fake world, its step traced on meta tensors
+DRYRUN_PHASE14_CHILD = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.launch.cost_analysis import fake_world, trace_step
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.train import Trainer
+with fake_world(1):
+    tr = Trainer(get_config({arch!r}), batch={batch}, seq_len={seq},
+                 opt_state="f32", mesh=make_debug_mesh(1, 1, device="meta"),
+                 device="meta")
+    got = trace_step(tr)
+print(json.dumps({{"flops": got.cost.flops, "memory": got.memory,
+                  "trace_s": got.trace_s}}))
+"""
+
+
+def dryrun_path(card: str, train: dict) -> dict:
+    """Phase 17: the port's dry run (``launch/dryrun.py`` over
+    ``launch/cost_analysis.py``), no JAX and no card: (a) every
+    architecture's ``train_4k`` cell on the (16, 16) and (2, 16, 16)
+    meshes, one process a cell on the host's cores, each record read
+    from ``experiments/dryrun_torch`` (an ``error`` or a missing record
+    fails); (b) phase 14's own cell on a one-rank mesh: its FLOPs equal
+    the ``FlopCounterMode`` count of a step of phase 14's, and its
+    arguments plus temporaries lie within ``DRYRUN_PEAK_BAND`` of the
+    peak phase 14 measured."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.cost_analysis import peak_bytes
+    from repro_torch.launch.dryrun import HBM_BYTES, RESULTS_DIR
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    # (name, argv): phase 14's cell, then one process a (arch, mesh),
+    # the longest first
+    jobs = [("phase14", [sys.executable, "-c", DRYRUN_PHASE14_CHILD.format(
+        src=os.path.join(root, "src"), arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ)])]
+    for arch in DRYRUN_ARCHS:
+        for mesh in ("single", "multi"):
+            jobs.append((f"{arch}/{mesh}", [
+                sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", "train_4k", "--mesh", mesh]))
+    started = time.time()
+
+    def run(job):
+        name, argv = job
+        t0 = time.perf_counter()
+        p = subprocess.run(argv, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=DRYRUN_TIMEOUT_S)
+        if p.returncode:
+            raise AssertionError(f"dry run {name}: exit {p.returncode}\n"
+                                 f"{p.stderr[-3000:]}")
+        return name, p.stdout, time.perf_counter() - t0
+
+    workers = max(1, min(len(jobs), os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as ex:
+        done = {name: (stdout, wall) for name, stdout, wall in
+                ex.map(run, jobs)}
+    cells = []
+    print(f"dry run of train_4k ({len(jobs) - 1} cells, one "
+          f"`python -m repro_torch.launch.dryrun --arch A --shape train_4k "
+          f"--mesh M` each, {workers} at a time; meta tensors on a fake "
+          f"world, H100 datasheet roofline constants):")
+    for name, _ in jobs[1:]:
+        arch, mesh = name.split("/")
+        path = os.path.join(RESULTS_DIR, f"{arch}__train_4k__{mesh}.json")
+        with open(path) as f:
+            rec = json.load(f)
+        if rec["timestamp"] < started or rec["status"] != "ok":
+            raise AssertionError(f"dry run {name}: {rec.get('status')} "
+                                 f"{rec.get('error', '')} (record of "
+                                 f"{rec['timestamp']}, phase started "
+                                 f"{started})")
+        r = rec["roofline"]
+        cells.append({
+            "arch": arch, "mesh": mesh, "status": rec["status"],
+            "peak_gib": peak_bytes(rec["memory"]) / 2 ** 30,
+            "fits_80gib": rec["fits_80gib"],
+            "compute_ms": r["compute_s"] * 1e3,
+            "memory_ms": r["memory_s"] * 1e3,
+            "collective_ms": r["collective_s"] * 1e3,
+            "dominant": r["dominant"], "trace_s": rec["trace_s"],
+            "accum_steps": rec["accum_steps"],
+            "opt_state_dtype": rec["opt_state_dtype"],
+            "useful_flop_ratio": rec["useful_flop_ratio"],
+            "wall_s": done[name][1]})
+        c = cells[-1]
+        print(f"  {arch} {mesh}: {c['status']}, arguments + temporaries "
+              f"{c['peak_gib']:.2f} GiB ({'fits' if c['fits_80gib'] else 'does not fit'} "
+              f"{HBM_BYTES / 2 ** 30:.0f} GiB), compute {c['compute_ms']:.1f}"
+              f" ms, memory {c['memory_ms']:.1f} ms, collective "
+              f"{c['collective_ms']:.1f} ms, dominant {c['dominant']}, "
+              f"accum {c['accum_steps']}, Adam {c['opt_state_dtype']}, "
+              f"useful FLOP ratio {c['useful_flop_ratio']:.3f}, trace_s "
+              f"{c['trace_s']} (process {c['wall_s']:.1f} s)")
+    p14 = json.loads(done["phase14"][0].strip().splitlines()[-1])
+    m = p14["memory"]
+    peak = peak_bytes(m)
+    ratio = peak / train["peak_bytes"]
+    print(f"dry run of phase 14's cell ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16, remat, one-rank mesh): {p14['flops']:.0f} "
+          f"FLOPs against phase 14's counted step "
+          f"{train['step_flops']:.0f}; arguments {m['argument_size_in_bytes']}"
+          f" + temporaries {m['temp_size_in_bytes']} = {peak / 2 ** 30:.2f} "
+          f"GiB against phase 14's torch.cuda.max_memory_allocated "
+          f"{train['peak_bytes'] / 2 ** 30:.2f} GiB: ratio {ratio:.4f} "
+          f"(band {DRYRUN_PEAK_BAND}); trace {p14['trace_s']:.1f} s [{card}]")
+    if p14["flops"] != train["step_flops"]:
+        raise AssertionError(f"dry-run FLOPs {p14['flops']} != phase 14's "
+                             f"{train['step_flops']}")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise AssertionError(f"dry-run peak {peak} is {ratio:.4f} of phase "
+                             f"14's {train['peak_bytes']}")
+    return {"cells": cells, "workers": workers,
+            "phase14": {"flops": p14["flops"], "memory": m,
+                        "measured_peak_bytes": train["peak_bytes"],
+                        "peak_ratio": ratio, "trace_s": p14["trace_s"]}}
 
 
 def sharded_path(qforest, forest, rows, kernel_out, device,
@@ -4024,7 +4185,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reset_launches()
     train_ref = {}
-    tp = train_path(device, card, train_ref)
+    train = train_path(device, card, train_ref)
     counts = launch_counts()
     if any(counts.values()):
         raise AssertionError(f"training launched kernels: {counts}")
@@ -4033,7 +4194,7 @@ def main() -> int:
     print(f"training phase: {time.perf_counter() - t0:.1f} s host wall; "
           f"kernel launches in it {counts} (none: backend=\"torch\") "
           f"[{card}]")
-    print(json.dumps({"training": tp}))
+    print(json.dumps({"training": train}))
 
     # 15. data-parallel training over a one-rank NCCL group
     gc.collect()
@@ -4069,6 +4230,18 @@ def main() -> int:
           f"{tp['ranks_s']:.1f} s); kernel launches in it {counts} and in "
           f"every rank none [{card}]")
     print(json.dumps({"tensor_parallel": tp}))
+
+    # 17. the dry run of every production training cell, on the host
+    t0 = time.perf_counter()
+    reset_launches()
+    dr = dryrun_path(card, train)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the dry run launched kernels: {counts}")
+    print(f"dry-run phase: {time.perf_counter() - t0:.1f} s host wall "
+          f"({dr['workers']} processes); kernel launches in it {counts} "
+          f"[{card}]")
+    print(json.dumps({"dry_run": dr}))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

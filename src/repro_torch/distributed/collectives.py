@@ -3,7 +3,7 @@ sequence-parallel context the trainer's model runs under.
 
 The reference leaves its exchanges to GSPMD; torch has no sharding
 propagation, so the port writes each one out, as Megatron does (tensor
-parallelism with sequence parallelism):
+parallelism, with sequence parallelism where the sequence splits):
 
   * ``all_gather(x, dim, group)``: the group's chunks of ``x`` joined
     along ``dim`` in group-rank order; the backward is a reduce-scatter,
@@ -12,23 +12,29 @@ parallelism with sequence parallelism):
     rank's chunk of it along ``dim``; the backward is an all-gather;
   * ``copy_to_group``: identity forward, all-reduce (sum) backward;
   * ``reduce_from_group``: all-reduce (sum) forward, identity backward;
+  * ``all_reduce``: all-reduce (sum) forward and backward;
   * ``all_reduce_max``: in place, no gradient.
 
 Over a group of one rank each is the identity.  Every call over more
 ranks adds the bytes of the larger of its input and output to a
-per-process counter by kind (``reset_bytes``, ``bytes_moved``), which
-the trainer's step record reports.  The calls are the list forms (``dist.all_gather``,
+per-process counter by kind and one to a count of its calls
+(``reset_bytes``, ``bytes_moved``, ``calls_made``), which the trainer's
+step record and the dry run (``launch/cost_analysis.py``) report.  The calls are the list forms (``dist.all_gather``,
 ``dist.reduce_scatter``), which torch 2.11 and later both have without a
 deprecation, and which a gloo group takes on card tensors as well as on
 host ones (``chip_smoke.py`` phase 16 probes each on the card).
 
 ``Parallel`` binds a live mesh: its "model" group, the group of its data
 axes and that of the axes the batch is split over, this rank's "model"
-coordinate, and the tree of the params' ``PartitionSpec``s.  A sharded
-dim holds contiguous equal chunks in mesh-coordinate order, a dim split
-over several axes the first axis major (``distributed/sharding.py``).
+coordinate, the tree of the params' ``PartitionSpec``s, and whether the
+residual stream is split along the sequence over "model" (``split``; the
+encoder's own in ``encoder``).  A sharded dim holds contiguous equal
+chunks in mesh-coordinate order, a dim split over several axes the first
+axis major (``distributed/sharding.py``).
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.distributed as dist
@@ -36,16 +42,22 @@ import torch.distributed as dist
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_reduce_max")
 
 _BYTES = dict.fromkeys(KINDS, 0)
+_CALLS = dict.fromkeys(KINDS, 0)
 
 
 def reset_bytes() -> None:
-    for k in _BYTES:
-        _BYTES[k] = 0
+    for k in KINDS:
+        _BYTES[k] = _CALLS[k] = 0
 
 
 def bytes_moved() -> dict:
     """Bytes by kind since ``reset_bytes``."""
     return dict(_BYTES)
+
+
+def calls_made() -> dict:
+    """Calls by kind since ``reset_bytes``."""
+    return dict(_CALLS)
 
 
 def size(group) -> int:
@@ -54,6 +66,7 @@ def size(group) -> int:
 
 def _count(kind: str, *tensors) -> None:
     _BYTES[kind] += max(t.numel() * t.element_size() for t in tensors)
+    _CALLS[kind] += 1
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -128,6 +141,17 @@ class _ReduceFromGroup(torch.autograd.Function):
         return g, None
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.clone(), ctx.group), None
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale):
@@ -153,6 +177,10 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return x if size(group) == 1 else _ReduceFromGroup.apply(x, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return x if size(group) == 1 else _AllReduce.apply(x, group)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
@@ -196,11 +224,24 @@ class Parallel:
     data axes, or only the inner one when the batch does not divide them
     all), over which MoE routing gathers the global token set; ``specs``:
     the params' tree of ``PartitionSpec``s.  Axes of size 1 split nothing
-    and are ignored."""
+    and are ignored.
 
-    def __init__(self, mesh, specs, batch_axes=(), dtype=torch.float32):
+    ``split``: the residual stream is this rank's sequence chunk (S/m),
+    each sub-block gathering it and reduce-scattering its output
+    (Megatron's sequence parallelism); else, for a sequence that does not
+    split over "model" (the reference's ``constrain`` then leaves it
+    replicated), it is whole on every rank, ``chunk`` and ``gather_seq``
+    pass it through and each sub-block's closing reduce-scatter becomes an
+    all-reduce both ways (plain tensor parallelism), so the gradient a
+    rank holds for it is its share of the sum over "model".
+    ``split_enc``: the same for the encoder's stack (``split`` by
+    default), which runs under ``encoder()``."""
+
+    def __init__(self, mesh, specs, batch_axes=(), dtype=torch.float32,
+                 split: bool = True, split_enc: bool = None):
         self.specs = specs
         self.dtype = dtype
+        self.split = split
         self.m = mesh.shape.get("model", 1)
         self.model = mesh.group("model") if self.m > 1 else None
         self.r = mesh.coordinate("model") if self.m > 1 else 0
@@ -211,6 +252,16 @@ class Parallel:
         ba = tuple(a for a in batch_axes if mesh.shape[a] > 1)
         self.batch = mesh.group(ba) if ba else None
         self.batch_rank = mesh.coordinate(ba) if ba else 0
+        self.split_enc = split if split_enc is None else split_enc
+
+    def encoder(self) -> "Parallel":
+        """The context the encoder's stack runs under: this one, or a copy
+        whose sequence is split as the encoder's length allows."""
+        if self.split_enc == self.split:
+            return self
+        view = copy.copy(self)
+        view.split = self.split_enc
+        return view
 
     # ------------------------------------------------------------ params
     def model_dim(self, spec):
@@ -247,16 +298,31 @@ class Parallel:
             return t
         if have is not None:
             t = all_gather(t, have, self.model)
-        return t if dim is None else self.chunk(t, dim)
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.m
+        return t.narrow(dim, self.r * n, n)
 
     # --------------------------------------------------------- sequence
     def chunk(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's chunk of ``x`` along ``dim`` (no exchange)."""
+        """This rank's chunk of ``x`` along ``dim`` (no exchange); ``x``
+        itself when the sequence is not split."""
+        if not self.split:
+            return x
         n = x.shape[dim] // self.m
         return x.narrow(dim, self.r * n, n)
 
+    def offset(self, n: int) -> int:
+        """The global position of this rank's first of ``n`` positions."""
+        return self.r * n if self.split else 0
+
     def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return all_gather(x, dim, self.model)
+        return all_gather(x, dim, self.model) if self.split else x
 
     def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return reduce_scatter(x, dim, self.model)
+        """A sub-block's partial outputs summed over "model": this rank's
+        chunk of the sum, or the whole sum when the sequence is not
+        split."""
+        if self.split:
+            return reduce_scatter(x, dim, self.model)
+        return all_reduce(x, self.model)

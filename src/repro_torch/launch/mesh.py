@@ -13,7 +13,8 @@ bind its axis name.
 up first (``launch.cluster.initialize_from_env``) and one rank per device
 of the mesh: a mesh on the card runs over NCCL, a mesh on the CPU (asked
 for by ``device="cpu"``) over gloo, and neither stands in for the
-other.
+other; a mesh on ``"meta"`` (the dry run's shapes-only tensors) runs
+over a ``fake`` group.
 """
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ import torch.distributed as dist
 from ..core.registry import resolve_device
 
 _AMBIENT = threading.local()
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# a mesh on "meta" is the dry run's: shapes only, over its fake group
+# (``launch/cost_analysis.fake_world``)
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 
 def current_mesh() -> Optional["Mesh"]:
@@ -148,7 +151,8 @@ def _live_mesh(shape: tuple, names: tuple, device) -> Mesh:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     from torch.distributed.device_mesh import init_device_mesh
-    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    dm = init_device_mesh("cpu" if dev.type == "meta" else dev.type, shape,
+                          mesh_dim_names=names)
     return Mesh(dict(zip(names, shape)), dm, dev)
 
 

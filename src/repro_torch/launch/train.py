@@ -26,13 +26,16 @@ shard of every param, Adam moment (int8 values and row scales alike) and
 compression residual, as the sharding rules place them (``p_shards``,
 ``o_shards``; ``distributed/sharding.py``).  The rank takes its rows of
 the global batch (``data_spec`` splits dim 0 over the data axes); the
-model runs tensor and sequence parallel over "model" and gathers each
+model runs tensor parallel over "model", and sequence parallel where the
+sequence divides that axis (else the residual stream is whole on each
+rank, as the reference's ``constrain`` leaves it), and gathers each
 unit's "embed" shards over the data axes as it runs it (FSDP,
 ``models/model.py``).  Gradients a gather left partial are summed by its
 backward reduce-scatter; a coalesced f32 all-reduce sums the rest over
 the data axes (leaves the rules replicate there, and the loss) and over
-"model" (leaves replicated over it, whose ranks each saw their sequence
-chunk), and everything is divided by the replicas.  The codec, the grad
+"model" (leaves replicated over it, whose ranks each hold a share:
+their sequence chunk's, or their heads' of the whole sequence), and
+everything is divided by the replicas.  The codec, the grad
 norm and Adam then run on the shards of that global gradient, as on one
 device: a row split over ranks takes its amax over them, and the grad
 norm counts each distinct shard once.  ``save`` gathers every leaf and
@@ -126,15 +129,21 @@ class Trainer:
     ``mesh``: ``None`` trains on ``device`` alone.  A live ``Mesh`` of
     "pod"/"data"/"model" axes trains over its ranks on the mesh's device,
     each holding its shards: ``batch`` is the global batch,
-    ``accum_steps`` splits each rank's rows, and ``seq_len`` (and an
-    encdec model's encoder length) must divide the "model" axis."""
+    ``accum_steps`` splits each rank's rows.  A sequence (or an encdec
+    model's encoder length) that divides the "model" axis runs sequence
+    parallel over it, any other whole on each of its ranks
+    (``Parallel.split``).
+
+    ``q_chunk``/``loss_chunk``: the model's query and loss chunks, each
+    at most S (the dry run takes the reference's 1024,
+    ``launch.dryrun._model_for``); SSD chunks of min(128, S)."""
 
     def __init__(self, cfg, *, batch: int, seq_len: int, mesh=None,
                  lr: float = 3e-4, opt_state: str = "f32",
                  compress_grads: bool = False, remat: bool = True,
                  seed: int = 0, param_dtype=torch.float32,
                  accum_steps: int = 1, compute_dtype=torch.bfloat16,
-                 device=None):
+                 device=None, q_chunk: int = 512, loss_chunk: int = 512):
         self.mesh = _check_mesh(mesh)
         # gradient accumulation: the global batch is invariant in
         # accum_steps (an elastic restart on fewer hosts raises it)
@@ -150,9 +159,9 @@ class Trainer:
         self.accum_steps = accum_steps
         self.param_dtype = param_dtype
         self.device = resolve_device(device)
-        self.model = Model(cfg, compute_dtype, q_chunk=min(512, seq_len),
+        self.model = Model(cfg, compute_dtype, q_chunk=min(q_chunk, seq_len),
                            ssd_chunk=min(128, seq_len),
-                           loss_chunk=min(512, seq_len), remat=remat,
+                           loss_chunk=min(loss_chunk, seq_len), remat=remat,
                            backend="torch", device=self.device)
         self.opt = Adam(AdamConfig(lr=lr, state_dtype=opt_state))
         self.pipeline = SyntheticTokens(TokenPipelineConfig(
@@ -179,11 +188,6 @@ class Trainer:
             raise ValueError(f"the mesh runs on {mesh.device}, the trainer "
                              f"on {self.device}")
         m = mesh.shape["model"]
-        lengths = [self.seq_len] + ([enc_len(self.cfg, self.seq_len)]
-                                    if self._needs_enc else [])
-        if any(n % m for n in lengths):
-            raise ValueError(f"sequence lengths {lengths} do not split over "
-                             f"a \"model\" axis of {m}")
         logical = self.model.param_logical_specs()
         p_shapes = self.model.param_shapes(self.param_dtype)
         self.p_shards = tree_shardings(p_shapes, logical, mesh)
@@ -194,7 +198,11 @@ class Trainer:
         self.o_specs = tree_map(lambda s: s.spec, self.o_shards)
         self.tok_spec = data_spec(mesh, 2, self.batch)
         split = spec_axes(self.tok_spec[0])
-        self.par = Parallel(mesh, self.p_specs, split, compute_dtype)
+        self.par = Parallel(
+            mesh, self.p_specs, split, compute_dtype,
+            split=self.seq_len % m == 0,
+            split_enc=enc_len(self.cfg, self.seq_len) % m == 0
+            if self._needs_enc else None)
         # a mesh of one rank runs the one-device model: its per-unit casts
         # would be fresh tensors where one device slices a cast stack, and
         # the bf16 products' bits follow the operands' alignment
@@ -221,15 +229,15 @@ class Trainer:
             raise ValueError(f"{self.rows_per_rank} rows a replica are not "
                              f"a multiple of accum_steps {self.accum_steps}")
 
-    def init_state(self, seed: int = 0, params: Optional[dict] = None
-                   ) -> None:
+    def init_state(self, seed: int = 0, params: Optional[dict] = None,
+                   sharded: bool = False) -> None:
         """Fresh f32 masters (torch's seeded draws, not ``jax.random``'s,
         or the global tree ``params``), zero moments and residuals, step 0.
         On a mesh every rank takes rank 0's global masters, then keeps its
-        shards."""
+        shards; ``sharded``: ``params`` are already this rank's shards."""
         self.params = params if params is not None else \
             self.model.init_params(seed, torch.float32)
-        if self.mesh is not None:
+        if self.mesh is not None and not sharded:
             for p in tree_flatten(self.params)[0]:
                 dist.broadcast(p, src=0)
             self.params = self._shard(self.params, self.p_specs)
@@ -471,26 +479,30 @@ class Trainer:
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item())
 
-    def loss_and_grads(self):
+    def loss_and_grads(self, batch: Optional[tuple] = None):
         """This step's loss and gradient before the codec, under
         ``reproducible``: on a mesh the replicas' mean loss and this rank's
         shards of the global gradient (the step's collective bytes are
-        counted from here)."""
-        tokens, enc = self.batch_inputs(self.step)
+        counted from here).  ``batch``: this rank's (tokens, encoder
+        frames or None) rows in place of the step's (the dry run's)."""
+        if batch is None:
+            tokens, enc = self.batch_inputs(self.step)
+            if self.mesh is not None:
+                take = slice(self._first_row,
+                             self._first_row + self.rows_per_rank)
+                tokens = tokens[take]
+                enc = None if enc is None else enc[take]
+        else:
+            tokens, enc = batch
         with reproducible(self.device):
             if self.mesh is None:
                 return self._grads(tokens, enc)
             collectives.reset_bytes()
-            take = slice(self._first_row,
-                         self._first_row + self.rows_per_rank)
-            tokens, enc = tokens[take], None if enc is None else enc[take]
             return self._reduce_grads(*self._grads(tokens, enc))
 
-    def apply_grads(self, loss, grads) -> dict:
-        """The step from ``loss_and_grads``' result: the int8 codec if
-        asked, the f32 grad norm of what Adam sees, and Adam's update:
-        {"step", "loss", "grad_norm"}, and on a mesh the exchanges' ms and
-        bytes."""
+    def update(self, grads) -> torch.Tensor:
+        """The int8 codec if asked, then Adam's update of the state from
+        ``grads``: the f32 grad norm of what Adam sees."""
         rows = self.row_groups if self.mesh is not None else None
         with reproducible(self.device):
             if self.compress_grads:
@@ -499,6 +511,13 @@ class Trainer:
             gnorm = self._grad_norm(grads)
             self.params, self.opt_state = self.opt.update(
                 grads, self.opt_state, self.params, rows)
+        return gnorm
+
+    def apply_grads(self, loss, grads) -> dict:
+        """The step from ``loss_and_grads``' result (``update``):
+        {"step", "loss", "grad_norm"}, and on a mesh the exchanges' ms and
+        bytes."""
+        gnorm = self.update(grads)
         self.step += 1
         rec = {"step": self.step, "loss": float(loss),
                "grad_norm": float(gnorm)}

@@ -216,8 +216,9 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
                   causal: bool = True, memory=None,
                   q_chunk: int = 1024) -> torch.Tensor:
     """Self-attention (or cross-attention over the gathered encoder output
-    ``memory`` (B, Sm, D)) of this rank's sequence chunk x (B, S/m, D) →
-    its chunk of the output, on the torch engine.  ``positions`` (B, S)
+    ``memory`` (B, Sm, D)) of this rank's sequence chunk x (B, S/m, D), or
+    of the whole sequence where ``par`` does not split it, → its chunk of
+    the output (the whole output), on the torch engine.  ``positions`` (B, S)
     are global; ``md`` each weight's "model" dim."""
     H, hd = cfg.n_heads, cfg.head_dim
     K = H if memory is not None else cfg.n_kv
@@ -225,7 +226,7 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
     if H % par.m:                                   # "seq": q positions
         w = {k: par.want(v, md[k]) for k, v in p.items()}
         S = x.shape[1]
-        off = par.r * S
+        off = par.offset(S)
         q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
         if memory is not None:
             k, v = cross_memory_kv(w, memory, x.dtype)

@@ -44,8 +44,10 @@ reference's ``constrain(x, {0: "batch", 1: "model"})`` lays it out, and
 each sub-block normalises its chunk, runs its tensor-parallel body
 (``attention.attn_parallel``, ``mamba.ssm_parallel``,
 ``moe.moe_parallel``, ``layers.mlp_forward``) and returns its chunk of the
-output.  The embedding and the loss are vocab-parallel.  The sequence
-length must divide the "model" axis.
+output.  The embedding and the loss are vocab-parallel.  A sequence that
+does not split over "model" stays whole on every rank, as the
+reference's ``constrain`` then leaves it (``Parallel.split``; the
+encoder's stack by its own length, ``Parallel.encoder()``).
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.registry import resolve_device
-from ..distributed.collectives import all_reduce_max, reduce_from_group
+from ..distributed.collectives import (all_reduce_max, reduce_from_group,
+                                       scale_grad)
 from ..distributed.sharding import P
 from . import attention as attn
 from . import mamba, moe
@@ -280,8 +283,8 @@ class Model:
                     positions: torch.Tensor, u: int,
                     state: Optional[dict], *, layout=None,
                     causal: bool = True,
-                    memory: Optional[torch.Tensor] = None, md=None
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    memory: Optional[torch.Tensor] = None, md=None,
+                    par=None) -> tuple[torch.Tensor, torch.Tensor]:
         """One unit over the whole sequence → (x, the summed MoE
         load-balancing loss of its layers).  With a decode ``state`` each
         attention layer writes its K and V into the cache (int8 with
@@ -291,10 +294,10 @@ class Model:
         leave and compute.  A cross sub-block attends over the state's
         ``cross_k``/``cross_v`` in the compute dtype, as the decode steps
         read them, or else over ``memory``, the encoder's output.  On a mesh
-        x is this rank's sequence chunk and ``md`` the tree of each
-        weight's "model" dim; ``memory`` is then gathered whole."""
+        (``par``, the stack's ``Parallel``) x is this rank's sequence chunk
+        (the whole sequence where ``par`` does not split it) and ``md`` the
+        tree of each weight's "model" dim; ``memory`` is then whole."""
         cfg = self.cfg
-        par = self.parallel
         tp = par if par is not None and par.m > 1 else None
         ai = si = 0
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -370,6 +373,8 @@ class Model:
         par = self.parallel
         specs = md = None
         if par is not None:
+            if stack == "enc_blocks":
+                par = par.encoder()
             specs = tree_map(lambda s: P(*s[1:]), par.specs[stack])
             md = tree_map(par.model_dim, specs)
         for u in range(n):
@@ -378,7 +383,7 @@ class Model:
                     up = par.take_tree(up, specs)
                 return self._apply_unit(up, x, positions, u, state,
                                         layout=layout, causal=causal,
-                                        memory=memory, md=md)
+                                        memory=memory, md=md, par=par)
             up = self._unit(params, u, stack)
             x, a = (checkpoint(unit, x, up, use_reentrant=False) if remat
                     else unit(x, up))
@@ -426,7 +431,7 @@ class Model:
             params = self.cast(params)
         memory = self._memory(params, state, enc_embeds, remat)
         if memory is not None and self.parallel is not None:
-            memory = self.parallel.gather_seq(memory)
+            memory = self.parallel.encoder().gather_seq(memory)
         tokens = self._tokens(tokens)
         x = self._embed(params, tokens)
         B, S = tokens.shape
@@ -449,7 +454,7 @@ class Model:
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         if self.parallel is not None:
-            x = self.parallel.chunk(x, 1)
+            x = self.parallel.encoder().chunk(x, 1)
         x, _ = self._stack(params, x, positions, stack="enc_blocks",
                            layout=ENC_LAYOUT, causal=False, remat=remat)
         return rmsnorm(x, self._leaf(params, "enc_norm"), cfg.norm_eps)
@@ -486,7 +491,7 @@ class Model:
         if tp and self._model_dim("embed", "lm_head") == 1:
             h = par.gather_seq(h)
             chunk_loss = self._vocab_parallel_loss
-        elif tp:
+        elif tp and par.split:
             # the head whole: each rank's own positions, summed over "model"
             labels, mask = par.chunk(labels, 1), par.chunk(mask, 1)
         S = h.shape[1]
@@ -502,7 +507,11 @@ class Model:
                                         use_reentrant=False)
                              if self.remat else chunk_loss(*args))
         if tp and chunk_loss is self._chunk_loss:
-            total = reduce_from_group(total, par.model)
+            # the head whole: the ranks' own positions summed, or, with
+            # every position on every rank, each rank's loss whole and its
+            # gradient (the head's and h's) a rank's share of the sum
+            total = (reduce_from_group(total, par.model) if par.split
+                     else scale_grad(total, 1.0 / par.m))
         return total / ntok + 0.01 * aux
 
     @staticmethod

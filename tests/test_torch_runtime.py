@@ -258,6 +258,34 @@ def test_controller_decisions_match_the_reference(stream, slo_kw):
     assert port_c.decisions == ref_c.decisions and port_c.decisions
 
 
+class _SteppedTime:
+    """A runtime module's ``time`` whose ``perf_counter`` advances a fixed
+    step a call, so a batch's compute time (``t_sync - t0``, three calls
+    apart in both packages) is virtual and the same in both; the rest is
+    the real module."""
+
+    def __init__(self, step_s: float):
+        self.now, self.step = 0.0, step_s
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.fixture
+def virtual_compute(monkeypatch):
+    """Both runtimes' batches take a virtual 0.3 ms (three 0.1 ms steps):
+    with the host's real compute time in the latencies, a loaded machine
+    moved the controller's knobs in one package and not the other."""
+    from repro.inference import runtime as ref_runtime
+    from repro_torch.inference import runtime as port_runtime
+    for mod in (ref_runtime, port_runtime):
+        monkeypatch.setattr(mod, "time", _SteppedTime(1e-4))
+
+
 def _virtual_run(pkg_rt, slo, pred, X, arrivals, pump_delay):
     """Submit X at ``arrivals`` (virtual seconds), pump ``pump_delay``
     after each; returns ([rids per batch], [knobs after each pump],
@@ -295,10 +323,11 @@ def _batches_of(done):
     dict(target=2.0, gap=0.004, delay=0.03, burst=3),
 ], ids=["shrink", "grow", "hold", "bursts"])
 def test_virtual_clock_batches_and_knobs_match_the_reference(
-        int_pair, scenario):
+        int_pair, scenario, virtual_compute):
     """The same virtual arrivals under ``pump``/``flush`` give the same
     batches (request ids), the same effective knobs after every pump and
-    array-equal scores in both packages."""
+    array-equal scores in both packages; each batch's compute time is
+    virtual too (``virtual_compute``)."""
     ref_f, port_f = int_pair
     n = 40
     X = np.random.default_rng(9).normal(size=(n, 6))

@@ -8,8 +8,11 @@ the port's ``Trainer(mesh=)``, on the CPU over gloo, held against
   dense, moe and encdec families' reduced configs in f32 (dense 4 heads /
   2 kv: "heads" attention, the kv gathered at m = 4; dense 3 heads / 1
   kv, vocab 510, d_ff 126: "seq" attention, and at m = 4 the head and
-  the MLP whole), the collectives' forward and backward, shard/gather
-  round trips, the codec and int8 moments, and a (2, 2) checkpoint
+  the MLP whole; both dense configs at S = 30 and encdec at S = 68 (17
+  encoder frames), whose lengths do not split four ways: the residual
+  stream whole on each rank, and at (1, 4) the 3-head one's head whole
+  with every position on every rank), the collectives' forward and
+  backward, shard/gather round trips, the codec and int8 moments, and a (2, 2) checkpoint
   restored on (1, 4) and (4, 1).  ``tests/test_torch_tp_families.py``
   does the same for the ssm and hybrid families.
 * Tolerances as ``tests/tp_checks.py`` states; a restored run continues
@@ -17,8 +20,11 @@ the port's ``Trainer(mesh=)``, on the CPU over gloo, held against
   int8 moments on shards are bit for bit the one-device codec on the
   gathered tensors.
 * No processes: shard/gather shapes for every leaf of the ten configs on
-  abstract (16, 16) and (2, 16, 16) meshes, and ``launch/dryrun.py``'s
-  ``_accum_steps`` / ``_analytic_memory`` against the reference's.
+  abstract (16, 16) and (2, 16, 16) meshes, ``launch/dryrun.py``'s
+  ``_accum_steps`` / ``_analytic_memory`` against the reference's, and
+  the dry run's trace of the dense cases on a fake world of four
+  (``launch/cost_analysis.py``) against the live ranks' collective and
+  stored bytes.
 """
 import os
 
@@ -47,7 +53,8 @@ RESTORE_RTOL = 1e-4
 # the dense, moe and encdec cases and every mesh-wide check; the ssm and
 # hybrid families spawn their own world in tests/test_torch_tp_families.py,
 # so that each file's share of an xdist worker stays small
-CASES = ("dense", "dense_seq", "moe", "encdec")
+CASES = ("dense", "dense_seq", "dense_s30", "dense_seq_s30", "moe", "encdec",
+         "encdec_e17")
 ABSTRACT = {"16x16": ((16, 16), ("data", "model")),
             "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -178,8 +185,32 @@ def test_checkpoint_crosses_meshes_and_packages(world):
 
 
 def test_sequence_must_split_over_the_model_axis(world):
-    msg = world[1][0]["seq_error"]
-    assert "[34]" in msg and '"model" axis of 4' in msg
+    """Only to run sequence parallel: at (1, 4) a length of 30 (or an
+    encoder's 17 frames) trains with the residual whole on each rank,
+    the decoder's 68 split (the cases' steps above)."""
+    assert world[1][0]["split"] == {"dense": (True, True),
+                                    "dense_s30": (False, False),
+                                    "dense_seq_s30": (False, False),
+                                    "encdec_e17": (True, False)}
+
+
+@pytest.mark.parametrize("mesh", checks.MESHES, ids=checks.mesh_id)
+@pytest.mark.parametrize("case", ("dense", "dense_s30"))
+def test_dry_run_counts_equal_the_live_step(world, case, mesh):
+    """The dry run's trace of rank 0's step on a fake world of four: its
+    collective bytes by kind and its argument bytes equal what the live
+    rank 0 counted and stored."""
+    from repro_torch.launch.cost_analysis import fake_world, trace_step
+    from repro_torch.launch.mesh import make_debug_mesh
+    live = world[1][0]
+    with fake_world(4):
+        tr = ranks.tp_trainer(case, make_debug_mesh(*mesh, device="meta"),
+                              device="meta")
+        got = trace_step(tr)
+    assert dict(got.cost.collectives.per_op) == {
+        k: v for k, v in live[case, mesh, "bytes"].items() if v}
+    assert got.memory["argument_size_in_bytes"] == live[case, mesh,
+                                                         "stored"]
 
 
 # ----------------------------------------------------------------- dryrun

@@ -193,16 +193,26 @@ def two_ranks(rank, world, tmp, accum):
 # reduced config, plus two whose dims split over (2, 2) but not over
 # (1, 4), each then taking its whole-weight path: a dense one with 3
 # heads ("seq" attention at both), vocab 510 and d_ff 126, and a hybrid
-# one with 3 experts and 2 SSD heads in one group
+# one with 3 experts and 2 SSD heads in one group; and two at sequence
+# lengths (TP_SEQ) that do not split over "model" = 4: dense at 30 (whole
+# on every rank at (1, 4), split at (2, 2)), the 3-head dense one at 30
+# (at (1, 4) the head then whole and every position on every rank) and
+# encdec at 68, whose encoder's 17 frames split over neither mesh while
+# its decoder's do
 TP_CASES = (("dense", "smollm_360m", {}),
+            ("dense_s30", "smollm_360m", {}),
             ("dense_seq", "smollm_360m", {"n_heads": 3, "n_kv": 1,
                                           "vocab": 510, "d_ff": 126}),
+            ("dense_seq_s30", "smollm_360m", {"n_heads": 3, "n_kv": 1,
+                                              "vocab": 510, "d_ff": 126}),
             ("moe", "phi3_5_moe_42b", {}),
             ("ssm", "mamba2_370m", {}),
             ("hybrid", "jamba_1_5_large_398b", {}),
             ("hybrid_odd", "jamba_1_5_large_398b",
              {"n_experts": 3, "ssm_headdim": 64, "ssm_ngroups": 1}),
-            ("encdec", "seamless_m4t_large_v2", {}))
+            ("encdec", "seamless_m4t_large_v2", {}),
+            ("encdec_e17", "seamless_m4t_large_v2", {}))
+TP_SEQ = {"dense_s30": 30, "dense_seq_s30": 30, "encdec_e17": 68}
 TP_MESHES = ((2, 2), (1, 4))
 TP_BATCH, TP_STEPS = 2, 3
 # the case whose codec and int8 moments are held to one device's bits (its
@@ -218,11 +228,27 @@ def tp_config(case):
     return dataclasses.replace(get_config(arch).reduced(), **kw)
 
 
-def tp_trainer(case, mesh=None, **kw):
+def tp_seq(case) -> int:
+    return TP_SEQ.get(case, SEQ)
+
+
+def tp_trainer(case, mesh=None, device="cpu", **kw):
     import torch
     from repro_torch.launch.train import Trainer
-    return Trainer(tp_config(case), batch=TP_BATCH, seq_len=SEQ, mesh=mesh,
-                   compute_dtype=torch.float32, device="cpu", **kw)
+    return Trainer(tp_config(case), batch=TP_BATCH, seq_len=tp_seq(case),
+                   mesh=mesh, compute_dtype=torch.float32, device=device,
+                   **kw)
+
+
+def stored_bytes(tr) -> int:
+    """Bytes this rank keeps for a step: its state's shards and its rows
+    of the step's tokens (and encoder frames)."""
+    from repro_torch.models.model import tree_flatten
+    tokens, enc = tr.batch_inputs(tr.step)
+    rows = [t[tr._first_row:tr._first_row + tr.rows_per_rank]
+            for t in (tokens, enc) if t is not None]
+    return sum(t.numel() * t.element_size() for t in
+               tree_flatten(tr.state_tree())[0] + rows)
 
 
 def load_tree(path):
@@ -280,7 +306,6 @@ def tp_ranks(rank, world, tmp, cases, extras):
     from repro_torch.distributed.sharding import P, gather_tensor, \
         shard_tensor
     from repro_torch.launch.cluster import initialize_from_env
-    from repro_torch.launch.train import Trainer
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.convert import params_from_reference
     from repro_torch.models.model import tree_flatten
@@ -307,6 +332,7 @@ def tp_ranks(rank, world, tmp, cases, extras):
             recs += [tr.train_step() for _ in range(TP_STEPS - 1)]
             out[case, shape] = _records(recs)
             out[case, shape, "bytes"] = recs[-1]["collective_bytes"]
+            out[case, shape, "stored"] = stored_bytes(tr)
             out[case, shape, "shapes"] = [
                 tuple(t.shape) for t in tree_flatten(tr.state_tree())[0]]
 
@@ -318,11 +344,10 @@ def tp_ranks(rank, world, tmp, cases, extras):
         torch.equal(gather_tensor(shard_tensor(g, s, m22), s, m22), g)
         for s in (P("data", "model"), P("model", None), P(None, "data"),
                   P(("data", "model"), None), P(None, None))]
-    try:
-        Trainer(tp_config("dense"), batch=TP_BATCH, seq_len=SEQ + 2,
-                mesh=meshes[1, 4], device="cpu")
-    except ValueError as e:
-        out["seq_error"] = str(e)
+    out["split"] = {case: (tr.par.split, tr.par.split_enc) for case, tr in
+                    ((c, tp_trainer(c, meshes[1, 4])) for c in
+                     ("dense", "dense_s30", "dense_seq_s30",
+                      "encdec_e17"))}
     for case in TP_CODEC:
         tr = tp_trainer(case, m22, compress_grads=True, opt_state="int8")
         tr.init_state(params=params_from_reference(

@@ -76,7 +76,7 @@ def _ref_params(case):
     inert)."""
     _, arch, kw = next(c for c in ranks.TP_CASES if c[0] == case)
     cfg = dataclasses.replace(ref_configs.get_config(arch).reduced(), **kw)
-    seq = ranks.SEQ
+    seq = ranks.tp_seq(case)
     model = RefModel(cfg, compute_dtype=jnp.float32, q_chunk=seq,
                      ssd_chunk=REF_SSD_CHUNK.get(case, seq), loss_chunk=seq,
                      remat=False)
