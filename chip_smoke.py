@@ -220,9 +220,38 @@ or JAX.  Phases:
     cell (smollm-360m, 4 x 4096, bf16, remat) on a one-rank mesh: its
     FLOPs equal the ``FlopCounterMode`` count of a step of phase 14's,
     and its arguments plus temporaries lie within ``DRYRUN_PEAK_BAND`` of
-    phase 14's ``torch.cuda.max_memory_allocated``.  No kernel launches;
-    the kernel records are unchanged and a ``{"dry_run": ...}`` line
-    follows the tensor-parallel line.
+    phase 14's ``torch.cuda.max_memory_allocated``; (c) the serving cells
+    on the (16, 16) mesh: ``--shape prefill_32k``, ``decode_32k`` and
+    ``long_500k`` for every architecture, the decode and long-context
+    cells also with ``--kv-quant``: each ``ok``, or ``skipped`` where the
+    reference skips it (long_500k on pure full-attention architectures).
+    No kernel launches; the kernel records are unchanged and a
+    ``{"dry_run": ...}`` line follows the tensor-parallel line.
+18. sharded serving (``launch.serve_step.ServeStep``: ``Model.prefill``
+    and ``decode_step`` on a live mesh), four spawned ranks on the one
+    card over gloo as in phase 16, each holding only its shards of the
+    bf16 weights and of the decode state: (a) phi3-mini-3.8b at its
+    published size on (1, 4) ("heads" attention: ``flash_forward`` on the
+    rank's 8 of 32 heads at hd 96, one launch per attention layer per
+    rank in the prefill, all ``wgmma``), 4 x 1024 prompts then 16 tokens;
+    (b) smollm-360m at its published size on (2, 2) ("seq" attention on
+    the torch engine, its cache split over head_dim, the batch over the
+    data axis) and (c) mamba2-370m at its published size on (1, 4) (its
+    SSD heads and conv window split), each 4 x 512 then 8 tokens, no
+    kernel launch; (d) every family's .reduced() in f32 on (2, 2), the
+    attention families also with the int8 cache.  Each case is held to
+    the mesh-less ``ServeStep`` on the card: the prefill's last logits
+    and each decode step's, teacher-forced with the mesh-less run's
+    greedy tokens, within ``SERVE_BF16_STEPS`` bf16 steps of the largest
+    |logit| in bf16 (beside the mesh-less step's own spread,
+    ``serve_tp_floors``) and within the CPU tests' bounds in f32; the
+    greedy tokens that agree, launches by route per rank, and prefill and
+    decode ms (gloo stages the exchanges through host memory: no speed
+    conclusion).
+    Then ``flash_forward`` at (a)'s per-rank shape against its plain
+    version and timed beside SDPA.  Every kernel record gains
+    ``serve_tp_launches`` and a ``{"sharded_serving": ...}`` line
+    follows the dry-run line.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -540,6 +569,31 @@ TP_REDUCED = ("smollm_360m", "phi3_5_moe_42b", "mamba2_370m",
 TP_REDUCED_BATCH, TP_REDUCED_SEQ, TP_REDUCED_STEPS = 4, 32, 3
 TP_STEP0_REL, TP_LATER_REL, TP_RESTORE_RTOL = 1e-5, 1e-3, 1e-4
 TP_JOIN_S = 900.0
+# sharded serving (phase 18), four ranks on the one card over gloo: (arch,
+# mesh, batch, prompt, new tokens) at the published sizes, bf16, each
+# prefill's last logits and each decode step's within SERVE_BF16_STEPS bf16
+# steps of the largest |logit| of the mesh-less step's (absolute; a step
+# is 2^-8 to 2^-7 of that logit).  The sharded GEMMs sum in other orders
+# than the whole ones, and 32-48 layers of bf16 activations carry the
+# rounding: the most read on the card was 2.75 steps (mamba2-370m decode,
+# 48 layers).  The mesh-less step's own spread under a change of
+# summation order alone is printed beside it (serve_tp_floors).  The
+# reduced configs (arch, kv_quant) in f32 on (2, 2) at
+# tests/test_torch_serve_tp.py's bounds, (batch, prompt, new tokens,
+# encoder frames) SERVE_TP_SMALL
+SERVE_TP_FULL = (("phi3_mini_3_8b", (1, 4), 4, 1024, 16),
+                 ("smollm_360m", (2, 2), 4, 512, 8),
+                 ("mamba2_370m", (1, 4), 4, 512, 8))
+SERVE_TP_REDUCED = (("smollm_360m", False), ("smollm_360m", True),
+                    ("phi3_5_moe_42b", False), ("mamba2_370m", False),
+                    ("jamba_1_5_large_398b", False),
+                    ("jamba_1_5_large_398b", True),
+                    ("seamless_m4t_large_v2", False),
+                    ("seamless_m4t_large_v2", True))
+SERVE_TP_SMALL = (4, 16, 4, 8)
+SERVE_PREFILL_REL, SERVE_DECODE_REL = 1e-5, 1e-3
+SERVE_BF16_STEPS = 4
+SERVE_FLASH_REPS = 50
 # the dry run (phase 17): every production training cell, one process a
 # (arch, mesh) on the host's cores, the longest traces first (on one
 # CPU core: jamba 248 s, mamba2 93 s, command-r 68 s, grok 48 s, the rest
@@ -550,6 +604,11 @@ DRYRUN_ARCHS = ("jamba_1_5_large_398b", "mamba2_370m",
                 "seamless_m4t_large_v2", "phi3_mini_3_8b", "phi3_5_moe_42b",
                 "smollm_360m", "starcoder2_3b")
 DRYRUN_PEAK_BAND = (0.75, 1.25)
+# the serving cells phase 17 runs, on the (16, 16) mesh only (the
+# (2, 16, 16) mesh's would double the phase's time), in processes after
+# each architecture's training cells; the decode and long-context cells
+# also with --kv-quant
+DRYRUN_SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 DRYRUN_TIMEOUT_S = 600.0
 # H100 SXM datasheet peaks: HBM bytes/s; the non-tensor f32 rate, here
 # the rate of every 32-bit compare, logic or integer instruction (twice
@@ -2871,16 +2930,17 @@ def tp_rank(rank, world, init, tmp, backend, plan, results) -> None:
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn_ranks(world, tmp, backend, plan) -> list:
-    """``tp_rank`` in ``world`` spawned processes over a localhost TCP
-    rendezvous; their results by rank.  Raises on an error in any rank or
-    after ``TP_JOIN_S``; every process is joined or killed."""
+def spawn_ranks(world, tmp, backend, plan, target=None) -> list:
+    """``target`` (``tp_rank`` by default) in ``world`` spawned processes
+    over a localhost TCP rendezvous; their results by rank.  Raises on an
+    error in any rank or after ``TP_JOIN_S``; every process is joined or
+    killed."""
     import multiprocessing as mp
     import queue
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=tp_rank,
+    procs = [ctx.Process(target=target or tp_rank,
                          args=(r, world, init, tmp, backend, plan,
                                results))
              for r in range(world)]
@@ -3068,6 +3128,17 @@ print(json.dumps({{"flops": got.cost.flops, "memory": got.memory,
 """
 
 
+# the dry run's child for one architecture's serving cells on the (16, 16)
+# mesh: (shape, kv_quant) each, its record saved by run_cell
+DRYRUN_SERVE_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch.dryrun import run_cell
+for shape, kv_quant in {cells!r}:
+    run_cell({arch!r}, shape, "single", kv_quant=kv_quant)
+"""
+
+
 def dryrun_path(card: str, train: dict) -> dict:
     """Phase 17: the port's dry run (``launch/dryrun.py`` over
     ``launch/cost_analysis.py``), no JAX and no card: (a) every
@@ -3077,11 +3148,15 @@ def dryrun_path(card: str, train: dict) -> dict:
     fails); (b) phase 14's own cell on a one-rank mesh: its FLOPs equal
     the ``FlopCounterMode`` count of a step of phase 14's, and its
     arguments plus temporaries lie within ``DRYRUN_PEAK_BAND`` of the
-    peak phase 14 measured."""
+    peak phase 14 measured; (c) the serving cells
+    (``DRYRUN_SERVE_SHAPES``) on the (16, 16) mesh, the decode and
+    long-context ones also with ``--kv-quant``: each record ``ok``, or,
+    run in this process, ``skipped`` where the reference skips it."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.configs import SHAPES, shape_applicable
     from repro_torch.launch.cost_analysis import peak_bytes
-    from repro_torch.launch.dryrun import HBM_BYTES, RESULTS_DIR
+    from repro_torch.launch.dryrun import HBM_BYTES, RESULTS_DIR, run_cell
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -3090,11 +3165,29 @@ def dryrun_path(card: str, train: dict) -> dict:
     jobs = [("phase14", [sys.executable, "-c", DRYRUN_PHASE14_CHILD.format(
         src=os.path.join(root, "src"), arch=TRAIN_ARCH, batch=TRAIN_BATCH,
         seq=TRAIN_SEQ)])]
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch"]
+    # the records each job writes: (arch, shape, mesh name)
+    cells_of = {"phase14": []}
+    skipped = []
     for arch in DRYRUN_ARCHS:
         for mesh in ("single", "multi"):
-            jobs.append((f"{arch}/{mesh}", [
-                sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            jobs.append((f"{arch}/{mesh}", cli + [
                 arch, "--shape", "train_4k", "--mesh", mesh]))
+            cells_of[jobs[-1][0]] = [(arch, "train_4k", mesh)]
+        # the serving cells of one architecture in one process: a process
+        # takes ~20 s to start on the card host, a decode cell ~5 s
+        serve = [("prefill_32k", False)]
+        for shape in DRYRUN_SERVE_SHAPES[1:]:
+            if shape_applicable(get_config(arch), SHAPES[shape])[0]:
+                serve += [(shape, False), (shape, True)]
+            else:
+                skipped.append((arch, shape))
+        jobs.append((f"{arch}/serving", [
+            sys.executable, "-c", DRYRUN_SERVE_CHILD.format(
+                src=os.path.join(root, "src"), arch=arch, cells=serve)]))
+        cells_of[jobs[-1][0]] = [
+            (arch, shape, "single__kvq8" if kvq else "single")
+            for shape, kvq in serve]
     started = time.time()
 
     def run(job):
@@ -3112,13 +3205,17 @@ def dryrun_path(card: str, train: dict) -> dict:
         done = {name: (stdout, wall) for name, stdout, wall in
                 ex.map(run, jobs)}
     cells = []
-    print(f"dry run of train_4k ({len(jobs) - 1} cells, one "
-          f"`python -m repro_torch.launch.dryrun --arch A --shape train_4k "
-          f"--mesh M` each, {workers} at a time; meta tensors on a fake "
-          f"world, H100 datasheet roofline constants):")
-    for name, _ in jobs[1:]:
-        arch, mesh = name.split("/")
-        path = os.path.join(RESULTS_DIR, f"{arch}__train_4k__{mesh}.json")
+    n_cells = sum(len(c) for c in cells_of.values())
+    print(f"dry run of train_4k and the serving cells ({n_cells} cells in "
+          f"{len(jobs) - 1} processes, {workers} at a time: `python -m "
+          f"repro_torch.launch.dryrun --arch A --shape train_4k --mesh M` "
+          f"each, and one process an architecture running `run_cell` for "
+          f"its serving cells on the (16, 16) mesh; "
+          f"meta tensors on a fake world, H100 datasheet roofline "
+          f"constants):")
+    for name, arch, shape, mesh in [(n, *c) for n, _ in jobs
+                                    for c in cells_of[n]]:
+        path = os.path.join(RESULTS_DIR, f"{arch}__{shape}__{mesh}.json")
         with open(path) as f:
             rec = json.load(f)
         if rec["timestamp"] < started or rec["status"] != "ok":
@@ -3128,26 +3225,39 @@ def dryrun_path(card: str, train: dict) -> dict:
                                  f"{started})")
         r = rec["roofline"]
         cells.append({
-            "arch": arch, "mesh": mesh, "status": rec["status"],
+            "arch": arch, "shape": shape, "mesh": mesh,
+            "status": rec["status"],
             "peak_gib": peak_bytes(rec["memory"]) / 2 ** 30,
             "fits_80gib": rec["fits_80gib"],
+            "argument_parts": rec["memory"]["argument_parts"],
             "compute_ms": r["compute_s"] * 1e3,
             "memory_ms": r["memory_s"] * 1e3,
             "collective_ms": r["collective_s"] * 1e3,
             "dominant": r["dominant"], "trace_s": rec["trace_s"],
-            "accum_steps": rec["accum_steps"],
-            "opt_state_dtype": rec["opt_state_dtype"],
+            "accum_steps": rec.get("accum_steps"),
+            "opt_state_dtype": rec.get("opt_state_dtype"),
             "useful_flop_ratio": rec["useful_flop_ratio"],
             "wall_s": done[name][1]})
         c = cells[-1]
-        print(f"  {arch} {mesh}: {c['status']}, arguments + temporaries "
-              f"{c['peak_gib']:.2f} GiB ({'fits' if c['fits_80gib'] else 'does not fit'} "
+        kind = (f"accum {c['accum_steps']}, Adam {c['opt_state_dtype']}, "
+                if shape == "train_4k" else
+                f"state {c['argument_parts']['state'] / 2 ** 30:.3f} GiB, ")
+        print(f"  {arch} {shape} {mesh}: {c['status']}, arguments + "
+              f"temporaries {c['peak_gib']:.2f} GiB "
+              f"({'fits' if c['fits_80gib'] else 'does not fit'} "
               f"{HBM_BYTES / 2 ** 30:.0f} GiB), compute {c['compute_ms']:.1f}"
               f" ms, memory {c['memory_ms']:.1f} ms, collective "
               f"{c['collective_ms']:.1f} ms, dominant {c['dominant']}, "
-              f"accum {c['accum_steps']}, Adam {c['opt_state_dtype']}, "
-              f"useful FLOP ratio {c['useful_flop_ratio']:.3f}, trace_s "
-              f"{c['trace_s']} (process {c['wall_s']:.1f} s)")
+              f"{kind}useful FLOP ratio {c['useful_flop_ratio']:.3f}, "
+              f"trace_s {c['trace_s']} (process {c['wall_s']:.1f} s)")
+    for arch, shape in skipped:
+        rec = run_cell(arch, shape, "single", save=False)
+        if rec["status"] != "skipped":
+            raise AssertionError(f"dry run {arch} {shape}: {rec['status']}")
+        cells.append({"arch": arch, "shape": shape, "mesh": "single",
+                      "status": "skipped"})
+    print(f"  skipped as the reference skips them: "
+          f"{', '.join(f'{a} {s}' for a, s in skipped)}")
     p14 = json.loads(done["phase14"][0].strip().splitlines()[-1])
     m = p14["memory"]
     peak = peak_bytes(m)
@@ -3170,6 +3280,328 @@ def dryrun_path(card: str, train: dict) -> dict:
             "phase14": {"flops": p14["flops"], "memory": m,
                         "measured_peak_bytes": train["peak_bytes"],
                         "peak_ratio": ratio, "trace_s": p14["trace_s"]}}
+
+
+def serve_tp_plan(device_type: str = "cuda", small: bool = False) -> dict:
+    """What phase 18 runs; ``small`` shrinks (a)-(c) to .reduced()
+    configs at (d)'s shape, for a rehearsal on the CPU."""
+    plan = dict(device_type=device_type, full=SERVE_TP_FULL,
+                reduced=SERVE_TP_REDUCED, small=small)
+    if small:
+        B, S, T, _ = SERVE_TP_SMALL
+        plan["full"] = tuple((a, m, B, S, T) for a, m, *_ in SERVE_TP_FULL)
+        plan["reduced"] = SERVE_TP_REDUCED[:2]
+    return plan
+
+
+def serve_tp_cases(plan) -> list:
+    """(label, config, mesh shape, batch, prompt, new tokens, frames,
+    kv_quant, dtype) of every phase-18 case."""
+    out = []
+    for arch, mesh, B, S, T in plan["full"]:
+        cfg = get_config(arch)
+        out.append((f"{arch} {mesh[0]}x{mesh[1]}",
+                    cfg.reduced() if plan["small"] else cfg, mesh, B, S, T,
+                    0, False, torch.bfloat16))
+    B, S, T, frames = SERVE_TP_SMALL
+    for arch, quant in plan["reduced"]:
+        cfg = get_config(arch).reduced()
+        out.append((f"{arch} reduced{' int8' * quant} 2x2", cfg, (2, 2), B,
+                    S, T, frames if cfg.family == "encdec" else 0, quant,
+                    torch.float32))
+    return out
+
+
+def serve_tp_step(case, device, mesh=None):
+    """A decode ``ServeStep`` of ``case`` on the card, on ``mesh`` or on
+    none, its weights drawn from ``LM_SEED`` (leaf by leaf; with the
+    mamba constants redrawn where the model has SSD blocks, from a whole
+    tree)."""
+    _, cfg, _, B, S, T, _, quant, dtype = case
+    from repro_torch.launch.serve_step import ServeStep
+    step = ServeStep(cfg, "decode", B, S + T, mesh=mesh, kv_quant=quant,
+                     backend="cuda", device=device, compute_dtype=dtype)
+    if cfg.ssm_state:
+        tree = redraw_ssm_constants(Model(cfg, device=device).init_params(
+            LM_SEED), LM_SEED + 1)
+        step.load_params(tree)
+        del tree
+    else:
+        step.load_params(seed=LM_SEED)
+    return step
+
+
+def serve_tp_inputs(case, device):
+    """Seeded prompts (B, S) and encoder frames (B, frames, D) or None."""
+    _, cfg, _, B, S, _, frames, _, _ = case
+    prompts = torch.as_tensor(lm_prompts(cfg, B, S), device=device)
+    enc = None
+    if frames:
+        enc = torch.randn(B, frames, cfg.d_model, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(LM_SEED))
+    return prompts, enc
+
+
+def serve_tp_drive(step, case, device, teacher=None) -> dict:
+    """Init the state, prefill, then one decode step a new token, each fed
+    ``teacher``'s token (the rank's rows of it), or greedily the argmax of
+    the last logits without; every launch count set to 0 before the
+    prefill and before the decode loop and read after each; host ms of
+    each (synchronised).  Returns the logits (f32) and tokens as numpy
+    arrays (a spawned rank's tensors would not outlive it)."""
+    T = case[5]
+    prompts, enc = serve_tp_inputs(case, device)
+    step.init_state(None if enc is None else step.rows(enc))
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    logits = [step.prefill(step.rows(prompts))]
+    sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_routes = dict(flash_forward.launches_by_route)
+    prefill_counts = launch_counts()
+    reset_launches()
+    tokens = []
+    t0 = time.perf_counter()
+    for t in range(T):
+        tok = logits[-1].argmax(-1, keepdim=True) if teacher is None \
+            else step.rows(teacher[t])
+        tokens.append(tok)
+        logits.append(step.decode(tok))
+    sync(device)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / T
+    return {"logits": torch.stack([x.float().cpu() for x in logits])
+            .numpy(),
+            "tokens": np.stack([x.cpu().numpy() for x in tokens]),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "prefill_routes": prefill_routes,
+            "prefill_counts": prefill_counts,
+            "decode_counts": launch_counts(),
+            "rows": (step.first_row, step.rows_per_rank)}
+
+
+def serve_tp_floors(step, case, device, want) -> dict:
+    """How far the mesh-less bf16 ``step`` moves when only the order of
+    its sums changes, in bf16 steps of the largest |logit| (the largest
+    over the prefill's and the decode steps' logits), teacher-forced with
+    its own greedy tokens ``want["tokens"]``: ``reduction``, run again
+    with cuBLAS's reduced-precision reductions of bf16 products off;
+    ``rows``, one prompt row at a time (the products' other row counts
+    pick other GEMM tilings).  No launch of it is counted."""
+    _, cfg, _, B, S, T, _, _, dtype = case
+    teacher = torch.as_tensor(want["tokens"], device=device)
+    x = want["logits"]
+
+    def steps(got):
+        return max(float(np.abs(g - w).max() / bf16_step(
+            float(np.abs(w).max()))) for g, w in zip(got, x))
+    mm = torch.backends.cuda.matmul
+    flag = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        reduction = steps(serve_tp_drive(step, case, device, teacher)
+                          ["logits"])
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = flag
+    from repro_torch.launch.serve_step import ServeStep
+    one = ServeStep(cfg, "decode", 1, S + T, backend="cuda", device=device,
+                    compute_dtype=dtype)
+    one.load_params(step.params, sharded=True)
+    rows = []
+    for b in range(B):
+        one.first_row = b                 # the rows a data-parallel rank takes
+        rows.append(serve_tp_drive(one, case, device, teacher)["logits"])
+    reset_launches()
+    return {"reduction": reduction,
+            "rows": steps(np.concatenate(rows, axis=1))}
+
+
+def serve_tp_rank(rank, world, init, tmp, backend, plan, results) -> None:
+    """One rank of phase 18: join the group, build the (2, 2) and (1, 4)
+    meshes, and run every case against the mesh-less run's tokens
+    (``tmp``); put its results (or its traceback) on ``results``."""
+    import traceback
+    try:
+        if plan["device_type"] == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        else:
+            device = torch.device("cpu")
+            torch.set_num_threads(1)
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(
+                                    seconds=DP_TIMEOUT_S))
+        meshes = {shape: tp_mesh(shape, device, backend)
+                  for shape in ((2, 2), (1, 4))}
+        with np.load(os.path.join(tmp, "serve_teachers.npz")) as z:
+            teachers = {k: z[k] for k in z.files}
+        out = {}
+        for case in serve_tp_cases(plan):
+            t0 = time.perf_counter()
+            step = serve_tp_step(case, device, meshes[case[2]])
+            run = serve_tp_drive(step, case, device, torch.as_tensor(
+                teachers[case[0]], device=device))
+            run["param_bytes"] = tree_bytes(step.params)
+            run["state_bytes"] = tree_bytes(
+                {k: v for k, v in step.state.items() if k != "index"})
+            run["wall_s"] = time.perf_counter() - t0
+            out[case[0]] = run
+            del step
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 — carried to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+def serve_tp_path(device, card: str, plan=None) -> dict:
+    """Phase 18: every case on the mesh-less ``ServeStep`` on the device
+    (greedy), then on four gloo ranks teacher-forced with its tokens; the
+    checks and the lines.  Raises on a bound missed or a launch count off:
+    (a)'s prefill must launch ``flash_forward`` (route ``wgmma``) once per
+    attention layer on every rank, and no case's decode any kernel."""
+    plan = plan or serve_tp_plan()
+    cases = serve_tp_cases(plan)
+    ref, teachers = {}, {}
+    t0 = time.perf_counter()
+    for case in cases:
+        step = serve_tp_step(case, device)
+        ref[case[0]] = serve_tp_drive(step, case, device)
+        teachers[case[0]] = ref[case[0]]["tokens"]
+        if case[8] == torch.bfloat16:
+            ref[case[0]]["floors"] = serve_tp_floors(step, case, device,
+                                                     ref[case[0]])
+        del step
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out: dict = {"reference_s": time.perf_counter() - t0, "cases": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "serve_teachers.npz"), **teachers)
+        t0 = time.perf_counter()
+        res = spawn_ranks(TP_RANKS, tmp, "gloo", plan, serve_tp_rank)
+        out["ranks_s"] = time.perf_counter() - t0
+    launches = 0
+    for case in cases:
+        label, cfg, _, B, S, T, _, quant, dtype = case
+        want = ref[label]
+        bf16 = dtype == torch.bfloat16
+        errs, steps, agree = [], [], 0
+        toks = teachers[label][..., 0]                       # (T, B)
+        for r in res:
+            got = r[label]
+            first, n = got["rows"]
+            w = want["logits"][:, first:first + n]
+            errs.append([float(np.abs(g - x).max() / np.abs(x).max())
+                         for g, x in zip(got["logits"], w)])
+            steps.append([float(np.abs(g - x).max()
+                                / bf16_step(float(np.abs(x).max())))
+                          for g, x in zip(got["logits"], w)])
+            agree += int((got["logits"][:-1].argmax(-1)
+                          == toks[:, first:first + n]).sum())
+        # each row is on max(mesh[1], 1) ranks: count it once
+        agree //= case[2][1]
+        pre = max(e[0] for e in errs)
+        dec = max(max(e[1:]) for e in errs)
+        pre_steps = max(e[0] for e in steps)
+        dec_steps = max(max(e[1:]) for e in steps)
+        if bf16:
+            tol = f"{SERVE_BF16_STEPS} bf16 steps"
+            bad = max(pre_steps, dec_steps) > SERVE_BF16_STEPS
+        else:
+            tol = f"{SERVE_PREFILL_REL:.3g}, {SERVE_DECODE_REL:.3g}"
+            bad = pre > SERVE_PREFILL_REL or dec > SERVE_DECODE_REL
+        if bad:
+            raise AssertionError(f"sharded serving {label}: prefill logits "
+                                 f"rel {pre} ({pre_steps} bf16 steps), "
+                                 f"decode {dec} ({dec_steps}); tol {tol}")
+        meta = Model(cfg, device="meta")
+        # the prefill: one flash launch per self- and cross-attention layer
+        # in "heads" mode (the encoder's run in init_state, before the
+        # count); none in "seq" mode; no other kernel, and none in decode
+        heads = cfg.n_heads % case[2][1] == 0
+        layers = meta.mixer_counts()[0] * meta.n_units \
+            * (1 + (cfg.family == "encdec"))
+        want_flash = layers if heads and device.type == "cuda" else 0
+        for rank, r in enumerate(res):
+            got = r[label]
+            pc, dc = got["prefill_counts"], got["decode_counts"]
+            if pc["flash"] != want_flash or any(
+                    v for k, v in pc.items() if k != "flash") or \
+                    any(dc.values()):
+                raise AssertionError(f"sharded serving {label} rank {rank}"
+                                     f": prefill launches {pc}, decode "
+                                     f"{dc}; want {want_flash} flash")
+            if bf16 and got["prefill_routes"]["wgmma"] != want_flash:
+                raise AssertionError(f"{label} rank {rank}: routes "
+                                     f"{got['prefill_routes']}")
+            launches += pc["flash"]
+        out["cases"][label] = {
+            "prefill_rel": pre, "decode_rel": dec,
+            "prefill_bf16_steps": pre_steps, "decode_bf16_steps": dec_steps,
+            "tol": tol, "floors": want.get("floors"),
+            "greedy_agree": agree, "greedy_of": B * T,
+            "routes": [r[label]["prefill_routes"] for r in res],
+            "prefill_ms": [r[label]["prefill_ms"] for r in res],
+            "decode_ms": [r[label]["decode_ms"] for r in res],
+            "meshless_prefill_ms": want["prefill_ms"],
+            "meshless_decode_ms": want["decode_ms"],
+            "param_bytes": [r[label]["param_bytes"] for r in res],
+            "state_bytes": [r[label]["state_bytes"] for r in res],
+            "wall_s": res[0][label]["wall_s"], "attention_layers": layers,
+            "mode": "heads" if heads else "seq"}
+        c = out["cases"][label]
+        floor = "" if c["floors"] is None else (
+            f" (the mesh-less step against itself: reduced-precision "
+            f"reductions off {c['floors']['reduction']:.2f} steps, one row "
+            f"at a time {c['floors']['rows']:.2f})")
+        print(f"sharded serving {label}: {cfg.name} ({cfg.param_count()} "
+              f"params, {str(dtype).split('.')[-1]}"
+              f"{', int8 cache' if quant else ''}), {B} x {S} prompts then "
+              f"{T} tokens on ServeStep(mesh=) over gloo: prefill logits "
+              f"max|diff| / max|logit| {pre:.3g} ({pre_steps:.2f} bf16 steps "
+              f"of the largest), decode {dec:.3g} ({dec_steps:.2f}); tol "
+              f"{tol} against the mesh-less step{floor}; greedy tokens "
+              f"agreeing {agree} of {B * T}; \"{c['mode']}\" attention: "
+              f"flash_forward launches by route per rank in the prefill "
+              f"{c['routes']} for {layers} attention layers (decode: "
+              f"none); {c['wall_s']:.1f} s [{card}]")
+        print(f"  per rank: stored bf16/f32 weights {c['param_bytes']} B, "
+              f"state {c['state_bytes']} B; prefill ms "
+              f"{[round(x, 1) for x in c['prefill_ms']]}, decode ms per "
+              f"token {[round(x, 2) for x in c['decode_ms']]} (gloo stages "
+              f"every exchange through host memory: no speed conclusion); "
+              f"mesh-less on the card: prefill {c['meshless_prefill_ms']:.1f}"
+              f" ms, decode {c['meshless_decode_ms']:.2f} ms per token "
+              f"[{card}]")
+    out["launches"] = launches
+    return out
+
+
+def serve_flash_shape(device, card: str) -> dict:
+    """``flash_forward`` at (a)'s per-rank prefill shape: phi3-mini's 8 of
+    32 heads at hd 96, 4 x 1024, causal, bf16 (B·H/m = 32 head rows):
+    against its plain version, then timed beside SDPA."""
+    arch, mesh, B, S, _ = SERVE_TP_FULL[0]
+    cfg = get_config(arch)
+    H = cfg.n_heads // mesh[1]
+    K = cfg.n_kv // mesh[1]
+    err = compare_flash(B, S, S, H, K, cfg.head_dim, True, torch.bfloat16,
+                        device, steps=FLASH_BF16_STEPS)
+    t = flash_timing(B, S, S, H, K, cfg.head_dim, True, SERVE_FLASH_REPS,
+                     device)
+    print(f"flash_forward at phase 18's per-rank shape ({arch} on "
+          f"{mesh[0]}x{mesh[1]}: B {B}, S {S}, {H}/{K} heads, hd "
+          f"{cfg.head_dim}, causal, bf16): max|diff| vs plain {err:.3g}; "
+          f"{t['ms']:.4f} ms eager, {t['device_ms']:.4f} ms device (graph "
+          f"replay); SDPA ({t['lib_form']}) {t['lib_ms']:.4f} ms eager, "
+          f"{t['lib_device_ms']:.4f} ms device; plain {t['plain_ms']:.3f} "
+          f"ms; bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
+    return dict(t, max_abs_err=err, shape=[B, S, S, H, K, cfg.head_dim])
 
 
 def sharded_path(qforest, forest, rows, kernel_out, device,
@@ -4242,6 +4674,31 @@ def main() -> int:
           f"({dr['workers']} processes); kernel launches in it {counts} "
           f"[{card}]")
     print(json.dumps({"dry_run": dr}))
+
+    # 18. sharded serving, four ranks on the one card over gloo; then the
+    # flash kernel at the per-rank prefill shape of (a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    st = serve_tp_path(device, card)
+    for rec in records:
+        rec["serve_tp_launches"] = st["launches"] if \
+            rec["name"] == "flash_forward" else 0
+    print(f"sharded-serving phase: {time.perf_counter() - t0:.1f} s host "
+          f"wall (mesh-less references {st['reference_s']:.1f} s, ranks "
+          f"{st['ranks_s']:.1f} s); flash_forward launches in the ranks' "
+          f"prefills {st['launches']} [{card}]")
+    reset_launches()
+    st["flash_rank_shape"] = serve_flash_shape(device, card)
+    flash_rec = next(r for r in records if r["name"] == "flash_forward")
+    ft = st["flash_rank_shape"]
+    flash_rec["shapes"]["serve_tp_rank"] = {
+        "ms": ft["ms"], "device_ms": ft["device_ms"],
+        "plain_ms": ft["plain_ms"], "bound_ms": ft["bound_ms"],
+        "bound_by": ft["bound_by"], "library_ms": ft["lib_ms"],
+        "library_device_ms": ft["lib_device_ms"],
+        "max_abs_err": ft["max_abs_err"], "shape": ft["shape"]}
+    print(json.dumps({"sharded_serving": st}))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -1,10 +1,13 @@
-"""Roofline accounting of one traced training step — the port's counterpart
-of ``repro.launch.hlo_analysis``.
+"""Roofline accounting of one traced training or serving step — the port's
+counterpart of ``repro.launch.hlo_analysis``.
 
 The reference lowers its jitted step to XLA and reads the three roofline
 numerators off the optimized HLO text.  Nothing in torch lowers to HLO, so
 the port runs the step itself, the very code ``Trainer(mesh=)`` runs live
-(``Trainer.loss_and_grads`` and ``Trainer.update``), as rank 0 of a
+(``Trainer.loss_and_grads`` and ``Trainer.update``), or that a
+``ServeStep`` runs (its ``prefill``, or one ``decode`` against a state
+filled to its last position, so that it reads the whole cache as the
+reference's masked product does), as rank 0 of a
 ``fake`` process group of the mesh's size (``fake_world``), on tensors of
 the ``meta`` device (shapes and dtypes, no memory, no compute: what
 ``FakeTensorMode``'s fake tensors wrap, at a third of their dispatch
@@ -30,11 +33,13 @@ dispatches:
                  the reference's ring-algorithm link weights (all-reduce
                  2.0, the others 1.0; ``hlo_analysis.py:44-45``);
   * memory     — per device: the arguments (the rank's stored parameter
-                 shards, optimizer state, compression residuals and its
-                 rows of the batch), the outputs (the new state and the
-                 loss), and the temporaries: the peak of the live bytes of
-                 the storages the step creates, read off each meta
-                 storage's lifetime (a weak reference per storage).
+                 shards, optimizer state, compression residuals, decode
+                 state shards and its rows of the batch), the outputs (a
+                 training step's new state and loss; a serving step's
+                 logits, its decode state being updated in place), and the
+                 temporaries: the peak of the live bytes of the storages
+                 the step creates, read off each meta storage's lifetime
+                 (a weak reference per storage).
 
 A data-dependent shape has no meta value: ``nonzero`` (the MoE dispatch's
 tokens per expert) takes the row count the caller's ``nonzero_rows``
@@ -58,6 +63,8 @@ from torch.utils.flop_counter import flop_registry
 from ..distributed import collectives
 from ..distributed.sharding import local_shape
 from ..models.model import tree_flatten, tree_map, tree_unflatten
+from .serve_step import ServeStep, decode_enc_len
+from .specs import enc_len
 
 # ring-algorithm link weights by kind (``hlo_analysis._LINK_WEIGHT``)
 LINK_WEIGHT = {"all_gather": 1.0, "reduce_scatter": 1.0, "all_reduce": 2.0,
@@ -216,7 +223,6 @@ def _meta_batch(trainer) -> tuple:
                          device=trainer.device)
     enc = None
     if trainer._needs_enc:
-        from .specs import enc_len
         enc = torch.zeros((rows, enc_len(trainer.cfg, trainer.seq_len),
                            trainer.cfg.d_model), dtype=torch.float32,
                           device=trainer.device)
@@ -241,36 +247,92 @@ def _meta_params(trainer) -> dict:
 def _state_bytes(trainer) -> dict:
     return {"params": sum(map(_nbytes, _tensors(trainer.params))),
             "optimizer": sum(map(_nbytes, _tensors(trainer.opt_state))),
-            "residuals": sum(map(_nbytes, _tensors(trainer.residuals)))}
+            "residuals": sum(map(_nbytes, _tensors(trainer.residuals))),
+            "state": 0}
 
 
-def trace_step(trainer, nonzero_rows: Optional[Callable] = None
-               ) -> StepTrace:
-    """One training step of ``trainer`` (on ``device="meta"``, on a mesh of
-    a ``fake_world`` or on none) traced: its ``StepCost`` and memory.  The
-    trainer's state is zeros of its shards, set by ``init_state``, and is
-    dropped again on return."""
-    if trainer.device.type != "meta":
-        raise ValueError(f"the dry run traces a trainer on 'meta', not "
-                         f"{trainer.device}")
+def _zeros(tree, device) -> dict:
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device=device), tree)
+
+
+def _run_train(trainer):
+    """(parts, known tensors, the traced step, cleanup) of a trainer."""
+    trainer.init_state(params=_meta_params(trainer), sharded=True)
+    batch = _meta_batch(trainer)
+    parts = _state_bytes(trainer)
+    parts["inputs"] = sum(map(_nbytes, _tensors(batch)))
+
+    def step():
+        loss, grads = trainer.loss_and_grads(batch)
+        trainer.update(grads)
+        return sum(_state_bytes(trainer).values()) + _nbytes(loss)
+
+    def done():
+        trainer.params = trainer.opt_state = trainer.residuals = None
+    return parts, _tensors(trainer.state_tree()) + _tensors(batch), step, \
+        done
+
+
+def _run_serve(step):
+    """(parts, known tensors, the traced step, cleanup) of a serving step:
+    its weight shards; a decode step's state shards (the encdec family's
+    cross K/V for ``decode_enc_len`` frames) at index ``seq_len - 1``; the
+    rank's rows of the tokens (an encdec prefill's frames too)."""
+    cfg, dev, rows = step.cfg, step.device, step.rows_per_rank
+    step.load_params(_zeros(step.param_shapes(), dev), sharded=True)
+    decode = step.kind == "decode"
+    enc = None
+    if decode:
+        frames = decode_enc_len(step.seq_len) if cfg.family == "encdec" \
+            else 0
+        step.state = {"index": step.seq_len - 1,
+                      **_zeros(step.state_shapes(frames), dev)}
+        tokens = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+    else:
+        tokens = torch.zeros((rows, step.seq_len), dtype=torch.int32,
+                             device=dev)
+        if cfg.family == "encdec":
+            enc = torch.zeros((rows, enc_len(cfg, step.seq_len),
+                               cfg.d_model), dtype=torch.float32, device=dev)
+    state = [t for k, t in (step.state or {}).items() if k != "index"]
+    inputs = _tensors((tokens, enc))
+    parts = {"params": sum(map(_nbytes, _tensors(step.params))),
+             "optimizer": 0, "residuals": 0,
+             "state": sum(map(_nbytes, state)),
+             "inputs": sum(map(_nbytes, inputs))}
+
+    def run():
+        return _nbytes(step.decode(tokens) if decode
+                       else step.prefill(tokens, enc))
+
+    def done():
+        step.params = step.state = None
+    return parts, _tensors(step.params) + state + inputs, run, done
+
+
+def trace_step(step, nonzero_rows: Optional[Callable] = None) -> StepTrace:
+    """One step of a ``Trainer`` or a ``launch.serve_step.ServeStep`` (on
+    ``device="meta"``, on a mesh of a ``fake_world`` or on none) traced:
+    its ``StepCost`` and memory.  The step's state is zeros of its shards
+    (a trainer's set by ``init_state``), dropped again on return."""
+    if step.device.type != "meta":
+        raise ValueError(f"the dry run traces a step on 'meta', not "
+                         f"{step.device}")
     t0 = time.perf_counter()
+    prepare = _run_serve if isinstance(step, ServeStep) else _run_train
+    parts, known, run, done = prepare(step)
     try:
-        trainer.init_state(params=_meta_params(trainer), sharded=True)
-        batch = _meta_batch(trainer)
-        parts = _state_bytes(trainer)
-        parts["inputs"] = sum(map(_nbytes, _tensors(batch)))
         counter = _Counter(nonzero_rows)
-        counter.known(_tensors(trainer.state_tree()) + _tensors(batch))
+        counter.known(known)
+        del known
         collectives.reset_bytes()
         with counter:
-            loss, grads = trainer.loss_and_grads(batch)
-            trainer.update(grads)
-            out_bytes = sum(_state_bytes(trainer).values()) + _nbytes(loss)
-            del loss, grads
+            out_bytes = run()
         moved = collectives.bytes_moved()
         calls = collectives.calls_made()
     finally:
-        trainer.params = trainer.opt_state = trainer.residuals = None
+        done()
     coll = CollectiveStats()
     for kind in collectives.KINDS:
         if calls[kind]:

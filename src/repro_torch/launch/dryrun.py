@@ -1,7 +1,7 @@
-"""Multi-pod dry run of the training cells — the port's counterpart of
-``repro.launch.dryrun``: per (architecture × shape) cell, whether the
-port's own training step fits the production mesh and which roofline term
-bounds it, before any card time is spent.
+"""Multi-pod dry run of the training and serving cells — the port's
+counterpart of ``repro.launch.dryrun``: per (architecture × shape) cell,
+whether the port's own step fits the production mesh and which roofline
+term bounds it, before any card time is spent.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \
         --shape train_4k --mesh single
@@ -10,16 +10,16 @@ bounds it, before any card time is spent.
 
 No card and no JAX: ``run_cell`` starts a ``fake`` process group of the
 mesh's 256 (``single``, (16, 16)) or 512 (``multi``, (2, 16, 16)) ranks,
-builds ``Trainer(mesh=)`` on ``make_production_mesh`` (``build_cell``)
-and traces one step of rank 0 on ``meta`` tensors
+builds the cell's step on ``make_production_mesh`` (``build_cell``): a
+``Trainer(mesh=)`` for ``train_4k``, a ``ServeStep(mesh=)`` for
+``prefill_32k``, ``decode_32k`` and ``long_500k`` (with ``--kv-quant`` an
+int8 cache), and traces one step of rank 0 on ``meta`` tensors
 (``launch/cost_analysis.py``): FLOPs, HBM bytes, collective bytes and
-per-device memory of the very code the trainer runs live.  Records land
-in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``, beside the
-reference's ``experiments/dryrun/``.
-
-Only the training cells have a sharded step in the port: a prefill or
-decode cell gets ``status: "not_ported"`` (ROADMAP Queue A, the sharded
-serving step), an inapplicable cell ``skipped`` as the reference's does.
+per-device memory of the very code the step runs live.  Records land in
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``, beside the
+reference's ``experiments/dryrun/``.  An inapplicable cell is
+``skipped`` as the reference's is (``long_500k`` on pure full-attention
+architectures).
 
 Also the arithmetic the reference's fit criterion and roofline read, each
 held equal to the reference's: ``_model_flops``, ``_accum_steps``
@@ -45,6 +45,7 @@ from ..models.model import Model
 from ..obs.log import get_logger
 from .cost_analysis import fake_world, peak_bytes, trace_step
 from .mesh import make_production_mesh
+from .serve_step import ServeStep
 from .train import Trainer
 
 log = get_logger("dryrun")
@@ -62,11 +63,6 @@ HBM_BYTES = 80 * 2 ** 30
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_torch")
-
-NOT_PORTED = ("the port has no sharded {kind} step: Model.prefill and "
-              "decode_step run on one device (ROADMAP Queue A item 12.8, "
-              "the sharded prefill and decode step)")
-
 
 def _model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
     """MODEL_FLOPS: 6·N_active·D for train (fwd+bwd), 2·N_active·D for
@@ -170,24 +166,30 @@ def _model_for(cfg: ArchConfig, shape: ShapeConfig) -> Model:
 def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
                opt_state_dtype: str = "auto", grad_dtype: str = "f32",
                kv_quant: bool = False):
-    """(the cell's ``Trainer`` on ``mesh``, a live mesh of a fake world,
-    with no state yet; ``{"opt_state_dtype", "accum_steps"}``).  Its plan
-    is ``Trainer(mesh=)``'s: ``tree_shardings`` of params and Adam state,
-    the global batch split by ``data_spec``, ``_accum_steps``
+    """(the cell's step on ``mesh``, a live mesh of a fake world, with no
+    state yet; the reference's extra keys).  A training cell's is
+    ``Trainer(mesh=)``'s plan: ``tree_shardings`` of params and Adam
+    state, the global batch split by ``data_spec``, ``_accum_steps``
     micro-batches; Adam's moments int8 above 40e9 parameters; the model
     settings of ``_model_for`` (the trainer's SSD chunk, min(128, S), is
-    its 128 at every training length).  Only ``grad_dtype="f32"`` (the
-    trainer's) is taken; ``kv_quant`` concerns
-    decode cells, which the port does not build."""
-    if shape.kind != "train":
-        raise ValueError(NOT_PORTED.format(kind=shape.kind))
+    its 128 at every training length); ``{"opt_state_dtype",
+    "accum_steps"}``.  A serving cell's is a ``ServeStep`` of its kind
+    over the global batch on the torch engine, whose chunks are
+    ``_model_for``'s: bf16 weights, the state (an int8 cache with
+    ``kv_quant``) placed by ``decode_state_specs``; ``{}``.  Only
+    ``grad_dtype="f32"`` (the trainer's) is taken."""
     if grad_dtype != "f32":
         raise ValueError(f"grad_dtype {grad_dtype!r}: the trainer sums f32 "
                          f"gradients")
+    if shape.kind != "train":
+        step = ServeStep(cfg, shape.kind, shape.global_batch, shape.seq_len,
+                         mesh=mesh, kv_quant=kv_quant, backend="torch",
+                         device="meta", compute_dtype=torch.bfloat16)
+        return step, {}
+    model = _model_for(cfg, shape)
     if opt_state_dtype == "auto":
         opt_state_dtype = "int8" if cfg.param_count() > 40e9 else "f32"
     accum = _accum_steps(cfg, shape, mesh)
-    model = _model_for(cfg, shape)
     trainer = Trainer(cfg, batch=shape.global_batch, seq_len=shape.seq_len,
                       mesh=mesh, opt_state=opt_state_dtype,
                       accum_steps=accum, device="meta",
@@ -200,8 +202,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
 def balanced_routing(cfg: ArchConfig):
     """``cost_analysis.trace_step``'s ``nonzero_rows``: an expert takes
     1/E of its (token, choice) pairs, the load the aux loss drives to (no
-    pair past capacity is dropped at a capacity factor ≥ 1)."""
-    return lambda mask: mask.numel() // max(cfg.n_experts, 1)
+    pair past capacity is dropped at a capacity factor ≥ 1), rounded up:
+    a decode step's few pairs a rank would otherwise give an expert none."""
+    return lambda mask: -(-mask.numel() // max(cfg.n_experts, 1))
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -214,13 +217,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
       * ``memory`` holds ``argument_size_in_bytes``,
         ``output_size_in_bytes`` and ``temp_size_in_bytes`` of the traced
         step (no generated code), and ``argument_parts`` (params,
-        optimizer, residuals, inputs); ``fits_80gib`` is the fit
+        optimizer, residuals, decode state, inputs); ``fits_80gib`` is
+        the fit
         criterion, arguments plus temporaries ≤ the card's 80 GiB;
       * ``hlo_flops`` and ``hlo_bytes`` are the traced step's FLOPs and
         unfused HBM bytes; ``collectives`` counts by the port's kinds;
       * ``roofline`` divides by the H100 constants above, not the TPU
-        v5e's;
-      * a prefill or decode cell is ``not_ported``, with its ``reason``.
+        v5e's.
     """
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -235,9 +238,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     if not ok:
         rec["status"] = "skipped"
         rec["reason"] = reason
-    elif shape.kind != "train":
-        rec["status"] = "not_ported"
-        rec["reason"] = NOT_PORTED.format(kind=shape.kind)
     else:
         multi = mesh_kind == "multi"
         n_chips = 512 if multi else 256
@@ -245,9 +245,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             t0 = time.perf_counter()
             with fake_world(n_chips):
                 mesh = make_production_mesh(multi_pod=multi, device="meta")
-                trainer, extra = build_cell(cfg, shape, mesh,
-                                            kv_quant=kv_quant)
-                tr = trace_step(trainer, balanced_routing(cfg))
+                step, extra = build_cell(cfg, shape, mesh,
+                                         kv_quant=kv_quant)
+                tr = trace_step(step, balanced_routing(cfg))
             coll = tr.cost.collectives
             flops, bytes_hbm = tr.cost.flops, tr.cost.bytes_hbm
             rec.update({
@@ -257,8 +257,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 "memory": tr.memory,
                 "fits_80gib": peak_bytes(tr.memory) <= HBM_BYTES,
                 "analytic_memory": _analytic_memory(
-                    cfg, shape, mesh, extra["accum_steps"],
-                    extra["opt_state_dtype"]),
+                    cfg, shape, mesh, extra.get("accum_steps", 1),
+                    extra.get("opt_state_dtype", "f32")),
                 "hlo_flops": flops,
                 "hlo_bytes": bytes_hbm,
                 "collectives": {
@@ -309,8 +309,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--kv-quant", action="store_true",
-                    help="int8 KV cache for decode cells (not ported: "
-                         "the records say so)")
+                    help="int8 KV cache for decode cells")
     args = ap.parse_args(argv)
 
     archs = ARCH_IDS if (args.all or args.arch is None) else [args.arch]

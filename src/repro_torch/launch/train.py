@@ -531,8 +531,8 @@ class Trainer:
 
 
 def _check_mesh(mesh):
-    """``mesh`` if the trainer can run on it: a live mesh of "pod",
-    "data" and "model" axes."""
+    """``mesh`` if a step (the trainer's, the serving step's) can run on
+    it: a live mesh of "pod", "data" and "model" axes."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):
@@ -540,10 +540,10 @@ def _check_mesh(mesh):
                         f"{type(mesh).__name__}")
     other = set(mesh.axis_names) - {"pod", "data", "model"}
     if other or "model" not in mesh.shape:
-        raise ValueError(f"mesh axes {mesh.axis_names}: the trainer takes "
-                         f"'pod', 'data' and 'model'")
+        raise ValueError(f"mesh axes {mesh.axis_names}: a step on a mesh "
+                         f"takes 'pod', 'data' and 'model'")
     if not mesh.live:
-        raise ValueError("Trainer(mesh=) needs a live mesh "
+        raise ValueError("a step on a mesh needs a live mesh "
                          "(make_debug_mesh, make_production_mesh)")
     return mesh
 

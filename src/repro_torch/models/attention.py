@@ -8,13 +8,22 @@ XLA path ported to torch; ``backend="cuda"`` runs the hand-written kernel
 (``kernels/flash_attention_kernel.flash_attention_bshd``), which on a CPU
 tensor runs its plain version.
 
-Under the trainer's tensor parallelism (``attn_parallel``, a
+Under tensor parallelism (``attn_parallel``, a
 ``distributed.collectives.Parallel``) attention splits over the "model"
 axis as the reference's ``_attn_shard_mode`` says: by heads when the head
 count divides the axis (wq/wk/wv column-parallel, wo row-parallel, the
 sequence gathered at the entry and reduce-scattered at the exit), else
 by q positions (every weight whole, q from this rank's sequence chunk at
-its absolute offset, K/V from the gathered sequence, no reduce).
+its absolute offset, K/V from the gathered sequence, no reduce).  With a
+decode state the rank writes its shard of the KV cache as
+``distributed.sharding.decode_state_specs`` places it: its kv heads when
+they divide "model", else its head_dim slice, else all of it.  On
+``backend="cuda"`` the "heads" mode runs the kernel on the rank's heads;
+the "seq" mode's query chunk starts at an offset, which the kernel's
+top-left causal mask has no argument for, so that mode runs the torch
+engine on either backend (``MODE_CALLS`` counts the calls of each mode).
+``attn_decode_parallel`` and ``cross_decode_parallel`` are the decode
+steps on the rank's cache shard.
 
 Cross-attention (the encdec family's decoder) reads K and V from the
 encoder's output with no RoPE, no mask and full MHA (``make_attn_params(
@@ -27,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.collectives import all_reduce, all_reduce_max
 from ..kernels.flash_attention_kernel import flash_attention_bshd
 from .act_sharding import model_axis_size
 from .config import ArchConfig
@@ -34,6 +44,9 @@ from .layers import apply_rope
 
 NEG_INF = -1e30
 BACKENDS = ("torch", "cuda")
+# ``attn_parallel``'s calls by mode in this process ("heads": the rank's
+# heads on the model's backend; "seq": q positions on the torch engine)
+MODE_CALLS = {"heads": 0, "seq": 0}
 
 
 def _attn_shard_mode(n_heads: int) -> str:
@@ -165,21 +178,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
-        k_cache, v_cache = kv_cache
-        S = x.shape[1]
-        if kv_scales is None:
-            k_cache[:, :S] = k
-            v_cache[:, :S] = v
-            k = k_cache[:, :S].to(q.dtype)
-            v = v_cache[:, :S].to(q.dtype)
-        else:
-            read = []
-            for cache, scales, t in ((k_cache, kv_scales[0], k),
-                                     (v_cache, kv_scales[1], v)):
-                cache[:, :S], scales[:, :S] = quantize_kv_token(t)
-                read.append((cache[:, :S].float() * scales[:, :S, :, None])
-                            .to(q.dtype))
-            k, v = read
+        k, v = _store_kv(k, v, kv_cache, kv_scales, q.dtype, 0)
     out = _attend(q, k, v, causal, q_chunk, backend)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -213,23 +212,33 @@ def _kv_heads(k: torch.Tensor, h0: int, n_heads: int, n_rep: int,
 
 def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
                   positions: torch.Tensor, par, md: dict, *,
-                  causal: bool = True, memory=None,
-                  q_chunk: int = 1024) -> torch.Tensor:
+                  causal: bool = True, memory=None, mem_kv=None,
+                  q_chunk: int = 1024, backend: str = "torch",
+                  kv_cache: Optional[tuple] = None,
+                  kv_scales: Optional[tuple] = None) -> torch.Tensor:
     """Self-attention (or cross-attention over the gathered encoder output
-    ``memory`` (B, Sm, D)) of this rank's sequence chunk x (B, S/m, D), or
-    of the whole sequence where ``par`` does not split it, → its chunk of
-    the output (the whole output), on the torch engine.  ``positions`` (B, S)
-    are global; ``md`` each weight's "model" dim."""
+    ``memory`` (B, Sm, D), or over ``mem_kv``, a decode state's cross K/V
+    as this rank holds them) of this rank's sequence chunk x (B, S/m, D),
+    or of the whole sequence where ``par`` does not split it, → its chunk
+    of the output (the whole output).  ``positions`` (B, S) are global;
+    ``md`` each weight's "model" dim.  ``backend`` is the "heads" mode's
+    engine; the "seq" mode runs the torch engine.  ``kv_cache`` and
+    ``kv_scales``: this rank's shard of a decode state's caches, filled as
+    ``attn_forward`` fills the whole ones (``_store_kv``)."""
     H, hd = cfg.n_heads, cfg.head_dim
-    K = H if memory is not None else cfg.n_kv
+    cross = memory is not None or mem_kv is not None
+    K = H if cross else cfg.n_kv
     n_rep = H // K
     if H % par.m:                                   # "seq": q positions
-        w = {k: par.want(v, md[k]) for k, v in p.items()}
+        MODE_CALLS["seq"] += 1
+        w = {k: par.want(v, md[k]) for k, v in p.items()
+             if not (mem_kv is not None and k in ("wk", "wv"))}
         S = x.shape[1]
         off = par.offset(S)
         q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
-        if memory is not None:
-            k, v = cross_memory_kv(w, memory, x.dtype)
+        if cross:
+            k, v = (cross_memory_kv(w, memory, x.dtype) if mem_kv is None
+                    else (t.to(q.dtype) for t in mem_kv))
             out = flash_attention(q, k, v, causal=False, q_chunk=q_chunk)
         else:
             xf = par.gather_seq(x)
@@ -237,49 +246,76 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
             v = torch.einsum("bsd,dhk->bshk", xf, w["wv"])
             q = apply_rope(q, positions[:, off:off + S], cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
+            if kv_cache is not None:
+                k, v = _store_kv(k, v, kv_cache, kv_scales, q.dtype, par.r)
             out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                   n_rep=n_rep, q_offset=off)
         return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+    MODE_CALLS["heads"] += 1
     Hl = H // par.m                                 # "heads"
     h0 = par.r * Hl
     wq, wo = par.want(p["wq"], md["wq"], 1), par.want(p["wo"], md["wo"], 0)
-    if K % par.m == 0:
-        lo = h0 // n_rep
-        wk, wv = (par.want(p[n], md[n], 1) for n in ("wk", "wv"))
-    else:
-        lo = 0
-        wk, wv = (par.want(p[n], md[n]) for n in ("wk", "wv"))
+    lo = h0 // n_rep if K % par.m == 0 else 0
     xf = par.gather_seq(x)
     q = torch.einsum("bsd,dhk->bshk", xf, wq)
-    if memory is not None:
-        k, v = cross_memory_kv({"wk": wk, "wv": wv}, memory, x.dtype)
+    if mem_kv is not None:
+        # the state holds the rank's cross heads (K = H divides "model")
+        k, v = (t.to(q.dtype) for t in mem_kv)
     else:
-        k = torch.einsum("bsd,dhk->bshk", xf, wk)
-        v = torch.einsum("bsd,dhk->bshk", xf, wv)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        wk, wv = (par.want(p[n], md[n], 1 if K % par.m == 0 else None)
+                  for n in ("wk", "wv"))
+        if memory is not None:
+            k, v = cross_memory_kv({"wk": wk, "wv": wv}, memory, x.dtype)
+        else:
+            k = torch.einsum("bsd,dhk->bshk", xf, wk)
+            v = torch.einsum("bsd,dhk->bshk", xf, wv)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            if kv_cache is not None:
+                k, v = _store_kv(k, v, kv_cache, kv_scales, q.dtype, par.r)
     k, v = (_kv_heads(t, h0, Hl, n_rep, lo) for t in (k, v))
-    out = _attend(q, k, v, causal and memory is None, q_chunk, "torch")
+    out = _attend(q, k, v, causal and not cross, q_chunk, backend)
     return par.scatter_seq(torch.einsum("bshk,hkd->bsd", out, wo))
 
 
+def _store_kv(k: torch.Tensor, v: torch.Tensor, kv_cache: tuple,
+              kv_scales: Optional[tuple], dtype, r: int) -> tuple:
+    """Write K and V (B, S, kv heads, hd), every head this rank computed,
+    into positions 0..S-1 of its cache shards: the same heads, or its
+    head_dim slice (``r``-th of the shard's width) of them; int8 values
+    quantized over the whole head_dim, with their scales.  Returns (k, v)
+    as attention reads them back: rounded to the cache's dtype (or
+    dequantized), then in ``dtype``, as ``attn_forward`` reads its
+    cache."""
+    S, hd = k.shape[1], k.shape[-1]
+    n = kv_cache[0].shape[-1]
+    cols = slice(r * n, (r + 1) * n)
+    read = []
+    for i, t in enumerate((k, v)):
+        cache = kv_cache[i]
+        if kv_scales is None:
+            cache[:, :S] = t[..., cols] if n < hd else t
+            read.append(t.to(cache.dtype).to(dtype))
+            continue
+        vals, scale = quantize_kv_token(t)
+        cache[:, :S] = vals[..., cols] if n < hd else vals
+        kv_scales[i][:, :S] = scale
+        read.append((vals.float() * scale[..., None]).to(dtype))
+    return tuple(read)
+
+
 # ----------------------------------------------------------------------- KV
-def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
-                  n_attn_layers: int, dtype=torch.bfloat16,
-                  device="cpu") -> dict:
-    K, hd = cfg.n_kv, cfg.head_dim
-    shape = (n_attn_layers, batch, max_len, K, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "index": 0}
-
-
-def quantize_kv_token(x: torch.Tensor):
+def quantize_kv_token(x: torch.Tensor, group=None):
     """x (..., hd) → (int8 values, f32 scale (...)): per row, scale =
     max(amax, 1e-8) / 127 and round(x / scale) (half to even, as
-    ``jnp.round``) clipped to ±127 — the reference's bits exactly."""
+    ``jnp.round``) clipped to ±127 — the reference's bits exactly.  With
+    ``group`` x is this rank's slice of each row, and the amax is taken
+    over the group's slices (``all_reduce_max``)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    if group is not None:
+        amax = all_reduce_max(amax, group)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -287,7 +323,8 @@ def quantize_kv_token(x: torch.Tensor):
 def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      index: int, k_scale: torch.Tensor = None,
-                     v_scale: torch.Tensor = None):
+                     v_scale: torch.Tensor = None, *, qkv: tuple = None,
+                     group=None):
     """One-token GQA self-attention decode.  x (B, 1, D); k_cache/v_cache
     (B, Smax, K, hd) in the cache dtype; ``index`` the position of the new
     token.  Writes the new K and V into the caches in place (the reference
@@ -303,32 +340,43 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
     written in place too, the scores are q·k̂ (k̂ read as bf16) times
     k_scale, and the weights times v_scale are rounded to bf16 before the
     product with v̂ — in an f32 model as well, as the reference does.
-    Returns (out, k_cache, v_cache, k_scale, v_scale)."""
+    Returns (out, k_cache, v_cache, k_scale, v_scale).
+
+    The head counts are the weights': a rank's heads of them on a mesh
+    (``attn_decode_parallel``).  There a cache split over head_dim holds
+    the rank's slice of every head: ``qkv`` is then the new token's q, K
+    (RoPE applied) and V cut to that slice, ``p`` holds ``wo``'s matching
+    rows, and ``group`` sums the f32 scores over the slices (and takes
+    the int8 scales' amax over them); the output is the rank's share."""
     quant = k_scale is not None
     if quant != (v_scale is not None):
         raise ValueError("k_scale and v_scale go together")
-    B = x.shape[0]
-    K, hd = cfg.n_kv, cfg.head_dim
-    R = cfg.n_heads // K
-    pos = torch.full((B, 1), index, dtype=torch.int64, device=x.device)
-    q = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wq"]), pos,
-                   cfg.rope_theta)
-    k_new = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["wk"]), pos,
-                       cfg.rope_theta)
-    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if qkv is None:
+        pos = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                         device=x.device)
+        q, k_new = (apply_rope(torch.einsum("bsd,dhk->bshk", x, p[n]), pos,
+                               cfg.rope_theta) for n in ("wq", "wk"))
+        v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    else:
+        q, k_new, v_new = qkv
+    B, _, H, n = q.shape
+    K = k_new.shape[2]
     new = slice(index, index + 1)
     if quant:
         (k_new, k_scale[:, new]), (v_new, v_scale[:, new]) = \
-            quantize_kv_token(k_new), quantize_kv_token(v_new)
+            quantize_kv_token(k_new, group), quantize_kv_token(v_new, group)
     k_cache[:, new] = k_new
     v_cache[:, new] = v_new
 
     seen = slice(0, index + 1)
-    qg = q.reshape(B, K, R, hd).float()                          # grouped q
+    qg = q.reshape(B, K, H // K, n).float()                      # grouped q
     # the int8 values pass through bf16 (exactly) as the reference's do
     kc, vc = ((c[:, seen].to(torch.bfloat16) if quant else c[:, seen])
               .float() for c in (k_cache, v_cache))
-    s = torch.einsum("bkrh,bskh->bkrs", qg, kc) * (hd ** -0.5)
+    s = torch.einsum("bkrh,bskh->bkrs", qg, kc)
+    if group is not None:
+        s = all_reduce(s, group)
+    s = s * (cfg.head_dim ** -0.5)
     if quant:
         s = s * k_scale[:, seen].transpose(1, 2)[:, :, None, :]
     w = torch.softmax(s, dim=-1)
@@ -338,11 +386,59 @@ def attn_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
     else:
         w = w.to(x.dtype)
     out = torch.einsum("bkrs,bskh->bkrh", w.float(), vc)
-    out = out.reshape(B, 1, cfg.n_heads, hd).to(x.dtype)
+    out = out.reshape(B, 1, H, n).to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if quant:
         return out, k_cache, v_cache, k_scale, v_scale
     return out, k_cache, v_cache
+
+
+def attn_decode_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                         k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         index: int, par, md: dict,
+                         k_scale: torch.Tensor = None,
+                         v_scale: torch.Tensor = None) -> torch.Tensor:
+    """``attn_decode_step`` on a mesh: x (B, 1, D) whole on every "model"
+    rank against this rank's cache shard, as ``decode_state_specs`` places
+    it; the output (B, 1, D) whole on every rank.
+
+      * kv heads over "model": the rank's q heads against its kv heads,
+        the partial outputs all-reduced;
+      * head_dim over "model": q and the new K whole (RoPE pairs dims
+        across the halves of head_dim), then the rank's slice, V's slice
+        from ``wv``'s columns; ``attn_decode_step`` over the slices with
+        ``wo``'s matching rows, the partial outputs all-reduced;
+      * neither divides: the state whole on every rank, every rank the
+        whole step."""
+    K, hd = cfg.n_kv, cfg.head_dim
+    quant = {} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)
+    if k_cache.shape[-2] < K:                       # kv heads
+        w = {n: par.want(t, md[n], 0 if n == "wo" else 1)
+             for n, t in p.items()}
+        out = attn_decode_step(w, x, cfg, k_cache, v_cache, index,
+                               **quant)[0]
+        return all_reduce(out, par.model)
+    n = k_cache.shape[-1]
+    if n == hd:                                     # replicated
+        w = {k: par.want(t, md[k]) for k, t in p.items()}
+        return attn_decode_step(w, x, cfg, k_cache, v_cache, index,
+                                **quant)[0]
+    cols = slice(par.r * n, (par.r + 1) * n)        # head_dim
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int64,
+                     device=x.device)
+
+    def whole(name):
+        # a projection whole over heads and head_dim: this rank's share by
+        # the weight as stored, gathered along the activation's dim
+        y = torch.einsum("bsd,dhk->bshk", x, p[name])
+        y = par.want(y, None if md[name] is None else md[name] + 1)
+        return apply_rope(y, pos, cfg.rope_theta)[..., cols]
+    v_new = torch.einsum("bsd,dhk->bshk", x, par.want(p["wv"], md["wv"], 2))
+    out = attn_decode_step({"wo": par.want(p["wo"], md["wo"], 1)}, x, cfg,
+                           k_cache, v_cache, index, **quant,
+                           qkv=(whole("wq"), whole("wk"), v_new),
+                           group=par.model)[0]
+    return all_reduce(out, par.model)
 
 
 def cross_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -358,6 +454,21 @@ def cross_attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
     out = torch.einsum("bhqs,bshk->bqhk", w.float(), mem_v.float()) \
         .to(x.dtype)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_decode_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                          mem_k: torch.Tensor, mem_v: torch.Tensor, par,
+                          md: dict) -> torch.Tensor:
+    """``cross_attn_decode`` on a mesh over the rank's cross K/V: its heads
+    (then the partial outputs all-reduced), or all of them where the heads
+    do not divide "model"."""
+    if mem_k.shape[-2] < cfg.n_heads:
+        w = {"wq": par.want(p["wq"], md["wq"], 1),
+             "wo": par.want(p["wo"], md["wo"], 0)}
+        return all_reduce(cross_attn_decode(w, x, cfg, mem_k, mem_v),
+                          par.model)
+    w = {n: par.want(p[n], md[n]) for n in ("wq", "wo")}
+    return cross_attn_decode(w, x, cfg, mem_k, mem_v)
 
 
 def cross_memory_kv(p: dict, memory: torch.Tensor, dtype=torch.bfloat16):

@@ -18,12 +18,19 @@ prefills.  The reference's batch sharding constraints have no counterpart:
 on a mesh each rank's activations are its batch shard already
 (``models/act_sharding.py``).
 
-``ssm_parallel`` is the trainer's form on a mesh whose "model" axis
-divides the SSD heads: each rank runs its heads (its d_inner columns of
-in_z/in_x/conv_x/norm, its in_dt columns and per-head constants) on the
-gathered sequence, in_B/in_C whole, the gated norm's sum of squares
-all-reduced over "model", and ``out`` row-parallel, reduce-scattered into
-its sequence chunk.
+``ssm_parallel`` is the form on a mesh whose "model" axis divides the SSD
+heads: each rank runs its heads (its d_inner columns of in_z/in_x/conv_x/
+norm, its in_dt columns and per-head constants) on the gathered sequence,
+in_B/in_C whole, the gated norm's sum of squares all-reduced over
+"model", and ``out`` row-parallel, reduce-scattered into its sequence
+chunk.  With a decode state it also leaves the rank's shards of it, as
+``distributed.sharding.decode_state_specs`` places them: ``ssm_h`` of
+its heads, ``conv`` of its d_inner columns.  Where the heads do not
+divide "model" every rank runs the whole block; the state's ``ssm_h`` is
+then whole on each rank, but its ``conv`` window is still split over
+d_inner wherever d_inner divides "model", so a rank keeps its columns of
+a window it computed whole, and the decode step (``ssm_decode_parallel``)
+gathers the window before the step and keeps its columns after.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import copy_to_group, reduce_from_group
+from ..distributed.collectives import (all_reduce, copy_to_group,
+                                       reduce_from_group)
 from .config import ArchConfig
 
 
@@ -152,18 +160,31 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     out = _gated_norm_out(p, y.reshape(B, S, H * P), z, x.dtype)
     if state_dtype is None:
         return out
-    keep = cfg.conv_width - 1
-    conv = F.pad(xs_in, (0, 0, max(keep - S, 0), 0))[:, -keep:] \
-        if keep else xs_in[:, :0]
+    conv = _conv_window(xs_in, cfg.conv_width - 1)
     return out, h_final, conv.to(state_dtype)
 
 
+def _conv_window(xs_in: torch.Tensor, keep: int) -> torch.Tensor:
+    """The last ``keep`` rows of the pre-conv projection (B, S, F), left-
+    padded with zeros when S < keep: the decode state's ``conv``."""
+    if not keep:
+        return xs_in[:, :0]
+    return F.pad(xs_in, (0, 0, max(keep - xs_in.shape[1], 0), 0))[:, -keep:]
+
+
+def _keep_cols(t: torch.Tensor, width: int, r: int) -> torch.Tensor:
+    """``t``, or its ``r``-th slice of ``width`` along the last dim."""
+    return t if width == t.shape[-1] else t[..., r * width:(r + 1) * width]
+
+
 def ssm_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
-                 chunk: int = 128) -> torch.Tensor:
+                 chunk: int = 128, state=None) -> torch.Tensor:
     """This rank's sequence chunk x (b, S/m, D) → its chunk of the block's
     output.  Heads split over "model" when it divides them; otherwise
     every rank runs the whole block (weights gathered) on the gathered
-    sequence and keeps its chunk."""
+    sequence and keeps its chunk.  ``state``: this rank's (ssm_h, conv)
+    shards of a decode state, into which it writes what S decode steps
+    leave (``ssm_forward``'s ``state_dtype``)."""
     H, P, G = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_ngroups
     split = H % par.m == 0
     cols = {"in_z": 1, "in_x": 1, "in_dt": 1, "conv_x": 1, "out": 0,
@@ -172,13 +193,19 @@ def ssm_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
          for n, v in p.items()}
     xf = par.gather_seq(x)
     if not split:
-        return par.chunk(ssm_forward(w, xf, cfg, chunk=chunk), 1)
+        if state is None:
+            return par.chunk(ssm_forward(w, xf, cfg, chunk=chunk), 1)
+        out, h_final, conv = ssm_forward(w, xf, cfg, chunk=chunk,
+                                         state_dtype=state[1].dtype)
+        state[0].copy_(h_final)
+        state[1].copy_(_keep_cols(conv, state[1].shape[-1], par.r))
+        return par.chunk(out, 1)
     B, S, _ = xf.shape
     Hl = H // par.m
     h0 = par.r * Hl
     z = torch.einsum("bsd,de->bse", xf, w["in_z"])
-    xs = F.silu(_causal_conv(torch.einsum("bsd,de->bse", xf, w["in_x"]),
-                             w["conv_x"]))
+    xs_in = torch.einsum("bsd,de->bse", xf, w["in_x"])
+    xs = F.silu(_causal_conv(xs_in, w["conv_x"]))
     dt = F.softplus(torch.einsum("bsd,dh->bsh", xf, w["in_dt"])
                     + w["dt_bias"])
     BC = []
@@ -191,10 +218,13 @@ def ssm_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
             hi = h0 + Hl
         BC.append(t[:, :, lo:hi])
     A = -torch.exp(w["A_log"].float())
-    y, _ = ssd_chunked(xs.reshape(B, S, Hl, P), dt, A, *BC, chunk)
+    y, h_final = ssd_chunked(xs.reshape(B, S, Hl, P), dt, A, *BC, chunk)
     y = y + xs.reshape(B, S, Hl, P).float() * w["Dskip"][None, None, :, None]
     out = _gated_norm_out(w, y.reshape(B, S, Hl * P), z, x.dtype,
                           par.model, cfg.d_inner)
+    if state is not None:
+        state[0].copy_(h_final)
+        state[1].copy_(_conv_window(xs_in, cfg.conv_width - 1))
     return par.scatter_seq(out)
 
 
@@ -211,14 +241,20 @@ def init_ssm_state(cfg: ArchConfig, batch: int, n_ssm_layers: int,
 
 
 def ssm_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                    h: torch.Tensor, conv_buf: torch.Tensor):
+                    h: torch.Tensor, conv_buf: torch.Tensor, h0: int = 0,
+                    group=None):
     """One-token recurrent step.  x (B, 1, D); h (B,H,P,N);
     conv_buf (B, cw-1, di).  Returns (out (B,1,D), h', conv_buf'), new
     tensors.  The conv window is taken in the wider of the buffer's and
     x's dtypes, as the reference's concatenation promotes it, and so is
-    the returned buffer."""
+    the returned buffer.
+
+    On a mesh (``ssm_decode_parallel``) ``p`` holds a rank's heads h0..:
+    their d_inner columns and per-head constants (the head count is
+    ``in_dt``'s), with in_B/in_C whole; the gated norm's sum of squares is
+    summed over ``group`` and ``out`` is the rank's partial sum."""
     B = x.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_headdim
+    H, P = p["in_dt"].shape[-1], cfg.ssm_headdim
     xt = x[:, 0]                                              # (B, D)
     z = xt @ p["in_z"]
     xs = xt @ p["in_x"]
@@ -236,14 +272,41 @@ def ssm_decode_step(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A[None, :])                           # (B, H) f32
-    rep = H // cfg.ssm_ngroups
-    Bh = Bm.repeat_interleave(rep, dim=1).float()             # (B, H, N)
-    Chh = Cm.repeat_interleave(rep, dim=1).float()
+    rep = cfg.ssm_heads // cfg.ssm_ngroups
+    heads = slice(h0, h0 + H)
+    Bh = Bm.repeat_interleave(rep, dim=1)[:, heads].float()   # (B, H, N)
+    Chh = Cm.repeat_interleave(rep, dim=1)[:, heads].float()
     xh = xs.reshape(B, H, P).float()
     dtf = dt.float()
     h = h.float() * dA[:, :, None, None] \
         + torch.einsum("bh,bhn,bhp->bhpn", dtf, Bh, xh)
     y = torch.einsum("bhn,bhpn->bhp", Chh, h) \
         + xh * p["Dskip"][None, :, None]
-    out = _gated_norm_out(p, y.reshape(B, H * P), z, x.dtype)
+    out = _gated_norm_out(p, y.reshape(B, H * P), z, x.dtype, group,
+                          cfg.d_inner)
     return out[:, None, :], h, conv_buf
+
+
+def ssm_decode_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                        h: torch.Tensor, conv_buf: torch.Tensor, par,
+                        md: dict):
+    """``ssm_decode_step`` on a mesh: x (B, 1, D) whole on every "model"
+    rank, ``h`` and ``conv_buf`` this rank's state shards → (out (B, 1, D)
+    whole, h', conv_buf' as shards).  The rank's heads when they divide
+    "model" (the partial outputs all-reduced); otherwise the whole block on
+    every rank, over the window gathered from the ranks' d_inner columns
+    where ``conv`` splits them, its columns of the new window kept."""
+    H = cfg.ssm_heads
+    if H % par.m == 0:
+        cols = {"in_z": 1, "in_x": 1, "in_dt": 1, "conv_x": 1, "out": 0,
+                "norm": 0, "dt_bias": 0, "A_log": 0, "Dskip": 0}
+        w = {n: par.want(v, md[n], cols.get(n)) for n, v in p.items()}
+        out, h, conv_buf = ssm_decode_step(w, x, cfg, h, conv_buf,
+                                           par.r * (H // par.m), par.model)
+        return all_reduce(out, par.model), h, conv_buf
+    w = {n: par.want(v, md[n]) for n, v in p.items()}
+    width = conv_buf.shape[-1]
+    if width < cfg.d_inner:
+        conv_buf = par.want(conv_buf, 2)
+    out, h, conv_buf = ssm_decode_step(w, x, cfg, h, conv_buf)
+    return out, h, _keep_cols(conv_buf, width, par.r)

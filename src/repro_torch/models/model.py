@@ -48,6 +48,16 @@ output.  The embedding and the loss are vocab-parallel.  A sequence that
 does not split over "model" stays whole on every rank, as the
 reference's ``constrain`` then leaves it (``Parallel.split``; the
 encoder's stack by its own length, ``Parallel.encoder()``).
+
+The serving step (``launch/serve_step.py``) sets ``parallel`` too, and
+``prefill`` and ``decode_step`` then run on this rank's shards of the
+weights and of the decode state (``distributed.sharding.
+decode_state_specs``): the prefill as ``loss_fn``'s trunk, each
+attention and mamba layer writing its shard of the state; the last
+position's hidden taken from the rank that holds the sequence's last
+chunk; the head vocab-parallel, its logits gathered over "model".  A
+decode step's single position never splits: its residual is whole on
+every rank, and each sub-block ends in an all-reduce over "model".
 """
 from __future__ import annotations
 
@@ -58,8 +68,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.registry import resolve_device
-from ..distributed.collectives import (all_reduce_max, reduce_from_group,
-                                       scale_grad)
+from ..distributed.collectives import (all_gather, all_reduce_max,
+                                       reduce_from_group, scale_grad)
 from ..distributed.sharding import P
 from . import attention as attn
 from . import mamba, moe
@@ -274,6 +284,13 @@ class Model:
             return t
         return self.parallel.take(t, self._spec(*path))
 
+    def _unit_specs(self, stack: str = "blocks") -> tuple:
+        """On a mesh, (the ``PartitionSpec`` tree of one unit of ``stack``,
+        the tree of each of its weights' "model" dims)."""
+        par = self.parallel
+        specs = tree_map(lambda s: P(*s[1:]), par.specs[stack])
+        return specs, tree_map(par.model_dim, specs)
+
     @staticmethod
     def _unit(params: dict, u: int, stack: str = "blocks") -> dict:
         """Unit ``u``'s params: ``pos0``..``pos{k-1}``, one per layer."""
@@ -295,8 +312,9 @@ class Model:
         ``cross_k``/``cross_v`` in the compute dtype, as the decode steps
         read them, or else over ``memory``, the encoder's output.  On a mesh
         (``par``, the stack's ``Parallel``) x is this rank's sequence chunk
-        (the whole sequence where ``par`` does not split it) and ``md`` the
-        tree of each weight's "model" dim; ``memory`` is then whole."""
+        (the whole sequence where ``par`` does not split it), ``md`` the
+        tree of each weight's "model" dim and ``state`` this rank's shards;
+        ``memory`` is then whole."""
         cfg = self.cfg
         tp = par if par is not None and par.m > 1 else None
         ai = si = 0
@@ -305,25 +323,31 @@ class Model:
             p = up[f"pos{i}"]
             mp = md[f"pos{i}"] if md is not None else {}
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            if tp is not None and pos.mixer == "attn":
-                h = attn.attn_parallel(p["attn"], h, cfg, positions, tp,
-                                       mp["attn"], causal=causal,
-                                       q_chunk=self.q_chunk)
-            elif tp is not None:
-                h = mamba.ssm_parallel(p["ssm"], h, cfg, tp, mp["ssm"],
-                                       chunk=self.ssd_chunk)
-            elif pos.mixer == "attn":
+            if pos.mixer == "attn":
                 kv = scales = None
                 if state is not None:
                     kv = (state["k"][u, ai], state["v"][u, ai])
                     if "k_scale" in state:
                         scales = (state["k_scale"][u, ai],
                                   state["v_scale"][u, ai])
-                h = attn.attn_forward(p["attn"], h, cfg, positions,
-                                      causal=causal, q_chunk=self.q_chunk,
-                                      backend=self.backend, kv_cache=kv,
-                                      kv_scales=scales)
-                ai += 1
+                    ai += 1
+                if tp is not None:
+                    h = attn.attn_parallel(p["attn"], h, cfg, positions, tp,
+                                           mp["attn"], causal=causal,
+                                           q_chunk=self.q_chunk,
+                                           backend=self.backend, kv_cache=kv,
+                                           kv_scales=scales)
+                else:
+                    h = attn.attn_forward(p["attn"], h, cfg, positions,
+                                          causal=causal, q_chunk=self.q_chunk,
+                                          backend=self.backend, kv_cache=kv,
+                                          kv_scales=scales)
+            elif tp is not None:
+                ss = None if state is None else (state["ssm_h"][u, si],
+                                                  state["conv"][u, si])
+                h = mamba.ssm_parallel(p["ssm"], h, cfg, tp, mp["ssm"],
+                                       chunk=self.ssd_chunk, state=ss)
+                si += 1
             elif state is None:
                 h = mamba.ssm_forward(p["ssm"], h, cfg, chunk=self.ssd_chunk)
             else:
@@ -334,9 +358,13 @@ class Model:
             x = x + h
             if pos.cross and tp is not None:
                 h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+                mem_kv = None if memory is not None else (
+                    state["cross_k"][u], state["cross_v"][u])
                 x = x + attn.attn_parallel(p["cross"], h, cfg, positions,
                                            tp, mp["cross"], memory=memory,
-                                           q_chunk=self.q_chunk)
+                                           mem_kv=mem_kv,
+                                           q_chunk=self.q_chunk,
+                                           backend=self.backend)
             elif pos.cross:
                 h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
                 if memory is None:
@@ -349,7 +377,8 @@ class Model:
             if pos.ffn:
                 h = rmsnorm(x, p["ln2"], cfg.norm_eps)
                 if pos.ffn == "moe" and par is not None:
-                    h, a = moe.moe_parallel(p["moe"], h, cfg, par, mp["moe"])
+                    h, a = moe.moe_parallel(p["moe"], h, cfg, par, mp["moe"],
+                                            lossless=state is not None)
                     aux = aux + a
                 elif pos.ffn == "moe":
                     h, a = moe.moe_forward(p["moe"], h, cfg,
@@ -375,8 +404,7 @@ class Model:
         if par is not None:
             if stack == "enc_blocks":
                 par = par.encoder()
-            specs = tree_map(lambda s: P(*s[1:]), par.specs[stack])
-            md = tree_map(par.model_dim, specs)
+            specs, md = self._unit_specs(stack)
         for u in range(n):
             def unit(x, up, u=u):
                 if par is not None:
@@ -460,7 +488,16 @@ class Model:
         return rmsnorm(x, self._leaf(params, "enc_norm"), cfg.norm_eps)
 
     def logits(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-        return hidden @ params["embed"]["lm_head"].to(hidden.dtype)
+        """hidden (..., D) → logits (..., vocab).  On a mesh the head is
+        this rank's vocab columns where the vocab splits over "model", and
+        the ranks' logits are gathered whole."""
+        if self.parallel is None:
+            return hidden @ params["embed"]["lm_head"].to(hidden.dtype)
+        out = hidden @ self._leaf(params, "embed", "lm_head") \
+            .to(hidden.dtype)
+        if self._model_dim("embed", "lm_head") == 1:
+            out = all_gather(out, out.dim() - 1, self.parallel.model)
+        return out
 
     def forward(self, params: dict, tokens, enc_embeds=None) -> torch.Tensor:
         return self.logits(params, self.trunk(params, tokens,
@@ -546,16 +583,56 @@ class Model:
         reference ``LMServer``'s S teacher-forced decode steps give.  An
         encdec model takes ``enc_embeds`` without a state; with one, the
         state's cross K/V."""
+        tokens = self._tokens(tokens)
         h = self.trunk(params, tokens, state, enc_embeds=enc_embeds)
         if state is not None:
-            state["index"] = h.shape[1]
-        return self.logits(params, h[:, -1:, :])[:, 0]
+            state["index"] = tokens.shape[1]
+        last = h[:, -1:, :]
+        par = self.parallel
+        if par is not None and par.split:
+            # the last "model" rank holds the sequence's last chunk
+            last = all_gather(last, 1, par.model)[:, -1:]
+        return self.logits(params, last)[:, 0]
 
     # ------------------------------------------------------------- decode
     def mixer_counts(self) -> tuple[int, int]:
         """(attention, mamba) layers per unit."""
         na = sum(1 for p in self.layout if p.mixer == "attn")
         return na, len(self.layout) - na
+
+    def decode_state_shapes(self, batch: int, max_len: int,
+                            enc_len: int = 0, dtype=torch.bfloat16,
+                            kv_quant: bool = False) -> dict:
+        """The tensors of ``init_decode_state``'s state as meta tensors
+        (shape and dtype), ``cross_k``/``cross_v`` for ``enc_len`` encoder
+        frames in the encdec family; no ``index``."""
+        cfg = self.cfg
+        U = self.n_units
+        na, ns = self.mixer_counts()
+        out = {}
+
+        def meta(shape, dt):
+            return torch.empty(shape, dtype=dt, device="meta")
+        if na:
+            kv = (U, na, batch, max_len, cfg.n_kv, cfg.head_dim)
+            out["k"] = meta(kv, torch.int8 if kv_quant else dtype)
+            out["v"] = meta(kv, torch.int8 if kv_quant else dtype)
+            if kv_quant:
+                out["k_scale"] = meta(kv[:-1], torch.float32)
+                out["v_scale"] = meta(kv[:-1], torch.float32)
+        if ns:
+            out["ssm_h"] = meta((U, ns, batch, cfg.ssm_heads,
+                                 cfg.ssm_headdim, cfg.ssm_state),
+                                torch.float32)
+            out["conv"] = meta((U, ns, batch, cfg.conv_width - 1,
+                                cfg.d_inner),
+                               torch.promote_types(dtype,
+                                                   self.compute_dtype))
+        if cfg.family == "encdec":
+            cross = (U, batch, enc_len, cfg.n_heads, cfg.head_dim)
+            out["cross_k"] = meta(cross, dtype)
+            out["cross_v"] = meta(cross, dtype)
+        return out
 
     def init_decode_state(self, batch: int, max_len: int,
                           params: Optional[dict] = None,
@@ -575,87 +652,113 @@ class Model:
         model needs ``params`` and ``enc_embeds``: it encodes them and
         holds each decoder unit's cross K/V, ``cross_k``/``cross_v`` (U, B,
         S_enc, H, hd) in ``dtype``, computed from ``params`` as given — f32
-        masters, as the reference passes, or weights already cast."""
+        masters, as the reference passes, or weights already cast.  (On a
+        mesh the serving step makes each rank's shards,
+        ``launch.serve_step.ServeStep.init_state``.)"""
         cfg = self.cfg
-        U = self.n_units
-        na, ns = self.mixer_counts()
-        dev = self.device
+        encdec = cfg.family == "encdec"
+        if encdec and (params is None or enc_embeds is None):
+            raise ValueError(f"{cfg.name} (encdec): init_decode_state "
+                             f"needs params= and enc_embeds=")
+        shapes = self.decode_state_shapes(batch, max_len, 0, dtype, kv_quant)
         state: dict[str, Any] = {"index": 0}
-        if na:
-            cache = attn.init_kv_cache(cfg, batch, max_len, U * na,
-                                       torch.int8 if kv_quant else dtype,
-                                       dev)
-            for key in ("k", "v"):
-                state[key] = cache[key].reshape(
-                    (U, na) + cache[key].shape[1:])
-            if kv_quant:
-                for key in ("k_scale", "v_scale"):
-                    state[key] = torch.zeros((U, na, batch, max_len,
-                                              cfg.n_kv),
-                                             dtype=torch.float32, device=dev)
-        if ns:
-            H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-            state["ssm_h"] = torch.zeros((U, ns, batch, H, P, N),
-                                         dtype=torch.float32, device=dev)
-            state["conv"] = torch.zeros(
-                (U, ns, batch, cfg.conv_width - 1, cfg.d_inner),
-                dtype=torch.promote_types(dtype, self.compute_dtype),
-                device=dev)
-        if cfg.family == "encdec":
-            if params is None or enc_embeds is None:
-                raise ValueError(f"{cfg.name} (encdec): init_decode_state "
-                                 f"needs params= and enc_embeds=")
+        for key, t in shapes.items():
+            if key not in ("cross_k", "cross_v"):
+                state[key] = torch.zeros(t.shape, dtype=t.dtype,
+                                         device=self.device)
+        if encdec:
             memory = self.encode(params, enc_embeds)
-            kv = [attn.cross_memory_kv(self._unit(params, u)["pos0"]["cross"],
-                                       memory, dtype) for u in range(U)]
-            state["cross_k"], state["cross_v"] = (
-                torch.stack(t) for t in zip(*kv))
+            state["cross_k"], state["cross_v"] = self.cross_kv(
+                params, memory, dtype)
         return state
+
+    def cross_kv(self, params: dict, memory: torch.Tensor,
+                 dtype=torch.bfloat16, heads=None) -> tuple:
+        """Each decoder unit's cross K/V (U, B, S_enc, H, hd) in ``dtype``
+        from the encoder output ``memory`` (whole over its frames); on a
+        mesh ``heads``, each cross weight's wanted "model" dim (1: this
+        rank's heads; None: all of them)."""
+        par = self.parallel
+        if par is not None:
+            specs, md = (t["pos0"]["cross"] for t in self._unit_specs())
+        kv = []
+        for u in range(self.n_units):
+            cross = self._unit(params, u)["pos0"]["cross"]
+            if par is not None:
+                cross = {n: par.want(par.take(cross[n], specs[n]), md[n],
+                                     heads) for n in ("wk", "wv")}
+            kv.append(attn.cross_memory_kv(cross, memory, dtype))
+        return tuple(torch.stack(t) for t in zip(*kv))
 
     def decode_step(self, params: dict, state: dict,
                     tokens) -> tuple[torch.Tensor, dict]:
         """tokens (B, 1) → (logits (B, vocab), state).  The caches (and
         int8 scales) and mamba states are updated in place and ``index``
-        advanced; the returned dict is a new one over the same tensors."""
+        advanced; the returned dict is a new one over the same tensors.
+        On a mesh, the rank's rows against its shards of the state."""
         cfg = self.cfg
-        params = self.cast(params)
+        par = self.parallel
+        tp = par if par is not None and par.m > 1 else None
+        specs = md = None
+        if par is None:
+            params = self.cast(params)
+        else:
+            specs, md = self._unit_specs()
         x = self._embed(params, self._tokens(tokens))
         index = int(state["index"])
         quant = "k_scale" in state
         for u in range(self.n_units):
             up = self._unit(params, u)
+            if par is not None:
+                up = par.take_tree(up, specs)
             ai = si = 0
             for i, pos in enumerate(self.layout):
                 p = up[f"pos{i}"]
+                mp = md[f"pos{i}"] if md is not None else {}
                 h = rmsnorm(x, p["ln1"], cfg.norm_eps)
                 if pos.mixer == "attn":
                     scales = {}
                     if quant:
                         scales = dict(k_scale=state["k_scale"][u, ai],
                                       v_scale=state["v_scale"][u, ai])
-                    h = attn.attn_decode_step(p["attn"], h, cfg,
-                                              state["k"][u, ai],
-                                              state["v"][u, ai], index,
-                                              **scales)[0]
+                    kv = state["k"][u, ai], state["v"][u, ai]
+                    if tp is not None:
+                        h = attn.attn_decode_parallel(
+                            p["attn"], h, cfg, *kv, index, tp, mp["attn"],
+                            **scales)
+                    else:
+                        h = attn.attn_decode_step(p["attn"], h, cfg, *kv,
+                                                  index, **scales)[0]
                     ai += 1
                 else:
-                    h, state["ssm_h"][u, si], state["conv"][u, si] = \
-                        mamba.ssm_decode_step(p["ssm"], h, cfg,
-                                              state["ssm_h"][u, si],
-                                              state["conv"][u, si])
+                    hs = state["ssm_h"][u, si], state["conv"][u, si]
+                    if tp is not None:
+                        h, *new = mamba.ssm_decode_parallel(
+                            p["ssm"], h, cfg, *hs, tp, mp["ssm"])
+                    else:
+                        h, *new = mamba.ssm_decode_step(p["ssm"], h, cfg,
+                                                        *hs)
+                    state["ssm_h"][u, si], state["conv"][u, si] = new
                     si += 1
                 x = x + h
                 if pos.cross:
                     h = rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-                    x = x + attn.cross_attn_decode(
-                        p["cross"], h, cfg, state["cross_k"][u],
-                        state["cross_v"][u])
+                    mem = state["cross_k"][u], state["cross_v"][u]
+                    x = x + (attn.cross_decode_parallel(
+                        p["cross"], h, cfg, *mem, tp, mp["cross"])
+                        if tp is not None else
+                        attn.cross_attn_decode(p["cross"], h, cfg, *mem))
                 if pos.ffn:
                     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-                    if pos.ffn == "moe":
+                    if pos.ffn == "moe" and par is not None:
+                        h, _ = moe.moe_parallel(p["moe"], h, cfg, par,
+                                                mp["moe"])
+                    elif pos.ffn == "moe":
                         h, _ = moe.moe_forward(p["moe"], h, cfg)
                     else:
-                        h = mlp_forward(p["mlp"], h, cfg.mlp)
+                        h = mlp_forward(p["mlp"], h, cfg.mlp, tp,
+                                        mp.get("mlp"))
                     x = x + h
-        x = rmsnorm(x, params["embed"]["final_norm"], cfg.norm_eps)
+        x = rmsnorm(x, self._leaf(params, "embed", "final_norm"),
+                    cfg.norm_eps)
         return self.logits(params, x)[:, 0], dict(state, index=index + 1)

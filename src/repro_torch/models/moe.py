@@ -20,12 +20,12 @@ experts compute in f32 and the output is cast back to x's dtype.
 for all: what the reference's sequential prefill computes, where each
 decode step routes only B tokens (``LMServer``'s one-pass prefill).
 
-``moe_parallel`` is the trainer's form on a mesh.  The router's
-probabilities are gathered over the "model" axis (the router splits on
-experts) and over the batch axes, so groups, capacity and the aux loss are
-the one-device ones over the global batch; each rank then runs its
-experts on its own rows, and a reduce-scatter sums the experts' outputs
-into its sequence chunk.
+``moe_parallel`` is the form on a mesh, in training and serving.  The
+router's probabilities are gathered over the "model" axis (the router
+splits on experts) and over the batch axes, so groups, capacity and the
+aux loss are the one-device ones over the global batch; each rank then
+runs its experts on its own rows, and a reduce-scatter sums the experts'
+outputs into its sequence chunk.
 """
 from __future__ import annotations
 
@@ -135,15 +135,17 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def moe_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
-                 group_size: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+                 group_size: int = 1024, lossless: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """This rank's sequence chunk x (b, S/m, D) → (its chunk of the
     output, the aux loss).  The experts split over "model" when their
     count divides it; otherwise every rank runs them all on its rows (the
     weights gathered) and keeps its chunk.  Routing runs on the gathered
     global probabilities: every rank computes the same groups, capacity
-    and aux loss, whose gradient the gathers then sum m times over
-    "model", so it is scaled by 1/m (the batch axes' sum is the replicas'
-    mean the trainer divides by)."""
+    (none with ``lossless``, ``moe_forward``'s) and aux loss, whose
+    gradient the gathers then sum m times over "model", so it is scaled by
+    1/m (the batch axes' sum is the replicas' mean the trainer divides
+    by)."""
     E, k = cfg.n_experts, cfg.top_k
     ep = E % par.m == 0
     xf = par.gather_seq(x)
@@ -156,9 +158,10 @@ def moe_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig, par, md: dict,
         logits = all_gather(logits, 1, par.model)
     probs = all_gather(torch.softmax(logits.float(), dim=-1), 0, par.batch)
     n_tok = probs.shape[0]
-    g, sg = _groups(n_tok, group_size)
+    g, sg = (1, n_tok) if lossless else _groups(n_tok, group_size)
     probs = probs[: g * sg].reshape(g, sg, E)
-    gate_vals, gate_idx, keep = route(probs, k, _capacity(cfg, sg))
+    gate_vals, gate_idx, keep = route(probs, k,
+                                      _capacity(cfg, sg, lossless))
     t0 = par.batch_rank * n_loc
     own = slice(min(t0, g * sg), min(t0 + n_loc, g * sg))
     flat_idx = gate_idx.reshape(g * sg, k)[own]

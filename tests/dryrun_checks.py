@@ -1,4 +1,4 @@
-"""The check of one production training cell of the port's dry run
+"""The checks of one production cell of the port's dry run
 (``tests/test_torch_dryrun.py``, ``tests/test_torch_dryrun_cells.py``):
 ``run_cell`` gives an ``ok`` record with the reference's keys, a
 positive step count, a dominant roofline term and a useful-FLOP ratio in
@@ -20,6 +20,8 @@ KEYS = ("arch", "shape", "mesh", "timestamp", "status", "n_chips",
         "trace_s", "memory", "analytic_memory", "hlo_flops", "hlo_bytes",
         "collectives", "opt_state_dtype", "accum_steps", "roofline",
         "model_flops_global", "model_flops_per_chip", "useful_flop_ratio")
+SERVING_KEYS = tuple(k for k in KEYS
+                     if k not in ("opt_state_dtype", "accum_steps"))
 
 
 def training_cell(arch: str, mesh_kind: str) -> dict:
@@ -35,6 +37,29 @@ def training_cell(arch: str, mesh_kind: str) -> dict:
     assert mem["argument_size_in_bytes"] == sum(
         mem["argument_parts"].values())
     assert mem["temp_size_in_bytes"] > 0
+    assert rec["collectives"]["total_bytes"] > 0
+    return rec
+
+
+def serving_cell(arch: str, shape: str, mesh_kind: str,
+                 kv_quant: bool = False) -> dict:
+    """A prefill or decode cell: ``ok`` with the reference's keys (no
+    training keys), a dominant roofline term, collective bytes, and the
+    arguments' parts summing to the arguments."""
+    rec = dryrun.run_cell(arch, shape, mesh_kind, save=False,
+                          kv_quant=kv_quant)
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    assert set(SERVING_KEYS) <= set(rec)
+    assert rec["n_chips"] == (512 if mesh_kind == "multi" else 256)
+    assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+    assert rec["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                           "collective_s")
+    assert 0 < rec["useful_flop_ratio"] <= 1.5
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == sum(
+        mem["argument_parts"].values())
+    assert mem["argument_parts"]["optimizer"] == 0
+    assert mem["output_size_in_bytes"] > 0
     assert rec["collectives"]["total_bytes"] > 0
     return rec
 

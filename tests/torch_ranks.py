@@ -382,3 +382,109 @@ def tp_ranks(rank, world, tmp, cases, extras):
                            _records([t2.train_step()]))
     out["restored"] = restored
     return out
+
+
+# -------------------------------------------------------- sharded serving
+# (name, TP_CASES config, kv_quant) of tests/test_torch_serve_tp.py: every
+# family's reduced config, the 3-head dense one ("seq" attention, its
+# cache split over head_dim, at m = 4 its vocab whole) and the hybrid of 2
+# SSD heads (at m = 4 the whole block on every rank, its conv window still
+# split over d_inner), each attention family also with the int8 cache; on
+# TP_MESHES: the reduced dense family's 2 kv heads split at m = 2 and its
+# head_dim at m = 4
+SERVE_CASES = (("dense", "dense", False), ("dense_q", "dense", True),
+               ("dense_seq", "dense_seq", False),
+               ("dense_seq_q", "dense_seq", True),
+               ("moe", "moe", False), ("ssm", "ssm", False),
+               ("hybrid", "hybrid", False), ("hybrid_q", "hybrid", True),
+               ("hybrid_odd", "hybrid_odd", False),
+               ("encdec", "encdec", False), ("encdec_q", "encdec", True))
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_FRAMES = 2, 16, 3, 8
+
+
+def serve_case(name):
+    """(its TP_CASES config name, kv_quant)."""
+    _, base, quant = next(c for c in SERVE_CASES if c[0] == name)
+    return base, quant
+
+
+def serve_inputs(cfg):
+    """Prompts (B, S), teacher-forced tokens (B, T) and encoder frames
+    (B, SERVE_FRAMES, D), from a numpy seed."""
+    rng = np.random.default_rng(3)
+    B = SERVE_BATCH
+    return (rng.integers(0, cfg.vocab, (B, SERVE_PROMPT)).astype(np.int64),
+            rng.integers(0, cfg.vocab, (B, SERVE_NEW)).astype(np.int64),
+            rng.normal(0, 1, (B, SERVE_FRAMES, cfg.d_model))
+            .astype(np.float32))
+
+
+def serve_steps(case, mesh=None, device="cpu"):
+    """The reference's prefill cell and a decode step SERVE_NEW positions
+    deeper, in f32 on backend="cuda" (the kernel's plain version on the
+    CPU), their weights ``case``'s npz tree."""
+    import torch
+    from repro_torch.launch.serve_step import ServeStep
+    base, quant = serve_case(case)
+    cfg = tp_config(base)
+    kw = dict(mesh=mesh, device=device, compute_dtype=torch.float32,
+              backend="cuda")
+    return (ServeStep(cfg, "prefill", SERVE_BATCH, SERVE_PROMPT, **kw),
+            ServeStep(cfg, "decode", SERVE_BATCH, SERVE_PROMPT + SERVE_NEW,
+                      kv_quant=quant, **kw))
+
+
+def host(t):
+    """A numpy copy of ``t`` (bf16 as f32)."""
+    import torch
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def serve_run(case, tree, mesh=None) -> dict:
+    """``case``'s serving steps: the prefill cell's logits, the decode
+    step's prefill logits and state after it, and its teacher-forced
+    decode logits (each for the rank's rows), the stored shapes, the
+    rows, and the attention calls by mode."""
+    from repro_torch.models import attention
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.model import tree_flatten
+    pre, dec = serve_steps(case, mesh)
+    cfg = pre.cfg
+    prompts, teacher, enc = serve_inputs(cfg)
+    params = params_from_reference(tree, cfg)
+    encdec = cfg.family == "encdec"
+    before = dict(attention.MODE_CALLS)
+    out = {}
+    pre.load_params(params)
+    out["prefill"] = host(pre.prefill(
+        pre.rows(prompts), pre.rows(enc) if encdec else None))
+    dec.load_params(params)
+    dec.init_state(dec.rows(enc) if encdec else None)
+    out["filled"] = host(dec.prefill(dec.rows(prompts)))
+    out["state"] = {k: host(v) for k, v in dec.state.items()
+                    if k != "index"}
+    out["index"] = dec.state["index"]
+    out["decode"] = [host(dec.decode(dec.rows(teacher[:, t:t + 1])))
+                     for t in range(SERVE_NEW)]
+    out["param_shapes"] = [tuple(t.shape)
+                           for t in tree_flatten(dec.params)[0]]
+    out["rows"] = (dec.first_row, dec.rows_per_rank)
+    out["modes"] = {k: attention.MODE_CALLS[k] - before[k]
+                    for k in before}
+    if mesh is not None:
+        out["coords"] = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    return out
+
+
+def serve_ranks(rank, world, tmp, cases):
+    """Every serving case on the (2, 2) and (1, 4) meshes of one world."""
+    from repro_torch.launch.cluster import initialize_from_env
+    from repro_torch.launch.mesh import make_debug_mesh
+    initialize_from_env(device="cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    meshes = {s: make_debug_mesh(*s, device="cpu") for s in TP_MESHES}
+    out = {}
+    for case in cases:
+        tree = load_tree(f"{tmp}/{serve_case(case)[0]}.npz")
+        for shape, mesh in meshes.items():
+            out[case, shape] = serve_run(case, tree, mesh)
+    return out
