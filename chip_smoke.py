@@ -77,8 +77,11 @@ or JAX.  Phases:
     shapes, the winner bit-exact against plain torch.  Every candidate's
     time is printed beside the card's name and power limit;
  8. the LM slice: hold ``flash_forward`` against its plain version at the
-    reference's sweep (f32, 2e-5), in bf16 (3e-2) and at the served shape
-    in both, two launches bit-identical; then serve smollm-360m at full
+    reference's sweep (f32, 2e-5), in bf16 (3e-2), at the served shape
+    in both, and with a query offset (``q_offset``) at phase 18's "seq"
+    rank shape (smollm-360m's 15/5 heads at hd 64, 2 rows, 256 queries at
+    offsets 0 and 256 over 512 keys) in both, two launches
+    bit-identical; then serve smollm-360m at full
     width (32 layers, d 960, 15/5 heads, vocab 49152; seeded random
     weights in bf16) through ``LMServer(batch=8, max_len=1057)
     .generate(8 prompts x 1024 tokens, n_new=32)`` on ``backend="cuda"``:
@@ -132,8 +135,11 @@ or JAX.  Phases:
     ``scaled_dot_product_attention``, at the served shape, at
     ``prefill_32k``'s per-sequence shape, S = 32768, and at phase 13's
     non-causal shapes — seamless's encoder (B·H = 128, S = 1024) and its
-    cross-attention (16 queries over 1024 frames) — and its f32 route at
-    the served shape; ``cascade_qs_forward`` beside ``qs_forward`` over
+    cross-attention (16 queries over 1024 frames) — and at phase 18's
+    "seq" rank shape with its query offset (``seq_rank``: 256 queries at
+    offset 256 over 512 keys, SDPA over K/V cut to the chunk's last key
+    under ``causal_lower_right``), and its f32 route at the served
+    shape; ``cascade_qs_forward`` beside ``qs_forward`` over
     the mnist cascade's 512 trees, with its cluster layout and the share
     of walked pairs that belong to exited rows);
 13. the encoder-decoder family and the int8 KV cache: ``flash_forward``
@@ -211,8 +217,9 @@ or JAX.  Phases:
 17. the dry run of the training cells, no card and no JAX in it: in
     processes on the host's cores (``DRYRUN_ARCHS``, the longest
     first), (a) ``python -m repro_torch.launch.dryrun --arch A --shape
-    train_4k --mesh M`` for the ten architectures on the (16, 16) and
-    (2, 16, 16) meshes, each on a fake world of 256 or 512 ranks with its
+    train_4k --mesh M`` for the ten architectures on the (16, 16) mesh and
+    for ``DRYRUN_MULTI_ARCHS`` on (2, 16, 16) (the other nine were cut for
+    time when phase 19 came), each on a fake world of 256 or 512 ranks with its
     step traced on meta tensors: per cell the status (an ``error`` fails),
     arguments plus temporaries in GiB against the card's 80 GiB, the
     compute, memory and collective ms of the roofline (H100 datasheet
@@ -234,11 +241,13 @@ or JAX.  Phases:
     published size on (1, 4) ("heads" attention: ``flash_forward`` on the
     rank's 8 of 32 heads at hd 96, one launch per attention layer per
     rank in the prefill, all ``wgmma``), 4 x 1024 prompts then 16 tokens;
-    (b) smollm-360m at its published size on (2, 2) ("seq" attention on
-    the torch engine, its cache split over head_dim, the batch over the
-    data axis) and (c) mamba2-370m at its published size on (1, 4) (its
-    SSD heads and conv window split), each 4 x 512 then 8 tokens, no
-    kernel launch; (d) every family's .reduced() in f32 on (2, 2), the
+    (b) smollm-360m at its published size on (2, 2) ("seq" attention:
+    ``flash_forward`` on the rank's query chunk at its ``q_offset``, one
+    ``wgmma`` launch per layer per rank; its cache split over head_dim,
+    the batch over the data axis) and (c) mamba2-370m at its published
+    size on (1, 4) (its SSD heads and conv window split, no kernel
+    launch), each 4 x 512 then 8 tokens; (d) every family's .reduced()
+    in f32 on (2, 2), the
     attention families also with the int8 cache.  Each case is held to
     the mesh-less ``ServeStep`` on the card: the prefill's last logits
     and each decode step's, teacher-forced with the mesh-less run's
@@ -252,6 +261,23 @@ or JAX.  Phases:
     version and timed beside SDPA.  Every kernel record gains
     ``serve_tp_launches`` and a ``{"sharded_serving": ...}`` line
     follows the dry-run line.
+19. the reference's five examples as the port's entry points
+    (``examples/torch_*.py``), each through its ``main`` in this process
+    on the card at the reference's default sizes, its own assertions the
+    checks: the quickstart (magic, RF 128 x 32; every torch engine float
+    and int16, then ``qs_forward`` on the int16 forest bit for bit the
+    torch engine's), the serving example twice (mnist, RF 128 x 64 int16;
+    ``ForestServer.from_forest`` sweeps nine candidates, the three
+    forest kernels launch; 2000 Poisson requests; the second run answers
+    from the cache file with the same engine, batches and accuracy), the
+    ranking example (msn, GBT 300 x 32: every torch engine's NDCG@10
+    within 1e-6 of the trainer's), the LM training example (smollm-14m,
+    300 steps of 8 x 128, checkpoints in a temporary directory: the loss
+    falls) and the elastic restart (losses within 1e-3 of the
+    uninterrupted run).  Per run its seconds, returned numbers and
+    launches by kernel and route; every kernel record gains
+    ``examples_launches`` and ``examples_launches_by_route``, and an
+    ``{"examples": ...}`` line follows the sharded-serving line.
 
 It prints one JSON line of kernel records, the card's line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -594,6 +620,17 @@ SERVE_TP_SMALL = (4, 16, 4, 8)
 SERVE_PREFILL_REL, SERVE_DECODE_REL = 1e-5, 1e-3
 SERVE_BF16_STEPS = 4
 SERVE_FLASH_REPS = 50
+# the architectures whose (2, 16, 16) train_4k cell phase 17 runs (every
+# (16, 16) cell runs): the others' were cut for the script's time limit
+# when phase 19 came (they took 524 s of the host's cores in PR 27 run
+# 8); tests/test_torch_dryrun_cells.py and _pods.py trace them on the CPU
+DRYRUN_MULTI_ARCHS = ("smollm_360m",)
+# the reference's examples as the port's entry points (phase 19): each
+# examples/torch_*.py's main() in this process at the reference's default
+# sizes (the LM example's checkpoints under a temporary directory), the
+# serving example twice, the second answering from the autotuner's cache
+EXAMPLES = ("torch_quickstart", "torch_serve_forest", "torch_ranking_e2e",
+            "torch_train_lm", "torch_elastic_restart")
 # the dry run (phase 17): every production training cell, one process a
 # (arch, mesh) on the host's cores, the longest traces first (on one
 # CPU core: jamba 248 s, mamba2 93 s, command-r 68 s, grok 48 s, the rest
@@ -1908,24 +1945,25 @@ def bf16_step(x: float) -> float:
 
 
 def compare_flash(B, Sq, Sk, H, K, hd, causal, dtype, device,
-                  steps=None) -> float:
-    """``flash_forward`` vs its plain version on the same inputs, within
-    the reference's tolerance for ``dtype`` (in bf16 with ``steps``:
-    within that many bf16 steps of the largest |out|, absolute); on the
-    card two launches must give the same bits.  Returns the largest
-    absolute difference."""
+                  steps=None, q_offset=0) -> float:
+    """``flash_forward`` vs its plain version on the same inputs (q's
+    first row at key position ``q_offset``), within the reference's
+    tolerance for ``dtype`` (in bf16 with ``steps``: within that many bf16
+    steps of the largest |out|, absolute); on the card two launches must
+    give the same bits.  Returns the largest absolute difference."""
     q, k, v = flash_inputs(B, Sq, Sk, H, K, hd, dtype, device,
-                           seed=Sq * 31 + Sk + hd)
-    got = flash_forward(q, k, v, causal=causal, n_rep=H // K)
-    want = flash_forward_reference(q, k, v, causal=causal, n_rep=H // K)
-    again = flash_forward(q, k, v, causal=causal, n_rep=H // K)
+                           seed=Sq * 31 + Sk + hd + q_offset)
+    kw = dict(causal=causal, n_rep=H // K, q_offset=q_offset)
+    got = flash_forward(q, k, v, **kw)
+    want = flash_forward_reference(q, k, v, **kw)
+    again = flash_forward(q, k, v, **kw)
     sync(device)
     tol = FLASH_TOL_F32 if dtype == torch.float32 else FLASH_TOL_BF16
     rtol = tol
     if dtype == torch.bfloat16 and steps:
         tol, rtol = steps * bf16_step(float(want.float().abs().max())), 0.0
     err = float((got.float() - want.float()).abs().max())
-    tag = (B, Sq, Sk, H, K, hd, causal, str(dtype))
+    tag = (B, Sq, Sk, H, K, hd, causal, str(dtype), q_offset)
     if got.dtype != dtype or got.shape != q.shape:
         raise AssertionError(f"flash {tag}: out {got.dtype} {got.shape}")
     if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=tol):
@@ -1936,38 +1974,47 @@ def compare_flash(B, Sq, Sk, H, K, hd, causal, dtype, device,
     return err
 
 
-def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+def visible_pairs(Sq: int, Sk: int, causal: bool, q_offset: int = 0) -> int:
     """(q, k) pairs the mask leaves visible in one head: all, or for the
-    top-left causal mask min(q + 1, Sk) keys for query q."""
+    top-left causal mask min(q + q_offset + 1, Sk) keys for query q."""
     if not causal:
         return Sq * Sk
-    n = min(Sq, Sk)
-    return n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk
+    n = min(Sq, max(Sk - q_offset, 0))        # rows that miss some key
+    return n * (q_offset + 1) + n * (n - 1) // 2 + (Sq - n) * Sk
 
 
-def flash_bound(q, k, v, causal: bool):
+def flash_bound(q, k, v, causal: bool, q_offset: int = 0):
     """Least time for the attention on these operands: 4*hd operations per
     visible (q, k) pair (q.k and p*v; the softmax's exps not counted) at
     the bf16 tensor rate, or q, k, v read and out written once at the HBM
     rate — the larger."""
     BH, Sq, hd = q.shape
-    n_ops = 4 * hd * BH * visible_pairs(Sq, k.shape[1], causal)
+    n_ops = 4 * hd * BH * visible_pairs(Sq, k.shape[1], causal, q_offset)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     t_ops, t_bytes = n_ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         ("bytes" if t_bytes >= t_ops else "operations"), nbytes, n_ops
 
 
-def library_attention(q4, k4, v4, causal: bool = True):
+def library_attention(q4, k4, v4, causal: bool = True, q_offset: int = 0):
     """One ``scaled_dot_product_attention`` call computing
     ``flash_forward``'s function (causal or not, GQA) on the same inputs,
     on PyTorch's fused backends only (the math backend would hold the
     whole score matrix: 64 GB at S = 32768).  With ``enable_gqa`` where a
     fused backend takes it, else over k/v repeated to every query head.
-    Returns (call, which form).  A yardstick: the port never calls it."""
+    A causal chunk at ``q_offset`` attends over K/V cut to its last key,
+    ``[:q_offset + Sq]``, under ``causal_lower_right``.  Returns (call,
+    which form).  A yardstick: the port never calls it."""
+    kw = dict(is_causal=causal)
+    if causal and q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+        Sq, Sk = q4.shape[2], q_offset + q4.shape[2]
+        k4, v4 = k4[:, :, :Sk], v4[:, :, :Sk]
+        kw = dict(attn_mask=causal_lower_right(Sq, Sk))
+
     def gqa():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
+                                              **kw)
     with sdpa_kernel(FUSED_SDPA):
         try:
             gqa()
@@ -1976,14 +2023,14 @@ def library_attention(q4, k4, v4, causal: bool = True):
             pass
     rep = q4.shape[1] // k4.shape[1]
     k_r, v_r = (t.repeat_interleave(rep, dim=1) for t in (k4, v4))
-    return (lambda: F.scaled_dot_product_attention(q4, k_r, v_r,
-                                                   is_causal=causal),
+    return (lambda: F.scaled_dot_product_attention(q4, k_r, v_r, **kw),
             "k/v repeated")
 
 
 def flash_timing(B, Sq, Sk, H, K, hd, causal, reps, device,
-                 plain=True, cold=False) -> dict:
-    """``flash_forward`` in bf16 on seeded inputs of one shape: an eager
+                 plain=True, cold=False, q_offset=0) -> dict:
+    """``flash_forward`` in bf16 on seeded inputs of one shape (q's first
+    row at key position ``q_offset``): an eager
     loop and graph replay of ``reps`` calls, SDPA the same two ways (and
     held to the kernel within the bf16 tolerance), the plain version over
     5 calls where ``plain``, and the bound.  With ``cold`` every timed
@@ -2006,10 +2053,12 @@ def flash_timing(B, Sq, Sk, H, K, hd, causal, reps, device,
 
     def call(qkv=None):
         qkv = qkv or sets[next(turn) % n_sets]
-        return flash_forward(*qkv, causal=causal, n_rep=H // K)
+        return flash_forward(*qkv, causal=causal, n_rep=H // K,
+                             q_offset=q_offset)
     ms, device_ms = cuda_ms(call, reps), graph_ms(call, reps)
-    lib, lib_form = library_attention(*views[0], causal)
-    libs = [lib] + [library_attention(*qkv, causal)[0] for qkv in views[1:]]
+    lib, lib_form = library_attention(*views[0], causal, q_offset)
+    libs = [lib] + [library_attention(*qkv, causal, q_offset)[0]
+                    for qkv in views[1:]]
 
     def lib_call():
         return libs[next(turn) % n_sets]()
@@ -2020,13 +2069,15 @@ def flash_timing(B, Sq, Sk, H, K, hd, causal, reps, device,
                     lib_warm_device_ms=graph_ms(lib, reps)) if cold else {}
         lib_out = lib()
     plain_ms = cuda_ms(lambda: flash_forward_reference(
-        q, k, v, causal=causal, n_rep=H // K), 5) if plain else None
+        q, k, v, causal=causal, n_rep=H // K, q_offset=q_offset), 5) \
+        if plain else None
     lib_err = float((call(one).view_as(views[0][0]).float()
                      - lib_out.float()).abs().max())
     if lib_err > FLASH_TOL_BF16:
         raise AssertionError(f"flash {(B, Sq, Sk, H, K, hd, causal)}: "
                              f"kernel vs SDPA max |diff| {lib_err}")
-    bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, causal)
+    bound_ms, bound_by, nbytes, n_ops = flash_bound(q, k, v, causal,
+                                                    q_offset)
     return dict(ms=ms, device_ms=device_ms, lib_ms=lib_ms,
                 lib_device_ms=lib_device_ms, lib_form=lib_form,
                 lib_err=lib_err, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -3142,8 +3193,9 @@ for shape, kv_quant in {cells!r}:
 def dryrun_path(card: str, train: dict) -> dict:
     """Phase 17: the port's dry run (``launch/dryrun.py`` over
     ``launch/cost_analysis.py``), no JAX and no card: (a) every
-    architecture's ``train_4k`` cell on the (16, 16) and (2, 16, 16)
-    meshes, one process a cell on the host's cores, each record read
+    architecture's ``train_4k`` cell on the (16, 16) mesh and those of
+    ``DRYRUN_MULTI_ARCHS`` on (2, 16, 16), one process a cell on the
+    host's cores, each record read
     from ``experiments/dryrun_torch`` (an ``error`` or a missing record
     fails); (b) phase 14's own cell on a one-rank mesh: its FLOPs equal
     the ``FlopCounterMode`` count of a step of phase 14's, and its
@@ -3170,7 +3222,8 @@ def dryrun_path(card: str, train: dict) -> dict:
     cells_of = {"phase14": []}
     skipped = []
     for arch in DRYRUN_ARCHS:
-        for mesh in ("single", "multi"):
+        for mesh in ("single",) + (("multi",) if arch in DRYRUN_MULTI_ARCHS
+                                   else ()):
             jobs.append((f"{arch}/{mesh}", cli + [
                 arch, "--shape", "train_4k", "--mesh", mesh]))
             cells_of[jobs[-1][0]] = [(arch, "train_4k", mesh)]
@@ -3209,7 +3262,8 @@ def dryrun_path(card: str, train: dict) -> dict:
     print(f"dry run of train_4k and the serving cells ({n_cells} cells in "
           f"{len(jobs) - 1} processes, {workers} at a time: `python -m "
           f"repro_torch.launch.dryrun --arch A --shape train_4k --mesh M` "
-          f"each, and one process an architecture running `run_cell` for "
+          f"each, on (2, 16, 16) only for {', '.join(DRYRUN_MULTI_ARCHS)}, "
+          f"and one process an architecture running `run_cell` for "
           f"its serving cells on the (16, 16) mesh; "
           f"meta tensors on a fake world, H100 datasheet roofline "
           f"constants):")
@@ -3462,8 +3516,9 @@ def serve_tp_path(device, card: str, plan=None) -> dict:
     """Phase 18: every case on the mesh-less ``ServeStep`` on the device
     (greedy), then on four gloo ranks teacher-forced with its tokens; the
     checks and the lines.  Raises on a bound missed or a launch count off:
-    (a)'s prefill must launch ``flash_forward`` (route ``wgmma``) once per
-    attention layer on every rank, and no case's decode any kernel."""
+    every attention case's prefill must launch ``flash_forward`` (route
+    ``wgmma`` in bf16) once per attention layer on every rank, in "heads"
+    and in "seq" mode, and no case's decode any kernel."""
     plan = plan or serve_tp_plan()
     cases = serve_tp_cases(plan)
     ref, teachers = {}, {}
@@ -3521,12 +3576,13 @@ def serve_tp_path(device, card: str, plan=None) -> dict:
                                  f"decode {dec} ({dec_steps}); tol {tol}")
         meta = Model(cfg, device="meta")
         # the prefill: one flash launch per self- and cross-attention layer
-        # in "heads" mode (the encoder's run in init_state, before the
-        # count); none in "seq" mode; no other kernel, and none in decode
+        # in either mode ("heads": the rank's heads; "seq": its query chunk
+        # at its offset), the encoder's run in init_state, before the
+        # count; no other kernel, and none in decode
         heads = cfg.n_heads % case[2][1] == 0
         layers = meta.mixer_counts()[0] * meta.n_units \
             * (1 + (cfg.family == "encdec"))
-        want_flash = layers if heads and device.type == "cuda" else 0
+        want_flash = layers if device.type == "cuda" else 0
         for rank, r in enumerate(res):
             got = r[label]
             pc, dc = got["prefill_counts"], got["decode_counts"]
@@ -3582,6 +3638,16 @@ def serve_tp_path(device, card: str, plan=None) -> dict:
     return out
 
 
+def seq_rank_shape() -> tuple:
+    """(B, Sq, Sk, H, K, hd, q_offset) of one rank's "seq" attention in
+    phase 18's smollm-360m case on (2, 2): its batch shard, its query
+    chunk (the second: offset Sq) over the gathered sequence."""
+    arch, mesh, B, S, _ = SERVE_TP_FULL[1]
+    cfg = get_config(arch)
+    Sq = S // mesh[1]
+    return (B // mesh[0], Sq, S, cfg.n_heads, cfg.n_kv, cfg.head_dim, Sq)
+
+
 def serve_flash_shape(device, card: str) -> dict:
     """``flash_forward`` at (a)'s per-rank prefill shape: phi3-mini's 8 of
     32 heads at hd 96, 4 x 1024, causal, bf16 (B·H/m = 32 head rows):
@@ -3602,6 +3668,108 @@ def serve_flash_shape(device, card: str) -> dict:
           f"{t['lib_device_ms']:.4f} ms device; plain {t['plain_ms']:.3f} "
           f"ms; bound {t['bound_ms']:.5f} ms by {t['bound_by']} [{card}]")
     return dict(t, max_abs_err=err, shape=[B, S, S, H, K, cfg.head_dim])
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_routes() -> dict:
+    """Every kernel wrapper's launches by route, keyed as
+    ``launch_counts``."""
+    routes = tile_routes()
+    routes["cascade"] = dict(cascade_qs_forward.launches_by_route)
+    routes["flash"] = dict(flash_forward.launches_by_route)
+    return routes
+
+
+def examples_path(device, card: str) -> dict:
+    """Phase 19: each of ``EXAMPLES`` through its ``main`` in this process
+    at the reference's default sizes (its own assertions are the checks;
+    the LM example checkpoints into a temporary directory), the serving
+    example a second time, which must answer from the autotuner's cache
+    file (``REPRO_ENGINE_CACHE`` in the temporary directory; the memory
+    cache cleared before each run) with the first run's engine, batches
+    and accuracy.  Every launch count is set to 0 just before each run and
+    read just after: the quickstart launches ``qs_forward`` (its kernel
+    step), the first serving run's sweep all three forest kernels, and the
+    ranking and training examples no kernel (``backend="torch"``).
+    Returns per run its seconds, returned numbers, launches and routes."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [(name, ["--ckpt-dir", os.path.join(tmp, "train_lm")]
+                 if name == "torch_train_lm" else []) for name in EXAMPLES]
+        runs.insert(2, ("torch_serve_forest", []))
+        cache_env = os.environ.get("REPRO_ENGINE_CACHE")
+        os.environ["REPRO_ENGINE_CACHE"] = os.path.join(tmp, "cache.json")
+        try:
+            for name, argv in runs:
+                label = name if name not in out else f"{name} (again)"
+                mod = load_example(name)
+                engine_select.clear_cache()
+                gc.collect()
+                sync(device)
+                reset_launches()
+                t0 = time.perf_counter()
+                ret = mod.main(argv)
+                sync(device)
+                out[label] = {"s": time.perf_counter() - t0,
+                              "returned": ret, "launches": launch_counts(),
+                              "routes": kernel_routes()}
+                print(f"example {label}: {out[label]['s']:.1f} s, kernel "
+                      f"launches {out[label]['launches']} by route "
+                      f"{out[label]['routes']} [{card}]")
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            if cache_env is None:
+                os.environ.pop("REPRO_ENGINE_CACHE", None)
+            else:
+                os.environ["REPRO_ENGINE_CACHE"] = cache_env
+    engines = [k.engine for k in KERNELS]
+
+    def launched(label):
+        return {k: v for k, v in out[label]["launches"].items() if v}
+
+    first, again = (out[n] for n in ("torch_serve_forest",
+                                     "torch_serve_forest (again)"))
+    # on the card; on the CPU (a rehearsal) nothing launches and the
+    # sweep holds the six torch engines
+    if device.type == "cuda":
+        quick = launched("torch_quickstart")
+        if set(quick) != {"bitvector"}:
+            raise AssertionError(f"quickstart launched {quick}: want "
+                                 f"qs_forward alone")
+        swept = launched("torch_serve_forest")
+        if set(swept) != set(engines):
+            raise AssertionError(f"the serving example's sweep launched "
+                                 f"{swept}: want every forest kernel")
+        want_tune = {"cuda-qs", "cuda-bitmm", "cuda-gemm"}
+        if not want_tune <= set(first["returned"]["candidates"]) or \
+                len(first["returned"]["candidates"]) != 9:
+            raise AssertionError(f"swept "
+                                 f"{first['returned']['candidates']}")
+    r1, r2 = first["returned"], again["returned"]
+    if r1["from_cache"] or not r2["from_cache"] or \
+            r1["engine"] != r2["engine"] or any(
+                r1[k] != r2[k] for k in ("n_batches", "accuracy", "served")):
+        raise AssertionError(f"the second serving run: {r2}, the first "
+                             f"{r1}")
+    for label in ("torch_ranking_e2e", "torch_train_lm",
+                  "torch_elastic_restart"):
+        if launched(label):
+            raise AssertionError(f"{label} launched {launched(label)}")
+    for label, run in out.items():
+        check_routes({k: run["routes"][k] for k in engines},
+                     run["launches"], label)
+    return out
 
 
 def sharded_path(qforest, forest, rows, kernel_out, device,
@@ -4185,6 +4353,19 @@ def main() -> int:
     served_shape = (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True)
     served_err = {dt: compare_flash(*served_shape, dt, device)
                   for dt in worst}
+    # the sharded prefill's "seq" attention on a rank: each of the two
+    # query chunks of phase 18's smollm-360m on (2, 2) at its offset
+    B_, Sq, Sk, H_, K_, hd_, off = seq_rank_shape()
+    seq_err = {(dt, o): compare_flash(B_, Sq, Sk, H_, K_, hd_, True, dt,
+                                      device, q_offset=o)
+               for dt in worst for o in (0, off)}
+    print(f"flash_forward with a query offset, at phase 18's \"seq\" rank "
+          f"shape (B {B_}, {Sq} queries over {Sk} keys, {H_}/{K_} heads, hd "
+          f"{hd_}, causal) at offsets 0 and {off}: max|diff| vs plain f32 "
+          f"{max(seq_err[torch.float32, o] for o in (0, off)):.3g} (tol "
+          f"{FLASH_TOL_F32}), bf16 "
+          f"{max(seq_err[torch.bfloat16, o] for o in (0, off)):.3g} (tol "
+          f"{FLASH_TOL_BF16}); two launches bit-identical")
     print(f"flash_forward: {len(FLASH_SWEEP)} sweep shapes, max|diff| f32 "
           f"{worst[torch.float32]:.3g} (tol {FLASH_TOL_F32}), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {FLASH_TOL_BF16}); served shape "
@@ -4467,40 +4648,47 @@ def main() -> int:
     # reads each layer's cross K/V long after init_decode_state made them,
     # so the cross shape is timed with cold L2; "cross64" is the same
     # K/V under 64 queries, one whole wgmma query tile, to price the 48
-    # masked rows of Sq = 16
+    # masked rows of Sq = 16.  "seq_rank" is phase 18's smollm-360m "seq"
+    # attention on one rank of (2, 2): its 256-row query chunk at offset
+    # 256 over the gathered 512 keys.  The last field is the query offset
     ecfg = get_config(ENCDEC_ARCH)
     frames = enc_len(ecfg, ENCDEC_SEQ)
+    seq = seq_rank_shape()
     flash_shapes = {
-        "served": (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True, 50),
-        "32k": (1, LONG_S, LONG_S, H, K, hd, True, 3),
+        "served": (LM_BATCH, LM_PROMPT, LM_PROMPT, H, K, hd, True, 50, 0),
+        "32k": (1, LONG_S, LONG_S, H, K, hd, True, 3, 0),
         "encoder": (ENCDEC_BATCH, frames, frames, ecfg.n_heads, ecfg.n_kv,
-                    ecfg.head_dim, False, 50),
+                    ecfg.head_dim, False, 50, 0),
         "decoder": (ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT,
-                    ecfg.n_heads, ecfg.n_kv, ecfg.head_dim, True, 200),
+                    ecfg.n_heads, ecfg.n_kv, ecfg.head_dim, True, 200, 0),
         "cross": (ENCDEC_BATCH, ENCDEC_PROMPT, frames, ecfg.n_heads,
-                  ecfg.n_heads, ecfg.head_dim, False, 200),
+                  ecfg.n_heads, ecfg.head_dim, False, 200, 0),
         "cross64": (ENCDEC_BATCH, 64, frames, ecfg.n_heads, ecfg.n_heads,
-                    ecfg.head_dim, False, 200),
+                    ecfg.head_dim, False, 200, 0),
+        "seq_rank": (*seq[:6], True, 50, seq[6]),
     }
     flash_ms = {}
-    for name, (B_, Sq, Sk, H_, K_, hd_, causal, reps) in \
+    for name, (B_, Sq, Sk, H_, K_, hd_, causal, reps, off) in \
             flash_shapes.items():
         cold = name.startswith("cross")
         t = flash_ms[name] = flash_timing(B_, Sq, Sk, H_, K_, hd_, causal,
                                           reps, device, plain=name != "32k",
-                                          cold=cold)
+                                          cold=cold, q_offset=off)
         how = (f"with cold L2, turning over {t['n_sets']} input sets"
                if cold else "L2-warm")
         warm = (f"; L2-warm aside: kernel {t['warm_device_ms']:.4f} ms, SDPA "
                 f"{t['lib_warm_device_ms']:.4f} ms on the device"
                 if cold else "")
+        sdpa = (f"K/V[:{off + Sq}], causal_lower_right" if off
+                else f"is_causal={causal}")
         print(f"flash_forward {name} B={B_} H={H_}/{K_} Sq={Sq} Sk={Sk} "
-              f"hd={hd_} bf16 {'causal' if causal else 'non-causal'}, "
+              f"q_offset={off} hd={hd_} bf16 "
+              f"{'causal' if causal else 'non-causal'}, "
               f"{how}: kernel {t['ms']:.4f} ms (eager loop; on the device "
               f"by graph replay {t['device_ms']:.4f} ms), plain torch "
               + ("not timed" if t["plain_ms"] is None
                  else f"{t['plain_ms']:.4f} ms")
-              + f", scaled_dot_product_attention (is_causal={causal}, "
+              + f", scaled_dot_product_attention ({sdpa}, "
               f"{t['lib_form']}) {t['lib_ms']:.4f} ms (on the device "
               f"{t['lib_device_ms']:.4f} ms; max|diff| vs kernel "
               f"{t['lib_err']:.3g}), bound {t['bound_ms']:.5f} ms by "
@@ -4541,12 +4729,15 @@ def main() -> int:
                 ("library_l2_warm_device_ms", "lib_warm_device_ms"))
             if k in flash_ms[name]}
             for name in flash_shapes if name != "served"}})
+    records[-1]["shapes"]["seq_rank"].update(
+        max_abs_err=seq_err[torch.bfloat16, seq[6]], shape=list(seq[:6]),
+        q_offset=seq[6])
 
     # 13. the encdec family at its published size and the int8 KV cache
     t0 = time.perf_counter()
     shape_err = {}
     for name in ("encoder", "decoder", "cross"):
-        B_, Sq, Sk, H_, K_, hd_, causal, _ = flash_shapes[name]
+        B_, Sq, Sk, H_, K_, hd_, causal, _, _ = flash_shapes[name]
         shape_err[name] = {dt: compare_flash(B_, Sq, Sk, H_, K_, hd_, causal,
                                              dt, device,
                                              steps=FLASH_BF16_STEPS)
@@ -4699,6 +4890,26 @@ def main() -> int:
         "library_device_ms": ft["lib_device_ms"],
         "max_abs_err": ft["max_abs_err"], "shape": ft["shape"]}
     print(json.dumps({"sharded_serving": st}))
+
+    # 19. the reference's five examples as the port's entry points
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ex = examples_path(device, card)
+    keys = {"qs_forward": "bitvector", "qs_bitmm_forward": "bitmm",
+            "gemm_forward": "gemm", "cascade_qs_forward": "cascade",
+            "flash_forward": "flash"}
+    for rec in records:
+        key = keys[rec["name"]]
+        rec["examples_launches"] = {label: run["launches"][key]
+                                    for label, run in ex.items()}
+        rec["examples_launches_by_route"] = {label: run["routes"][key]
+                                             for label, run in ex.items()}
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s host wall ("
+          + ", ".join(f"{label} {run['s']:.1f} s" for label, run in
+                      ex.items())
+          + f") [{card}]")
+    print(json.dumps({"examples": ex}, default=float))
 
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))

@@ -6,7 +6,11 @@
 // BK * n_rep, query row bh reading kv row bh / n_rep; scores q*scale . k
 // with an f32 sum, the causal mask qpos >= kpos top-left aligned, an
 // online softmax with m, l and acc in f32, and out = acc / max(l, 1e-30)
-// in q's dtype.
+// in q's dtype.  One addition: `q_offset`, the position of q's first row
+// in the key sequence, so that query row i sees key j iff j <= i +
+// q_offset under the causal mask (a chunk of a longer sequence's queries,
+// as a rank of the sharded prefill holds; 0 is the Pallas kernel's mask).
+// Non-causal calls ignore it.
 //
 // What bounds it on an H100.  Per visible (q, k) pair the function does
 // 4*hd operations (2*hd for q.k, 2*hd for p*v), and it must read q, k, v
@@ -76,16 +80,18 @@
 //     lanes' partial dot products meet by __shfl_xor_sync.
 //   * K and V tiles (kTileK keys: 64, or 32 for hd > 64) are staged in
 //     shared memory: 32 KB at hd 64, under the default 48 KB.
-//   * Key tiles wholly above the causal diagonal of the block are never
-//     visited (the Pallas kernel still loads them).  The loop starts at
-//     key tile 0, and key 0 is visible to every query row, so each row's
+//   * Key tiles wholly above the causal diagonal of the block (shifted
+//     right by q_offset) are never visited (the Pallas kernel still loads
+//     them).  The loop starts at key tile 0, and key 0 is visible to
+//     every query row, so each row's
 //     running max is finite after its first sub-tile and a masked key
 //     contributes exactly 0 (expf(-inf)).  The same holds in the bf16
 //     kernel.
 //   * The softmax state is updated once per sub-tile of kSub = 16 keys:
 //     scores in registers, one correction expf per sub-tile.  expf, not
 //     __expf, so the f32 result holds the reference's 2e-5 tolerance.
-//   * Blocks run the heaviest causal tiles (the last q tiles) first.
+//   * Blocks run the heaviest causal tiles (the last q tiles) first;
+//     a q_offset adds the same keys to every tile, so the order holds.
 //
 // Built by src/repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -136,7 +142,7 @@ template <int HD, typename T>
 __global__ void __launch_bounds__(Shape<HD>::kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int n_rep, int causal, float scale) {
+             int n_rep, int causal, int q_offset, float scale) {
   using S = Shape<HD>;
   constexpr int G = S::kLanes;
   constexpr int C = S::kPerLane;
@@ -164,8 +170,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = -1e30f, l = 0.f;
 
-  // keys some row of this block sees: all of them, or those <= its last row
-  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
+  // keys some row of this block sees: all of them, or those <= its last
+  // row's position q_offset + q0 + kRows - 1
+  const int k_end = causal ? min(Sk, q0 + q_offset + kRows) : Sk;
   const T* kbase = k + static_cast<size_t>(kvh) * Sk * HD;
   const T* vbase = v + static_cast<size_t>(kvh) * Sk * HD;
 
@@ -200,7 +207,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int o = G / 2; o > 0; o >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
         const int kpos = k0 + j;
-        const bool vis = kpos < Sk && (!causal || kpos <= qpos);
+        const bool vis = kpos < Sk && (!causal || kpos <= qpos + q_offset);
         s[jj] = vis ? d : neg_inf();
         mx = fmaxf(mx, s[jj]);
       }
@@ -242,33 +249,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int Sq, int Sk, int n_rep, int causal,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, BH);
   flash_kernel<HD, T><<<grid, Shape<HD>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, n_rep, causal,
-      scale);
+      q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_simt(int hd, const void* q, const void* k,
                           const void* v, void* out, int BH, int Sq, int Sk,
-                          int n_rep, int causal, float scale,
+                          int n_rep, int causal, int q_offset, float scale,
                           cudaStream_t s) {
   switch (hd) {
     case 4: return launch<4, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                scale, s);
+                                q_offset, scale, s);
     case 8: return launch<8, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                scale, s);
+                                q_offset, scale, s);
     case 16: return launch<16, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                  scale, s);
+                                  q_offset, scale, s);
     case 64: return launch<64, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                  scale, s);
+                                  q_offset, scale, s);
     case 96: return launch<96, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                  scale, s);
+                                  q_offset, scale, s);
     case 128: return launch<128, T>(q, k, v, out, BH, Sq, Sk, n_rep, causal,
-                                    scale, s);
+                                    q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -599,23 +606,24 @@ __device__ __forceinline__ float ex2(float x) {
 // The online softmax of one key tile on the S accumulator fragment: s
 // holds raw scores q.k in, probabilities 2^(s * scale_log2 - m) out (s[4i
 // + e] is this thread's row e >> 1, key column 8i + 2 quad + (e & 1)).
-// Keys past Sk or above the diagonal are masked first (only on tiles
-// that reach them).  m (log2 units) and l are the row's running max and
-// quad-partial sum; corr is what the tile scales the old O by.  The
+// Keys past Sk or above the diagonal (key > row + q_offset) are masked
+// first (only on tiles that reach them).  m (log2 units) and l are the
+// row's running max and quad-partial sum; corr is what the tile scales
+// the old O by.  The
 // scale is positive, so the max is taken on raw scores; one FFMA and one
 // MUFU op per score.
 template <int KN>
 __device__ __forceinline__ void online_softmax(
     float (&s)[KN / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
     const int (&row)[2], int quad, int k0, int Sk, int causal, int qrow,
-    float scale_log2) {
-  if (k0 + KN > Sk || (causal && k0 + KN - 1 > qrow)) {
+    int q_offset, float scale_log2) {
+  if (k0 + KN > Sk || (causal && k0 + KN - 1 > qrow + q_offset)) {
 #pragma unroll
     for (int i = 0; i < KN / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * i + 2 * quad + (e & 1);
-        if (col >= Sk || (causal && col > row[e >> 1]))
+        if (col >= Sk || (causal && col > row[e >> 1] + q_offset))
           s[4 * i + e] = neg_inf();
       }
   }
@@ -664,7 +672,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int hd,
-                   int n_rep, int causal, float scale_log2) {
+                   int n_rep, int causal, int q_offset, float scale_log2) {
   using S = Tile<HDP>;
   constexpr int KN = S::kN;
   extern __shared__ uint8_t smem_raw[];
@@ -680,10 +688,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = bars + 1 + kStages;         // [kStages]
 
   const int bh = blockIdx.y;
-  // heaviest causal tiles first
+  // heaviest causal tiles first (a q_offset adds the same keys to each)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * Block<WGS>::kRows;
   // key tiles some row of the block sees
-  const int k_end = causal ? min(Sk, q0 + Block<WGS>::kRows) : Sk;
+  const int k_end =
+      causal ? min(Sk, q0 + q_offset + Block<WGS>::kRows) : Sk;
   const int n_tiles = (k_end + KN - 1) / KN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -727,7 +736,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int row[2] = {qrow + wrow, qrow + wrow + 8};
   const int quad = lane % 4;
   // key tiles this warpgroup's rows see
-  const int wg_end = causal ? min(Sk, qrow + kWgRows) : Sk;
+  const int wg_end = causal ? min(Sk, qrow + q_offset + kWgRows) : Sk;
   const int wg_tiles = (wg_end + KN - 1) / KN;
 
   float s[KN / 2], o[HDP / 2], corr[2];
@@ -770,7 +779,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_wait<0>();
   fence_regs(s);
   online_softmax<KN>(s, m, l, corr, row, quad, 0, Sk, causal, qrow,
-                     scale_log2);
+                     q_offset, scale_log2);
   pack_p<KN>(s, pa);
   for (int j = 1; j < wg_tiles; ++j) {
     mbar_wait(&full[j % kStages], (j / kStages) & 1);
@@ -780,7 +789,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();                     // S_j is done, PV_{j-1} may not be
     fence_regs(s);
     online_softmax<KN>(s, m, l, corr, row, quad, j * KN, Sk, causal, qrow,
-                       scale_log2);
+                       q_offset, scale_log2);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
@@ -879,7 +888,7 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int S, int hd,
 template <int HDP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, int BH, int Sq, int Sk, int hd,
-                         int n_rep, int causal, float scale,
+                         int n_rep, int causal, int q_offset, float scale,
                          cudaStream_t stream) {
   constexpr int WGS = warpgroups<HDP>();
   constexpr int smem = smem_bytes<HDP, WGS>();
@@ -896,24 +905,24 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + Block<WGS>::kRows - 1) / Block<WGS>::kRows, BH);
   flash_wgmma_kernel<HDP, WGS><<<grid, Block<WGS>::kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, hd, n_rep,
-      causal, scale * 1.4426950408889634f);
+      causal, q_offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_wgmma(int hd, const void* q, const void* k,
                            const void* v, void* out, int BH, int Sq, int Sk,
-                           int n_rep, int causal, float scale,
+                           int n_rep, int causal, int q_offset, float scale,
                            cudaStream_t s) {
   if (hd % 8 != 0) return cudaErrorInvalidValue;   // rows of 16 bytes
   if (hd <= 16)
     return launch_wgmma<16>(q, k, v, out, BH, Sq, Sk, hd, n_rep, causal,
-                            scale, s);
+                            q_offset, scale, s);
   if (hd <= 64)
     return launch_wgmma<64>(q, k, v, out, BH, Sq, Sk, hd, n_rep, causal,
-                            scale, s);
+                            q_offset, scale, s);
   if (hd <= 128)
     return launch_wgmma<128>(q, k, v, out, BH, Sq, Sk, hd, n_rep, causal,
-                             scale, s);
+                             q_offset, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -924,14 +933,18 @@ extern "C" {
 // out (BH, Sq, hd) = attention of q (BH, Sq, hd) over k/v (BH / n_rep, Sk,
 // hd), all contiguous, 16-byte aligned and on the current device: bf16
 // (is_bf16 != 0) through the wgmma kernel, with hd a multiple of 8; f32
-// through the CUDA-core kernel.  `scale_bits` is the f32 bit pattern of
-// the score scale.  Returns a cudaError_t: 0 when the kernel was launched.
+// through the CUDA-core kernel.  `q_offset` is the position of q's first
+// row among the keys (causal: row i sees keys <= i + q_offset; a
+// positive offset needs q_offset + Sq <= Sk); `scale_bits` is the f32 bit
+// pattern of the score scale.  Returns a cudaError_t: 0 when the kernel
+// was launched.
 int flash_forward_launch(const void* q, const void* k, const void* v,
                          void* out, int BH, int Sq, int Sk, int hd,
-                         int n_rep, int causal, int is_bf16, int scale_bits,
-                         void* stream) {
+                         int n_rep, int causal, int q_offset, int is_bf16,
+                         int scale_bits, void* stream) {
   if (BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || n_rep < 1 ||
-      BH % n_rep != 0)
+      BH % n_rep != 0 || q_offset < 0 ||
+      (causal && q_offset > 0 && q_offset > Sk - Sq))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
@@ -943,9 +956,11 @@ int flash_forward_launch(const void* q, const void* k, const void* v,
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return static_cast<int>(dispatch_wgmma(hd, q, k, v, out, BH, Sq, Sk,
-                                           n_rep, causal, scale, s));
+                                           n_rep, causal, q_offset, scale,
+                                           s));
   return static_cast<int>(dispatch_simt<float>(hd, q, k, v, out, BH, Sq, Sk,
-                                               n_rep, causal, scale, s));
+                                               n_rep, causal, q_offset,
+                                               scale, s));
 }
 
 const char* flash_error_string(int code) {

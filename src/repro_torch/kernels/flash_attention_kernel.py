@@ -5,9 +5,12 @@ Hopper.
 (``repro/kernels/flash_attention_kernel.py:86``): q (BH, Sq, hd) against
 k/v (BK, Sk, hd) with BH = BK·n_rep and the heads of one batch element
 contiguous, so query row ``bh`` reads kv row ``bh // n_rep``.  Scores are
-scaled by hd^-½; the causal mask ``qpos >= kpos`` is top-left aligned (no
-q offset, also for Sq != Sk); the online-softmax state (m, l, acc) is
-f32; the output is ``acc / max(l, 1e-30)`` in q's dtype (f32 or bf16).
+scaled by hd^-½; the causal mask ``qpos >= kpos`` is top-left aligned
+(also for Sq != Sk), with q's first row at position ``q_offset`` (0 in
+the Pallas kernel; a rank of the sharded prefill passes its chunk's
+offset, ``models/attention.attn_parallel``); the online-softmax state (m,
+l, acc) is f32; the output is ``acc / max(l, 1e-30)`` in q's dtype (f32
+or bf16).
 
 For a CUDA tensor it launches ``csrc/flash_forward.cu`` (built by
 ``kernels/build.py``) on the current stream, or raises; for a CPU tensor
@@ -63,12 +66,13 @@ def tma_head_dim(hd: int) -> int:
 
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            n_rep: int = 1) -> torch.Tensor:
+                            n_rep: int = 1,
+                            q_offset: int = 0) -> torch.Tensor:
     """The plain torch version: the Pallas kernel's arithmetic (q·scale,
     k and v in f32, masked scores -1e30, f32 m/l/acc) as a chunked online
     softmax over ``PLAIN_BLOCK`` keys, so S = 32768 fits in memory.  Key
-    chunks wholly above the causal diagonal are not visited; the loop
-    starts at key 0, which every query row sees."""
+    chunks wholly above the causal diagonal (shifted by ``q_offset``) are
+    not visited; the loop starts at key 0, which every query row sees."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     scale = hd ** -0.5
@@ -84,12 +88,13 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
         l = torch.zeros_like(m)
         acc = torch.zeros((BH, q1 - q0, hd), dtype=torch.float32,
                           device=q.device)
-        k_end = min(Sk, q1) if causal else Sk
+        k_end = min(Sk, q_offset + q1) if causal else Sk
         for k0 in range(0, k_end, PLAIN_BLOCK):
             k1 = min(k0 + PLAIN_BLOCK, Sk)
             s = qb @ kf[:, k0:k1].transpose(1, 2)
             if causal:
-                qpos = torch.arange(q0, q1, device=q.device)[:, None]
+                qpos = torch.arange(q_offset + q0, q_offset + q1,
+                                    device=q.device)[:, None]
                 kpos = torch.arange(k0, k1, device=q.device)[None, :]
                 s = torch.where(qpos >= kpos, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -103,7 +108,7 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def _check(q, k, v, n_rep):
+def _check(q, k, v, n_rep, causal, q_offset):
     dt = q.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q: dtype {dt}, expected float32 or bfloat16")
@@ -119,21 +124,30 @@ def _check(q, k, v, n_rep):
                          f"BK·n_rep with n_rep={n_rep}")
     if Sk < 1:
         raise ValueError("k/v hold no key")
+    if q_offset < 0 or (causal and q_offset and q_offset + Sq > Sk):
+        raise ValueError(f"q_offset {q_offset}: the {Sq} query rows must "
+                         f"lie within the {Sk} keys (0 <= q_offset, "
+                         f"q_offset + Sq <= Sk under the causal mask)")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, n_rep: int = 1) -> torch.Tensor:
+                  causal: bool = True, n_rep: int = 1,
+                  q_offset: int = 0) -> torch.Tensor:
     """q (BH, Sq, hd); k/v (BK, Sk, hd) with BH = BK·n_rep (heads of one
     batch element contiguous), all contiguous and of one dtype, f32 or
-    bf16.  Returns (BH, Sq, hd) in q's dtype.  Raises under autograd
-    (grad mode on and q, k or v requiring grad): there is no backward."""
+    bf16.  Under ``causal`` q row i sees keys j <= i + ``q_offset``; a
+    positive offset needs ``q_offset + Sq <= Sk`` (``ValueError``, before
+    anything reaches the card); non-causal calls ignore it.  Returns (BH,
+    Sq, hd) in q's dtype.  Raises under autograd (grad mode on and q, k or
+    v requiring grad): there is no backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_forward has no backward pass: train on "
                            "Model(backend=\"torch\"), the chunked flash "
                            "in torch")
-    _check(q, k, v, n_rep)
+    _check(q, k, v, n_rep, causal, q_offset)
     if not on_card(q, "flash_forward"):
-        return flash_forward_reference(q, k, v, causal=causal, n_rep=n_rep)
+        return flash_forward_reference(q, k, v, causal=causal, n_rep=n_rep,
+                                       q_offset=q_offset)
     BH, Sq, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: the kernel is built for "
@@ -154,11 +168,12 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (F.pad(t, (0, hd_k - hd)) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = library("flash_forward", "flash_forward_launch",
-                  "flash_error_string", 4, 8)
+                  "flash_error_string", 4, 9)
     launch(lib.flash_forward_launch, lib.flash_error_string,
            "flash_forward", q.device, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd_k, n_rep,
-           int(causal), int(route == "wgmma"), scale_bits)
+           int(causal), q_offset if causal else 0, int(route == "wgmma"),
+           scale_bits)
     flash_forward.launches += 1
     flash_forward.launches_by_route[route] += 1
     return out if hd_k == hd else out[..., :hd].contiguous()
@@ -177,13 +192,15 @@ def _head_major(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """``flash_forward`` over q (B, S, H, hd) and k/v (B, S, K, hd) — the
-    ``models/attention.py`` layout; H must be a multiple of K."""
+                         *, causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
+    """``flash_forward`` over q (B, Sq, H, hd) and k/v (B, Sk, K, hd) — the
+    ``models/attention.py`` layout; H must be a multiple of K; q's first
+    row at key position ``q_offset``."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     if H % K:
         raise ValueError(f"{H} query heads over {K} kv heads")
     out = flash_forward(_head_major(q), _head_major(k), _head_major(v),
-                        causal=causal, n_rep=H // K)
+                        causal=causal, n_rep=H // K, q_offset=q_offset)
     return out.reshape(B, H, Sq, hd).transpose(1, 2)

@@ -17,11 +17,11 @@ by q positions (every weight whole, q from this rank's sequence chunk at
 its absolute offset, K/V from the gathered sequence, no reduce).  With a
 decode state the rank writes its shard of the KV cache as
 ``distributed.sharding.decode_state_specs`` places it: its kv heads when
-they divide "model", else its head_dim slice, else all of it.  On
-``backend="cuda"`` the "heads" mode runs the kernel on the rank's heads;
-the "seq" mode's query chunk starts at an offset, which the kernel's
-top-left causal mask has no argument for, so that mode runs the torch
-engine on either backend (``MODE_CALLS`` counts the calls of each mode).
+they divide "model", else its head_dim slice, else all of it.  Both
+modes run the model's backend: on ``backend="cuda"`` the "heads" mode
+runs the kernel on the rank's heads, the "seq" mode on the rank's query
+chunk with the kernel's ``q_offset`` at the chunk's position
+(``MODE_CALLS`` counts the calls of each mode).
 ``attn_decode_parallel`` and ``cross_decode_parallel`` are the decode
 steps on the rank's cache shard.
 
@@ -45,7 +45,7 @@ from .layers import apply_rope
 NEG_INF = -1e30
 BACKENDS = ("torch", "cuda")
 # ``attn_parallel``'s calls by mode in this process ("heads": the rank's
-# heads on the model's backend; "seq": q positions on the torch engine)
+# heads; "seq": the rank's q positions; both on the model's backend)
 MODE_CALLS = {"heads": 0, "seq": 0}
 
 
@@ -140,12 +140,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _attend(q, k, v, causal: bool, q_chunk: int, backend: str):
-    """q (B, Sq, H, hd) over k/v (B, Sk, K, hd) on ``backend``'s engine."""
+def _attend(q, k, v, causal: bool, q_chunk: int, backend: str,
+            q_offset: int = 0):
+    """q (B, Sq, H, hd) over k/v (B, Sk, K, hd) on ``backend``'s engine,
+    q's first row at key position ``q_offset``."""
     if backend == "cuda":
-        return flash_attention_bshd(q, k, v, causal=causal)
+        return flash_attention_bshd(q, k, v, causal=causal,
+                                    q_offset=q_offset)
     return flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                           n_rep=q.shape[2] // k.shape[2])
+                           n_rep=q.shape[2] // k.shape[2], q_offset=q_offset)
 
 
 def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -221,10 +224,11 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
     as this rank holds them) of this rank's sequence chunk x (B, S/m, D),
     or of the whole sequence where ``par`` does not split it, → its chunk
     of the output (the whole output).  ``positions`` (B, S) are global;
-    ``md`` each weight's "model" dim.  ``backend`` is the "heads" mode's
-    engine; the "seq" mode runs the torch engine.  ``kv_cache`` and
-    ``kv_scales``: this rank's shard of a decode state's caches, filled as
-    ``attn_forward`` fills the whole ones (``_store_kv``)."""
+    ``md`` each weight's "model" dim.  ``backend`` is both modes' engine
+    (the "seq" mode's query chunk at its offset ``par.offset``).
+    ``kv_cache`` and ``kv_scales``: this rank's shard of a decode state's
+    caches, filled as ``attn_forward`` fills the whole ones
+    (``_store_kv``)."""
     H, hd = cfg.n_heads, cfg.head_dim
     cross = memory is not None or mem_kv is not None
     K = H if cross else cfg.n_kv
@@ -239,7 +243,7 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
         if cross:
             k, v = (cross_memory_kv(w, memory, x.dtype) if mem_kv is None
                     else (t.to(q.dtype) for t in mem_kv))
-            out = flash_attention(q, k, v, causal=False, q_chunk=q_chunk)
+            out = _attend(q, k, v, False, q_chunk, backend)
         else:
             xf = par.gather_seq(x)
             k = torch.einsum("bsd,dhk->bshk", xf, w["wk"])
@@ -248,8 +252,7 @@ def attn_parallel(p: dict, x: torch.Tensor, cfg: ArchConfig,
             k = apply_rope(k, positions, cfg.rope_theta)
             if kv_cache is not None:
                 k, v = _store_kv(k, v, kv_cache, kv_scales, q.dtype, par.r)
-            out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                                  n_rep=n_rep, q_offset=off)
+            out = _attend(q, k, v, causal, q_chunk, backend, q_offset=off)
         return torch.einsum("bshk,hkd->bsd", out, w["wo"])
     MODE_CALLS["heads"] += 1
     Hl = H // par.m                                 # "heads"

@@ -607,6 +607,48 @@ def test_flash_kernel_matches_plain_version(card, dtype, B, Sq, Sk, H, K, hd,
     assert torch.equal(got, flash_attention_bshd(q, k, v, causal=causal))
 
 
+# (B, Sq, Sk, H, K, hd, q_offset): query chunks of a longer sequence, as
+# a rank of the sharded prefill's "seq" attention holds them: smollm-360m's
+# rank shape on (2, 2) (15/5 heads, a 256-row chunk at 256 over 512 keys),
+# a mid-sequence chunk no tile divides, and the first and last chunks
+# (offset 0; offset Sk - Sq) at a narrow head width
+FLASH_OFFSET_SHAPES = [
+    (2, 256, 512, 15, 5, 64, 256),
+    (1, 77, 300, 4, 2, 96, 101),
+    (2, 40, 200, 6, 2, 16, 0),
+    (2, 40, 200, 6, 2, 16, 160),
+    (1, 64, 192, 8, 8, 128, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,off", FLASH_OFFSET_SHAPES)
+def test_flash_kernel_query_offset_matches_plain_version(card, dtype, B, Sq,
+                                                         Sk, H, K, hd, off):
+    """Causal with ``q_offset`` on both routes (f32 ``simt``, bf16
+    ``wgmma``) against the plain version at the tolerances of
+    ``test_flash_kernel_matches_plain_version``; the rows equal the same
+    rows of the whole sequence's attention (within the same bound)."""
+    q, k, v = _flash_inputs(B, Sk, Sk, H, K, hd, card, getattr(torch, dtype))
+    chunk = q[:, off:off + Sq].contiguous()
+    before = flash_forward.launches
+    got = flash_attention_bshd(chunk, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_forward.launches == before + 1
+    qh, kh, vh = (t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
+                  for t in (chunk, k, v))
+    want = flash_forward_reference(qh, kh, vh, causal=True, n_rep=H // K,
+                                   q_offset=off)
+    want = want.reshape(B, H, Sq, hd).transpose(1, 2)
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    whole = flash_attention_bshd(q, k, v, causal=True)[:, off:off + Sq]
+    torch.testing.assert_close(got.float(), whole.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got, flash_attention_bshd(chunk, k, v, causal=True,
+                                                 q_offset=off))
+
+
 def test_flash_kernel_rejects_what_it_cannot_take(card):
     q, k, v = _flash_inputs(1, 8, 8, 2, 2, 32, card, torch.float32)
     with pytest.raises(ValueError, match="head_dim 32"):
@@ -617,6 +659,10 @@ def test_flash_kernel_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="16-byte"):
         flash_forward(_misaligned(card), k.reshape(2, 8, 64),
                       v.reshape(2, 8, 64))
+    before = flash_forward.launches
+    with pytest.raises(ValueError, match="q_offset 1"):
+        flash_attention_bshd(q, k, v, causal=True, q_offset=1)
+    assert flash_forward.launches == before
 
 
 def _misaligned(card):

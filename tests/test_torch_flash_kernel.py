@@ -17,6 +17,8 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention_kernel import \
     flash_attention_bshd as ref_kernel_bshd  # noqa: E402
+from repro.kernels.flash_attention_kernel import \
+    flash_forward as ref_flash_forward  # noqa: E402
 from repro.models.attention import \
     flash_attention as ref_flash  # noqa: E402
 from repro_torch.kernels import flash_attention_kernel as fk  # noqa: E402
@@ -228,3 +230,89 @@ def test_head_dim_zero_padding_is_exact(hd, causal):
                                      jnp.asarray(v), causal=causal,
                                      block_q=8, block_k=8))
     np.testing.assert_allclose(ref, got[..., :hd], rtol=2e-5, atol=2e-5)
+
+
+# query chunks of one whole sequence (head-major, S keys): (Sq, offset)
+# at the start, mid-sequence and at the end (offset S - Sq)
+OFFSET_S = 64
+OFFSET_CHUNKS = [(16, 0), (16, 24), (16, 48), (40, 24)]
+
+
+def _head_major(B, S, H, K, hd, dtype):
+    """Seeded head-major q (B·H, S, hd) and k/v (B·K, S, hd) as numpy."""
+    q, k, v = _qkv(B, S, S, H, K, hd, seed=H * 7 + K, dtype=np.float32)
+    out = [a.transpose(0, 2, 1, 3).reshape(-1, S, hd) for a in (q, k, v)]
+    return [np.ascontiguousarray(a) for a in out]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_whole(H, K, causal, bf16):
+    """The Pallas ``flash_forward`` in interpret mode over the whole
+    sequence (one block of queries and keys), once per case."""
+    q, k, v = (jnp.asarray(a, jnp.bfloat16 if bf16 else jnp.float32)
+               for a in _head_major(2, OFFSET_S, H, K, 8, np.float32))
+    return np.asarray(ref_flash_forward(
+        q, k, v, causal=causal, block_q=OFFSET_S, block_k=OFFSET_S,
+        n_rep=H // K, interpret=True).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,off", OFFSET_CHUNKS)
+@pytest.mark.parametrize("H,K", [(4, 4), (6, 2)], ids=["n_rep1", "n_rep3"])
+def test_plain_kernel_query_offset_matches_pallas_rows(plain_block, dtype,
+                                                       Sq, off, H, K):
+    """``flash_forward_reference(..., q_offset=off)`` on the query chunk
+    ``[off:off + Sq]`` equals those rows of the Pallas kernel over the
+    whole sequence (``src/repro/kernels/flash_attention_kernel.py:86``,
+    interpret mode): f32 at rtol 1e-5 / atol 1e-6, bf16 at the file's
+    3e-2."""
+    bf16 = dtype == "bfloat16"
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (_t(a).to(tdt) for a in _head_major(2, OFFSET_S, H, K, 8,
+                                                  np.float32))
+    got = fk.flash_forward_reference(q[:, off:off + Sq].contiguous(), k, v,
+                                     causal=True, n_rep=H // K, q_offset=off)
+    assert got.dtype == tdt and got.shape == (q.shape[0], Sq, 8)
+    want = _pallas_whole(H, K, True, bf16)[:, off:off + Sq]
+    rtol, atol = (3e-2, 3e-2) if bf16 else (1e-5, 1e-6)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol)
+    # the wrapper on a CPU tensor is the plain version, offset and all
+    again = fk.flash_forward(q[:, off:off + Sq].contiguous(), k, v,
+                             causal=True, n_rep=H // K, q_offset=off)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("off", [0, 24, 48])
+def test_plain_kernel_non_causal_ignores_query_offset(off):
+    """Without the causal mask every row sees every key: the offset
+    changes nothing, and the rows equal the Pallas kernel's."""
+    q, k, v = (_t(a) for a in _head_major(2, OFFSET_S, 6, 2, 8, np.float32))
+    chunk = q[:, off:off + 16].contiguous()
+    got = fk.flash_forward_reference(chunk, k, v, causal=False, n_rep=3,
+                                     q_offset=off)
+    assert torch.equal(got, fk.flash_forward_reference(chunk, k, v,
+                                                       causal=False,
+                                                       n_rep=3))
+    np.testing.assert_allclose(got.numpy(), _pallas_whole(6, 2, False, False)
+                               [:, off:off + 16], rtol=1e-5, atol=1e-6)
+
+
+def test_query_offset_beyond_the_keys_is_refused():
+    """A causal chunk must lie within the keys: ``q_offset + Sq > Sk`` and
+    a negative offset raise ``ValueError`` (the same check runs before a
+    card launch); at offset 0 the top-left mask still takes Sq > Sk."""
+    q, kv = torch.zeros(3, 16, 8), torch.zeros(1, 40, 8)
+    with pytest.raises(ValueError, match="q_offset 25"):
+        fk.flash_forward(q, kv, kv, n_rep=3, q_offset=25)
+    with pytest.raises(ValueError, match="q_offset -1"):
+        fk.flash_forward(q, kv, kv, n_rep=3, q_offset=-1)
+    with pytest.raises(ValueError, match="q_offset 25"):
+        fk.flash_attention_bshd(torch.zeros(1, 16, 3, 8),
+                                torch.zeros(1, 40, 1, 8),
+                                torch.zeros(1, 40, 1, 8), q_offset=25)
+    assert fk.flash_forward(q, kv, kv, n_rep=3, q_offset=24).shape == q.shape
+    assert fk.flash_forward(q, kv, kv, n_rep=3, causal=False,
+                            q_offset=25).shape == q.shape
+    short = torch.zeros(1, 8, 8)
+    assert fk.flash_forward(q, short, short, n_rep=3).shape == q.shape

@@ -232,7 +232,8 @@ def test_port_imports_no_jax_and_runs_on_cpu():
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]
-    + list((REPO / "scripts").glob("torch_*.py"))),
+    + list((REPO / "scripts").glob("torch_*.py"))
+    + list((REPO / "examples").glob("torch_*.py"))),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports_in_source(path):
     tree = ast.parse(path.read_text())
@@ -248,7 +249,7 @@ def test_no_jax_or_reference_imports_in_source(path):
                 f"{path}:{node.lineno} imports {m}"
 
 
-# Runs a script of scripts/ in a fresh interpreter where importing jax or
+# Runs a script of scripts/ or examples/ in a fresh interpreter where importing jax or
 # repro fails outright.
 SCRIPT = r"""
 import runpy, sys
@@ -272,7 +273,12 @@ print("SCRIPT-OK")
     ["scripts/torch_serve_model.py", "--model",
      "tests/fixtures/xgb_multiclass.json", "--n-classes", "3", "--engine",
      "qs", "--device", "cpu", "--explain", "--n-requests", "64"],
-], ids=["check_engines", "serve_model"])
+    ["scripts/torch_make_experiments_tables.py", "--dir",
+     "tests/fixtures/dryrun_torch"],
+    ["examples/torch_quickstart.py", "--device", "cpu", "--n", "600",
+     "--n-trees", "4", "--max-leaves", "8"],
+], ids=["check_engines", "serve_model", "make_experiments_tables",
+        "quickstart"])
 def test_scripts_import_no_jax_and_run_on_cpu(argv):
     res = subprocess.run([sys.executable, "-c", SCRIPT] + argv, env=_env(),
                          cwd=REPO, capture_output=True, text=True,

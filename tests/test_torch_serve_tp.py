@@ -7,8 +7,9 @@ One spawn of four ranks (``tests/torch_ranks.py``'s ``serve_ranks``)
 builds a (2, 2) and a (1, 4) mesh and runs every case of
 ``torch_ranks.SERVE_CASES`` on both: every family's ``.reduced()`` in f32
 on ``backend="cuda"`` (the flash kernel's plain version on the rank's
-heads), the 3-head dense config ("seq" attention on the torch engine,
-its cache split over head_dim), the hybrid of 2 SSD heads (at (1, 4) the
+heads), the 3-head dense config ("seq" attention: the same kernel's plain
+version on the rank's query chunk at its ``q_offset``, its cache split
+over head_dim), the hybrid of 2 SSD heads (at (1, 4) the
 whole block on every rank with its conv window split over d_inner), and
 the int8 cache of every attention family.  Meanwhile this process
 computes, from the same numpy weights and tokens, the reference's jitted
@@ -37,11 +38,14 @@ import numpy as np  # noqa: E402
 import tp_checks  # noqa: E402
 import torch_ranks as ranks  # noqa: E402
 from repro import configs as ref_configs  # noqa: E402
+from repro.models.attention import \
+    attn_forward as ref_attn_forward  # noqa: E402
 from repro.models.model import Model as RefModel  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
     decode_state_specs, local_shape, shard_tensor, tree_shardings)
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.serve_step import ServeStep  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.model import Model, tree_flatten  # noqa: E402
 
 PREFILL_REL, DECODE_REL = tp_checks.STEP0_REL, tp_checks.LATER_REL
@@ -215,3 +219,66 @@ def test_seeded_weights_are_the_mesh_less_model_cast():
     want = tree_flatten(model.cast(model.init_params(3)))[0]
     assert all(a.dtype == torch.bfloat16 and torch.equal(a, b)
                for a, b in zip(got, want))
+
+
+class _SeqRank:
+    """Rank ``r`` of ``m`` along "model" as ``attn_parallel``'s "seq" mode
+    reads it (``collectives.Parallel``'s ``want``/``offset``/
+    ``gather_seq``), in one process: the weights whole, the sequence split
+    in ``m`` chunks, the gathered sequence ``x``."""
+
+    def __init__(self, m, r, x):
+        self.m, self.r, self.split, self._x = m, r, True, x
+
+    def want(self, t, have, dim=None):
+        return t
+
+    def offset(self, n):
+        return self.r * n
+
+    def gather_seq(self, x, dim=1):
+        return self._x
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_seq_attention_ranks_match_reference(monkeypatch, backend, cross):
+    """"seq" attention (3 heads on a "model" axis of 4) on each rank's
+    query chunk, the chunks joined, against the reference's
+    ``attn_forward`` over the whole sequence (f32, within 1e-5 of the
+    largest |out|).  On ``backend="cuda"`` both branches run the kernel's
+    plain version, with ``q_offset`` at the chunk's position for the
+    causal self-attention: the torch engine's ``flash_attention`` is never
+    called."""
+    m, B, S, Sm = 4, 2, 16, 8
+    cfg = ranks.tp_config("dense_seq")
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    assert H % m
+    K = H if cross else cfg.n_kv
+    rng = np.random.default_rng(11)
+    p = {n: rng.normal(0, D ** -0.5, shape).astype(np.float32)
+         for n, shape in (("wq", (D, H, hd)), ("wk", (D, K, hd)),
+                          ("wv", (D, K, hd)), ("wo", (H, hd, D)))}
+    x = rng.normal(size=(B, S, D)).astype(np.float32)
+    mem = rng.normal(size=(B, Sm, D)).astype(np.float32) if cross else None
+    pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
+    want = np.asarray(ref_attn_forward(
+        {n: jnp.asarray(w) for n, w in p.items()}, jnp.asarray(x), cfg,
+        jnp.asarray(pos), memory=None if mem is None else jnp.asarray(mem)))
+    if backend == "cuda":
+        def refuse(*a, **kw):
+            raise AssertionError("the torch engine ran on backend=cuda")
+        monkeypatch.setattr(attention, "flash_attention", refuse)
+    tp = {n: torch.from_numpy(w) for n, w in p.items()}
+    xt = torch.from_numpy(x)
+    before = attention.MODE_CALLS["seq"]
+    outs = []
+    for r in range(m):
+        n = S // m
+        outs.append(attention.attn_parallel(
+            tp, xt[:, r * n:(r + 1) * n], cfg, torch.from_numpy(pos),
+            _SeqRank(m, r, xt), {k: None for k in tp},
+            memory=None if mem is None else torch.from_numpy(mem),
+            backend=backend).numpy())
+    assert attention.MODE_CALLS["seq"] == before + m
+    _close(np.concatenate(outs, axis=1), want, PREFILL_REL, "seq")
