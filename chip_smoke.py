@@ -303,6 +303,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import defaultdict
 from io import StringIO
 
 import numpy as np
@@ -323,8 +324,6 @@ from repro_torch.cascade import (CascadeSpec, MarginGate,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engine_select, pipeline, shard  # noqa: E402
 from repro_torch.core.engine_select import bucket_batch  # noqa: E402
-from repro_torch.core.registry import (as_input_tensor,  # noqa: E402
-                                       ensure_feature_column)
 from repro_torch.data import datasets  # noqa: E402
 from repro_torch.data.tokens import (SyntheticTokens,  # noqa: E402
                                      TokenPipelineConfig)
@@ -338,6 +337,7 @@ from repro_torch.kernels.launch import TILE_ROWS, sm_count  # noqa: E402
 from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_forward, flash_forward_reference)
 from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.obs import trace  # noqa: E402
 from repro_torch.models.model import tree_flatten, tree_map  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -1101,45 +1101,26 @@ def exited_pair_share(valid, exit_stage, stage_bounds) -> float:
     return 1.0 - needed / walked if walked else 0.0
 
 
-def host_split(pred, X, device, reps: int = 20) -> dict:
-    """Host milliseconds (median of ``reps``) of each part of one served
-    fused batch: ``FusedCascadePredictor.predict`` on the kernel tier
-    done step by step, with a synchronize after each step that reaches
-    the card.  The result must equal ``pred.predict(X)``."""
-    fn = ops.cuda_fused_cascade_qs(pred.forest, pred.stages, pred.policy,
-                                   device=device, **pred.engine_kw)
-    K = len(pred.stages)
-    times = {k: [] for k in ("quantize", "pad", "h2d", "kernel",
-                             "exit_counts", "d2h")}
-    for _ in range(reps):
-        t = [time.perf_counter()]
-        feed = ensure_feature_column(np.asarray(pred.transform_inputs(X)))
-        feed = feed.astype(np.float32)
-        t.append(time.perf_counter())
-        n, mult = feed.shape[0], pred._row_mult
-        bucket = mult * bucket_batch(-(-n // mult))
-        Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
-        Xp[:n] = feed
-        t.append(time.perf_counter())
-        xt = as_input_tensor(Xp, device)
-        sync(device)
-        t.append(time.perf_counter())
-        valid = torch.arange(bucket, device=device) < n
-        scores, exit_stage = fn(xt, valid)
-        sync(device)
-        t.append(time.perf_counter())
-        stages = torch.arange(K, dtype=torch.int32, device=device)
-        hot = (exit_stage[:, None] == stages[None, :]) & valid[:, None]
-        counts = hot.sum(dim=0).cpu().numpy()
-        t.append(time.perf_counter())
-        out = scores[:n].cpu().numpy()
-        t.append(time.perf_counter())
-        for key, a, b in zip(times, t, t[1:]):
-            times[key].append((b - a) * 1e3)
-    if not np.array_equal(out, pred.predict(X)) or \
-            not np.array_equal(counts, pred.last_exit_counts):
-        raise AssertionError("host split: the steps disagree with predict")
-    return {k: float(np.median(v)) for k, v in times.items()} | {
+def host_split(pred, X, reps: int = 20) -> dict:
+    """Host milliseconds (median of ``reps``) of each span of one served
+    fused batch (``repro_torch.obs.trace``: transform, pad, h2d, launch,
+    d2h, the last holding the wait for the card) and its bucket, after a
+    first call that builds what the predictor builds on first use."""
+    pred.predict(X)
+    trace.enable(True)
+    trace.drain()
+    try:
+        for _ in range(reps):
+            pred.predict(X)
+    finally:
+        trace.enable(False)
+    ms, bucket = defaultdict(list), None
+    for s in trace.drain():
+        if s["parent"] is not None:
+            ms[s["name"].removeprefix("repro_torch.")].append(
+                (s["end_ns"] - s["start_ns"]) / 1e6)
+            bucket = s.get("padded_rows", bucket)
+    return {k: float(np.median(v)) for k, v in ms.items()} | {
         "bucket": bucket}
 
 
@@ -4166,11 +4147,9 @@ def main() -> int:
           f"{err_f:.3g} (atol {ATOL_FULL}); sweep float max|diff| "
           f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL}, {ATOL_FULL} at "
           f"512 trees)")
-    split = host_split(casc["fused"], crows[:round(casc["mean_batch"])],
-                       device)
+    split = host_split(casc["fused"], crows[:round(casc["mean_batch"])])
     print(f"one served fused mnist batch of {round(casc['mean_batch'])} rows "
-          f"(bucket {split['bucket']}), host clock with a synchronize "
-          f"after each step, median of 20: "
+          f"(bucket {split['bucket']}), the program's spans, median of 20: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()
                       if k != "bucket")
           + f"; sum {sum(v for k, v in split.items() if k != 'bucket'):.3f}"

@@ -18,7 +18,7 @@ and the survivor mask on the device, in one of two tiers.
      reference picks it in-graph with ``lax.switch``; here the host picks
      it from the survivor count, which it reads once per gate (``K - 1``
      small reads, plus the one read of the results: ``host_syncs == K``).
-     A zero count ends the batch.
+     A zero count ends the batch (and the reads with it).
   4. **Scatter + gate** — the bucket's delta scores are added back through
      the permutation (lanes past the survivor count masked to zero), and
      the policy's ``decide`` — the same rule the staged loop's ``exits``
@@ -26,8 +26,13 @@ and the survivor mask on the device, in one of two tiers.
 
 **Tier 2, kernel** (``engine="bitvector"`` on ``backend="cuda"``): one
 ``cascade_qs_forward`` launch per batch runs every stage, the gate and the
-survivor mask; the per-stage exit counts are reduced on the device, and
-reading them is the batch's one wait for the device (``host_syncs == 1``).
+survivor mask; the per-stage exit counts are reduced on the device and
+travel back with the scores in one int32 buffer (the scores' f32 bits,
+then the counts), whose read is the batch's one wait for the device
+(``host_syncs == 1``).
+
+Each blocking read is a ``repro_torch.d2h`` span (``repro_torch.obs.trace``),
+beside ``launch`` spans for the device work each tier enqueues.
 
 Rows that exit keep their frozen cumulative score — the staged loop's
 semantics, and bit-exact against it on quantized forests: per-row
@@ -44,6 +49,7 @@ import torch
 from ..core.engine_select import bucket_batch
 from ..core.forest import Forest
 from ..core.registry import as_input_tensor, ensure_feature_column
+from ..obs import trace
 from .predictor import CascadePredictor, CascadeSpec
 
 
@@ -134,15 +140,16 @@ class FusedCascadePredictor(CascadePredictor):
         return sorted(sizes)
 
     def _fused_program(self):
-        """Tier 1: ``(Xp, n) -> (scores on the device, counts on the
-        host)`` over a (Bp, d) zero-padded batch on the device, the first
-        ``n`` rows real."""
+        """Tier 1: ``(Xp, n) -> (scores (n, C), counts (K,))`` on the host
+        for a (Bp, d) zero-padded batch on the device, the first ``n`` rows
+        real."""
         stage_fns = self._stage_fns
         decide = self.policy.decide
         K = len(self.stages)
         C = self.forest.n_classes
 
         def run(Xp, n):
+            t = trace.begin("repro_torch.launch")
             Bp = Xp.shape[0]
             dev = Xp.device
             iota = torch.arange(Bp, device=dev)
@@ -157,6 +164,7 @@ class FusedCascadePredictor(CascadePredictor):
                 if k == 0:
                     order = iota
                 else:
+                    t = trace.begin("repro_torch.launch")
                     # survivors to the front by prefix-sum ranks, scattered
                     # into a permutation; original row order preserved
                     na = active.to(torch.int64)
@@ -169,20 +177,29 @@ class FusedCascadePredictor(CascadePredictor):
                 ok = torch.arange(size, device=dev) < n_act
                 acc.index_add_(0, idx, torch.where(ok[:, None], delta, 0.0))
                 if k == K - 1:
+                    trace.end(t)
                     counts[k] += n_act
                 else:
                     ex = decide(acc, k) & active
-                    nex = int(ex.sum())      # the stage's one host read
+                    n_ex = ex.sum()
+                    trace.end(t)
+                    t = trace.begin("repro_torch.d2h")
+                    nex = int(n_ex)          # the stage's one host read
+                    trace.end(t, nbytes=n_ex.element_size())
                     counts[k] += nex
                     active &= ~ex
                     n_act -= nex
-            return acc, counts
+            t = trace.begin("repro_torch.d2h")
+            out = acc[:n].cpu().numpy()
+            trace.end(t, nbytes=out.nbytes)
+            return out, counts
 
         return run
 
     def _kernel_program(self):
         """Tier 2: the single CUDA cascade kernel plus on-device exit
-        accounting (per-row exit stage → one-hot → per-stage counts)."""
+        accounting (per-row exit stage → one-hot → per-stage counts), read
+        back with the scores in one copy."""
         from ..kernels import ops as kops
         fn = kops.cuda_fused_cascade_qs(
             self.forest, self.stages, self.policy, device=self.device,
@@ -190,12 +207,21 @@ class FusedCascadePredictor(CascadePredictor):
         K = len(self.stages)
 
         def run(Xp, n):
+            t = trace.begin("repro_torch.launch")
             valid = torch.arange(Xp.shape[0], device=Xp.device) < n
             scores, exit_stage = fn(Xp, valid)
             stages = torch.arange(K, dtype=torch.int32, device=Xp.device)
             hot = (exit_stage[:, None] == stages[None, :]) & valid[:, None]
-            # the tier's one wait for the device
-            return scores, hot.sum(dim=0).cpu().numpy().astype(np.int64)
+            # the scores' f32 bits and the int32 counts in one buffer
+            packed = torch.cat([scores[:n].reshape(-1).view(torch.int32),
+                                hot.sum(dim=0, dtype=torch.int32)])
+            trace.end(t)
+            t = trace.begin("repro_torch.d2h")
+            host = packed.cpu().numpy()          # the tier's one host read
+            trace.end(t, nbytes=host.nbytes)
+            m = host.size - K
+            return (host[:m].view(np.float32).reshape(n, -1),
+                    host[m:].astype(np.int64))
 
         return run
 
@@ -207,27 +233,38 @@ class FusedCascadePredictor(CascadePredictor):
 
     # --------------------------------------------------------- prediction
     def predict(self, X: np.ndarray) -> np.ndarray:
-        X = np.asarray(X)
-        K = len(self.stages)
-        if X.shape[0] == 0:
-            self.last_exit_counts = np.zeros(K, dtype=np.int64)
-            return np.zeros((0, self.forest.n_classes), dtype=np.float32)
-        feed = ensure_feature_column(np.asarray(self.transform_inputs(X)))
-        if self._feed_f32:
-            feed = feed.astype(np.float32)
-        n, mult = feed.shape[0], self._row_mult
-        # the staged loop's power-of-two bucketing, in units of blocks
-        bucket = mult * bucket_batch(-(-n // mult)) if mult > 1 \
-            else bucket_batch(n)
-        Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
-        Xp[:n] = feed
-        scores, counts = self._fused_call()(
-            as_input_tensor(Xp, self.device), n)
-        self._buckets.add(Xp.shape)
-        out = scores[:n].cpu().numpy()
-        self.last_exit_counts = counts
-        self.exit_counts += counts
-        return out
+        root = trace.begin("repro_torch.predict")
+        try:
+            X = np.asarray(X)
+            K = len(self.stages)
+            if X.shape[0] == 0:
+                self.last_exit_counts = np.zeros(K, dtype=np.int64)
+                return np.zeros((0, self.forest.n_classes), dtype=np.float32)
+            program = self._fused_call()  # the kernel tier builds on first use
+            t = trace.begin("repro_torch.transform")
+            feed = self.transform_inputs(X)
+            trace.end(t)
+            t = trace.begin("repro_torch.pad")
+            feed = ensure_feature_column(np.asarray(feed))
+            if self._feed_f32:
+                feed = feed.astype(np.float32)
+            n, mult = feed.shape[0], self._row_mult
+            # the staged loop's power-of-two bucketing, in units of blocks
+            bucket = mult * bucket_batch(-(-n // mult)) if mult > 1 \
+                else bucket_batch(n)
+            Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
+            Xp[:n] = feed
+            trace.end(t, rows=n, padded_rows=bucket)
+            t = trace.begin("repro_torch.h2d")
+            xt = as_input_tensor(Xp, self.device)
+            trace.end(t, nbytes=Xp.nbytes)
+            out, counts = program(xt, n)
+            self._buckets.add(Xp.shape)
+            self.last_exit_counts = counts
+            self.exit_counts += counts
+            return out
+        finally:
+            trace.end(root, rows=len(X))
 
     @property
     def host_syncs(self) -> int:

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..obs import trace
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Without CUDA that raises: the port never
@@ -198,7 +200,14 @@ class BasePredictor:
         return out.cpu().numpy()
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        return self.predict_transformed(self.transform_inputs(X))
+        root = trace.begin("repro_torch.predict")
+        try:
+            t = trace.begin("repro_torch.transform")
+            Xq = self.transform_inputs(X)
+            trace.end(t)
+            return self.predict_transformed(Xq)
+        finally:
+            trace.end(root, rows=len(X))
 
     def predict_class(self, X: np.ndarray) -> np.ndarray:
         return self.predict(X).argmax(axis=1)

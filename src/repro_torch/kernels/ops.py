@@ -15,6 +15,7 @@ from ..core.quickscorer import (as_bit_pattern, bitmm_full_word,
                                 bitmm_pack_arrays)
 from ..core.registry import BasePredictor, ensure_feature_column, \
     resolve_device
+from ..obs import trace
 from .gemm_forest_kernel import (gemm_forward, gemm_forward_limits,
                                  leaf_major)
 from .quickscorer_kernel import (byte_planes, qs_bitmm_forward,
@@ -98,18 +99,32 @@ class _KernelPredictor(BasePredictor):
                                np.asarray(X)).astype(np.float32)
 
     def predict_transformed(self, Xq: np.ndarray) -> np.ndarray:
+        t = trace.begin("repro_torch.pad")
         Xq = ensure_feature_column(np.asarray(Xq, dtype=np.float32))
         if Xq.ndim != 2 or Xq.shape[1] < self.min_width:
+            trace.end(t)
             raise ValueError(f"rows of width >= {self.min_width} expected, "
                              f"got shape {Xq.shape}")
         B = Xq.shape[0]
-        Xp = _pad_to(Xq, 0, bucket_rows(B, self.block_b))
+        Xp = np.ascontiguousarray(
+            _pad_to(Xq, 0, bucket_rows(B, self.block_b)))
         self._shapes.add((Xp.shape, Xp.dtype.str))
-        x = torch.from_numpy(np.ascontiguousarray(Xp)).to(self.device)
+        trace.end(t, rows=B, padded_rows=Xp.shape[0])
+        t = trace.begin("repro_torch.h2d")
+        x = torch.from_numpy(Xp).to(self.device)
+        trace.end(t, nbytes=Xp.nbytes)
+        t = trace.begin("repro_torch.launch")
         out = self.launch(x, *self.arrays, out_dtype=self.out_dtype)
+        trace.end(t)
+        t = trace.begin("repro_torch.d2h")
+        host = out[:B].cpu().numpy()
+        trace.end(t, nbytes=host.nbytes)
         # int-accum kernels return int32 totals; the f32 cast + pow2
         # descale matches the torch engine's rounding bit-for-bit
-        return out[:B].cpu().numpy().astype(np.float32) / self.leaf_scale
+        t = trace.begin("repro_torch.descale")
+        scores = host.astype(np.float32) / self.leaf_scale
+        trace.end(t)
+        return scores
 
 
 def _node_arrays(forest: Forest, block_t: int, node_thr, tree_thr):
@@ -145,7 +160,9 @@ def cuda_qs_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     ``repro.kernels.ops.pallas_qs_predictor``).  ``device=None`` means
     the card; on ``device="cpu"`` the kernel's plain version runs."""
     device = resolve_device(device)
-    return _KernelPredictor(forest, qs_forward, _qs_arrays(forest, block_t),
+    with trace.span("repro_torch.compile_arrays"):
+        arrays = _qs_arrays(forest, block_t)
+    return _KernelPredictor(forest, qs_forward, arrays,
                             _out_dtype(forest, block_t), block_b, device,
                             limits=qs_forward_limits)
 
@@ -173,7 +190,8 @@ def cuda_bitmm_predictor(forest: Forest, block_b: int = 128,
     ``repro.kernels.ops.pallas_bitmm_predictor``).  ``device=None`` means
     the card; on ``device="cpu"`` the kernel's plain version runs."""
     device = resolve_device(device)
-    arrays, bits, npack = _bitmm_arrays(forest, block_t)
+    with trace.span("repro_torch.compile_arrays"):
+        arrays, bits, npack = _bitmm_arrays(forest, block_t)
     fn = functools.partial(qs_bitmm_forward, bits=bits, npack=npack,
                            n_leaves=forest.n_leaves)
     return _KernelPredictor(forest, fn, arrays, _out_dtype(forest, block_t),
@@ -202,8 +220,9 @@ def cuda_gemm_predictor(forest: Forest, block_b: int = 128, block_t: int = 8,
     ``repro.kernels.ops.pallas_gemm_predictor``).  ``device=None`` means
     the card; on ``device="cpu"`` the kernel's plain version runs."""
     device = resolve_device(device)
-    return _KernelPredictor(forest, gemm_forward,
-                            _gemm_arrays(forest, block_t),
+    with trace.span("repro_torch.compile_arrays"):
+        arrays = _gemm_arrays(forest, block_t)
+    return _KernelPredictor(forest, gemm_forward, arrays,
                             _out_dtype(forest, block_t), block_b, device,
                             limits=gemm_forward_limits)
 
@@ -232,12 +251,13 @@ def cuda_fused_cascade_qs(forest: Forest, stages, policy, block_b: int = 128,
             "FLInt keys (use backend='torch')")
     device = resolve_device(device)
     bounds = (0,) + tuple(stages)
-    parts = [_qs_arrays(tree_slice(forest, bounds[k], bounds[k + 1]),
-                        block_t) for k in range(len(stages))]
+    with trace.span("repro_torch.compile_arrays"):
+        parts = [_qs_arrays(tree_slice(forest, bounds[k], bounds[k + 1]),
+                            block_t) for k in range(len(stages))]
+        host = [np.concatenate([p[i] for p in parts]) for i in range(5)]
     if device.type == "cuda":
         cascade_qs_forward_limits(*parts[0])
-    arrays = tuple(torch.from_numpy(np.concatenate([p[i] for p in parts]))
-                   .to(device) for i in range(5))
+    arrays = tuple(torch.from_numpy(a).to(device) for a in host)
     stage_bounds = (0,) + tuple(
         np.cumsum([p[0].shape[0] for p in parts]).tolist())
     out_dtype = _out_dtype(forest, block_t)

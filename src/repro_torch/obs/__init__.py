@@ -5,7 +5,9 @@
     histograms, labels, a process-wide default instance (``REPRO_OBS=0``
     starts it disabled), Prometheus text and a JSON snapshot;
   * ``obs.trace``    — per-request spans (queue/form/pad/compute/sync
-    phases) in a bounded ring buffer, retrievable as JSON;
+    phases) in a bounded ring buffer, retrievable as JSON, and the
+    program's own spans beneath one ``predict`` call and a forest build
+    (``begin``/``end``, ``enable``, ``drain``; off by default);
   * ``obs.retrace``  — first-use watchers: a shape a predictor's compute
     had not run before counts as a compile event, and one after warmup
     surfaces as an anomaly instead of a silent latency spike;

@@ -26,11 +26,41 @@ threaded loop and the virtual-clock ``pump``/``flush`` twin.
 flight recorder an operator pulls as JSON from the metrics endpoint
 (``GET /traces``) after a latency spike, without grepping logs or
 re-running traffic.
+
+**In-program spans** (``begin``/``end``, ``span``, ``enable``, ``drain``)
+time the port's own code beneath one ``predict`` call and a forest
+build, on any caller's path; they share no state with ``Span``:
+
+  * ``repro_torch.predict``  — the root, one per call (``rows``);
+  * ``repro_torch.transform`` — ``transform_inputs`` (input quantization);
+  * ``repro_torch.pad``      — dtype, width check and padding to the row
+    bucket (``rows``, ``padded_rows``);
+  * ``repro_torch.h2d``      — the copy of the padded rows to the device
+    (``nbytes``);
+  * ``repro_torch.launch``   — the host's enqueue of the kernel and of
+    the device ops around it;
+  * ``repro_torch.d2h``      — one blocking device→host read: the wait
+    for the device plus the copy (``nbytes``); a call's host syncs are
+    its count of these;
+  * ``repro_torch.descale``  — the host's cast and descale of the result;
+  * ``repro_torch.compile_arrays`` — a host build of a kernel's arrays.
+
+They are off by default.  Off, ``begin`` and ``end`` return after one
+check of a module flag: no allocation, no clock, no profiler.  On, a
+span stamps start and end with ``time.time_ns()``, the Unix-epoch
+clock that ``torch.profiler``'s events carry, keeps its record in a
+bounded buffer that counts what it drops, and, while a profiler runs,
+also opens ``torch.profiler.record_function(name)``, so the profiler's
+trace carries the program's spans on the same clock.  Spans nest per
+thread; every span of one call carries the root's id as ``call``.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
@@ -109,3 +139,120 @@ class TraceBuffer:
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()
+
+
+# --------------------------------------------------------------------------- #
+# In-program spans
+# --------------------------------------------------------------------------- #
+_ON = False                 # the one check a span makes while off
+_CAPACITY = 1 << 18         # records the buffer holds between drains
+_records: list = []         # (name, start_ns, end_ns, id, parent, call,
+#                             rows, padded_rows, nbytes)
+_dropped = 0
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_local = threading.local()  # .stack: this thread's open spans
+_torch = None               # torch, imported by the first ``enable``
+_profiling = None           # torch's "is a profiler running" check
+
+
+def enable(on: bool = True) -> None:
+    """Switch the in-program spans on or off, process-wide."""
+    global _ON, _torch, _profiling
+    if on and _torch is None:
+        import torch
+        _torch, _profiling = torch, torch.autograd._profiler_enabled
+    _ON = bool(on)
+
+
+def enabled() -> bool:
+    return _ON
+
+
+def begin(name: str):
+    """Open a span on this thread; returns the token for ``end`` (None
+    while spans are off).  The per-call hot path uses ``begin``/``end``
+    because a ``with`` costs more than the flag check even when off."""
+    if not _ON:
+        return None
+    try:
+        stack = _local.stack
+    except AttributeError:
+        stack = _local.stack = []
+    sid = next(_ids)
+    parent, call = (stack[-1][1], stack[-1][3]) if stack else (None, sid)
+    t0 = time.time_ns()
+    rf = None
+    if _profiling():
+        rf = _torch.profiler.record_function(name)
+        rf.__enter__()
+    token = (name, sid, parent, call, t0, rf)
+    stack.append(token)
+    return token
+
+
+def end(token, rows: Optional[int] = None, padded_rows: Optional[int] = None,
+        nbytes: Optional[int] = None) -> None:
+    """Close the span ``token`` (a no-op for None) with its counts.
+    Spans it left open, whose ``end`` an exception skipped, close with it
+    and are not recorded."""
+    global _dropped
+    if token is None:
+        return
+    stack = getattr(_local, "stack", [])
+    if not stack or stack[-1] is not token:
+        if token not in stack:
+            return                              # closed already
+        while stack[-1] is not token:
+            rf = stack.pop()[5]
+            if rf is not None:
+                rf.__exit__(None, None, None)
+    stack.pop()
+    name, sid, parent, call, t0, rf = token
+    if rf is not None:
+        rf.__exit__(None, None, None)           # the profiler's span
+    rec = (name, t0, time.time_ns(), sid, parent, call, rows, padded_rows,
+           nbytes)
+    _lock.acquire()
+    if len(_records) < _CAPACITY:
+        _records.append(rec)
+    else:
+        _dropped += 1
+    _lock.release()
+
+
+@contextlib.contextmanager
+def span(name: str, rows: Optional[int] = None,
+         padded_rows: Optional[int] = None, nbytes: Optional[int] = None):
+    """``begin``/``end`` as a context manager, for paths outside the
+    per-call hot path (a forest build)."""
+    token = begin(name)
+    try:
+        yield
+    finally:
+        end(token, rows=rows, padded_rows=padded_rows, nbytes=nbytes)
+
+
+_FIELDS = ("name", "start_ns", "end_ns", "id", "parent", "call")
+_COUNTS = ("rows", "padded_rows", "nbytes")
+
+
+def drain() -> list:
+    """The recorded spans as dicts, in the order they closed, and an
+    empty buffer: ``name``, ``start_ns``, ``end_ns``, ``id``, ``parent``
+    (None for a root), ``call`` (the root's id) and the counts given."""
+    with _lock:
+        recs = _records[:]
+        _records.clear()
+    out = []
+    for rec in recs:
+        d = dict(zip(_FIELDS, rec))
+        d.update((k, v) for k, v in zip(_COUNTS, rec[6:]) if v is not None)
+        out.append(d)
+    return out
+
+
+def dropped() -> int:
+    """Spans discarded because the buffer was full, since the process
+    started."""
+    return _dropped

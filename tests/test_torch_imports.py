@@ -53,9 +53,9 @@ res = chip_smoke.cascade_path(
     ds.X_test[:60], ds.y_test[:60], ds.X_test[60:], ds.y_test[60:],
     torch.device("cpu"), stages=(4, 8, 16))
 assert res["launches"] == 0 and sum(res["exit_fractions"]) > 0.999
-split = chip_smoke.host_split(res["fused"], ds.X_test[60:100],
-                              torch.device("cpu"), reps=2)
+split = chip_smoke.host_split(res["fused"], ds.X_test[60:100], reps=2)
 assert split["bucket"] == 128 and min(split.values()) >= 0
+assert set(split) == {"transform", "pad", "h2d", "launch", "d2h", "bucket"}
 err, counts = chip_smoke.compare_cascade(
     res["qforest"], (4, 8, 16), res["policy"], ds.X_test[:40],
     torch.device("cpu"), 0.0, n_invalid=2)
