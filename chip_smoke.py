@@ -19,13 +19,22 @@ or JAX.  Phases:
     ``gemm_forward``) against its plain torch version on the card, at the
     kernel tests' shape sweeps and at the full-width shape, float and
     int16-quantized (int-accum: bit-exact), and against the numpy oracle;
+    then the input transform ``quantize_rows`` against its plain torch
+    version on the same card tensors and against the host's
+    ``quantize_inputs(...).astype(float32)``, bit for bit, f32 and f64
+    callers, at the cells' shapes (MSN 8192 x 136, magic 65,536 x 10, the
+    query buckets 128-1024 holding 8, 100 or 1024 rows), with NaN, ±inf
+    and -0.0 in the rows, on the int16 and the control's int8 grid and
+    through a ``feat_map``;
  4. the main path at full width: an MSN-shaped ranking forest (1024 trees
     × 64 leaves × 136 features), quantized int16 with int-accum and
     calibrated on MSN rows, compiled with ``backend="cuda"`` for each of
     the engines ``bitvector``, ``bitmm`` and ``gemm`` and served through
     ``ForestServer(max_batch=1024)``; served output must equal synchronous
     ``predict``, each engine's kernel launches the batches (on its
-    shared-memory-x route only), and the three engines' served outputs
+    shared-memory-x route only), ``quantize_rows`` once per served batch
+    (the rows are quantized on the card), and the three engines' served
+    outputs
     must be bit-identical.  Then a trained
     ``magic`` random forest, served quantized, whose accuracy may fall at
     most ``ACCURACY_MARGIN_PP`` below its float forest's;
@@ -42,7 +51,9 @@ or JAX.  Phases:
     ``qs_forward`` launch per stage with survivors, shared-memory-x route
     only), and the tier-1 fused cascade on ``engine="bitmm"`` and
     ``"gemm"`` (one ``qs_bitmm_forward`` / ``gemm_forward`` launch per
-    stage with survivors): all four bit-identical, scores and exit counts,
+    stage with survivors); each fused run quantizes on the card
+    (``quantize_rows`` once per batch), the staged one on the host (no
+    launch): all four bit-identical, scores and exit counts,
     served == ``predict``, every fused launch on the x-tile route; a
     disabled gate served fused equals the plain bitvector engine, and
     ``ScoreBoundGate`` keeps every row's class; then one served fused
@@ -129,7 +140,9 @@ or JAX.  Phases:
     beside the card's name and power limit;
 12. time each kernel and its plain version with CUDA events, as an
     eager loop of calls, beside the least time the card could take for
-    the same work (the kernels and SDPA also replayed from one CUDA graph,
+    the same work (``quantize_rows`` at the MSN bulk call, 8192 x 136,
+    and the magic cascade's, 65,536 x 10, bound by bytes; the kernels and
+    SDPA also replayed from one CUDA graph,
     the device's time without the host's work per call, in ``device_ms``
     and ``library_device_ms``; ``flash_forward`` also beside
     ``scaled_dot_product_attention``, at the served shape, at
@@ -355,6 +368,8 @@ from repro_torch.obs import (METRIC_CATALOG, PHASES,  # noqa: E402
                              set_default_registry)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
+from repro_torch.kernels.quantize_kernel import (  # noqa: E402
+    quantize_rows, quantize_rows_reference)
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
     qs_bitmm_forward, qs_bitmm_forward_reference, qs_forward,
     qs_forward_reference)
@@ -386,6 +401,13 @@ MAX_BATCH = 1024
 N_REQUESTS = 4096
 ARRIVAL_RATE_HZ = 250_000.0      # virtual clock: ~500-row batches at 2 ms
 QUANT = core.QuantSpec(bits=16, int_accum=True)
+# the benchmark control's grid: int8 inputs
+QUANT8 = core.QuantSpec(bits=8)
+# (rows, bucket) of quantize_rows over the MSN forest: the bulk call and
+# the query cell's buckets; the magic cascade's call is MAGIC_ROWS x 10
+QUANTIZE_MSN = [(8192, 8192)] + [(n, b) for b in (128, 256, 512, 1024)
+                                 for n in (8, 100, 1024) if n <= b]
+MAGIC_ROWS = 65536
 # Float kernel vs plain version: the same f32 leaves summed in another
 # order.  At the sweep's <= 16 trees the reference's own rtol 1e-5 /
 # atol 1e-6 holds; at 1024 trees of |leaf| ~ 1 the rounding of two
@@ -762,6 +784,113 @@ def compare_kernel(kernel, forest, X, device, atol: float) -> float:
     return err
 
 
+def edge_rows(forest, X, seed=0):
+    """``X`` as float64 with values that try the input transform: whole
+    NaN rows, scattered NaN, ±inf and -0.0, each feature's ``lo`` and
+    ``hi``, and one ulp either side of grid edges."""
+    X = np.array(X, dtype=np.float64)
+    n, d = X.shape
+    rng = np.random.default_rng(seed)
+    cols = np.arange(d) if forest.feat_map is None else \
+        np.asarray(forest.feat_map)
+    lo, hi = forest.feat_lo, forest.feat_hi
+    for value, start in ((np.nan, 1), (np.inf, 2), (-np.inf, 3), (-0.0, 4)):
+        X[start::11, rng.integers(0, X.shape[1], size=3)] = value
+    X[5::13, cols] = lo
+    X[6::17, cols] = hi
+    k = rng.integers(0, int(forest.quant_scale) + 1, size=len(cols))
+    edge = lo + k * (hi - lo) / forest.quant_scale
+    X[7::19, cols] = np.nextafter(edge, -np.inf)
+    X[8::23, cols] = np.nextafter(edge, np.inf)
+    X[::29] = np.nan
+    return X
+
+
+def compare_quantize(forest, X, rows: int, device) -> int:
+    """``quantize_rows`` on ``device`` for rows ``X`` into a bucket of
+    ``rows``, from f32 and from f64 callers: bit for bit its plain torch
+    version on the same tensors and the host's ``quantize_inputs(forest,
+    X).astype(float32)``, rows past ``len(X)`` +0.0.  Returns the kernel's
+    launches (two on the card, none on the CPU)."""
+    grid = ops.InputGrid(forest, device)
+    before = quantize_rows.launches
+    for dtype in (np.float32, np.float64):
+        Xd = np.ascontiguousarray(X, dtype=dtype)
+        x = torch.from_numpy(Xd).to(device)
+        args = (x, grid.lo, grid.span, grid.cols)
+        kw = dict(scale=grid.scale, bits=grid.bits,
+                  nan_value=grid.nan_value, rows=rows)
+        got = quantize_rows(*args, **kw).cpu().numpy()
+        ref = quantize_rows_reference(*args, **kw).cpu().numpy()
+        want = np.zeros_like(got)
+        with np.errstate(invalid="ignore"):
+            want[:len(X)] = core.quantize_inputs(forest, Xd).astype(
+                np.float32)
+        what = (f"quantize_rows {np.dtype(dtype).name} rows {Xd.shape} "
+                f"into {rows}, int{grid.bits}")
+        if not np.array_equal(got.view(np.uint32), ref.view(np.uint32)):
+            raise AssertionError(f"{what}: kernel != plain version")
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError(f"{what}: kernel != host quantize_inputs")
+    return quantize_rows.launches - before
+
+
+def quantize_check(msn, full, qfull, device) -> dict:
+    """Phase 3's input transform: ``compare_quantize`` at the cells' shapes
+    (``QUANTIZE_MSN`` on the MSN int16 forest ``qfull``, the magic
+    cascade's ``MAGIC_ROWS`` x 10), on the control's int8 grid and through
+    a ``feat_map``, on ``edge_rows``; one launch per shape and dtype on the
+    card.  Returns the rows and the magic forest phase 12 times, the
+    number of shapes and the launches."""
+    d = qfull.n_features
+    msn_rows = np.resize(np.concatenate([msn.X_test, msn.X_train]),
+                         (QUANTIZE_MSN[0][0], d))
+    magic = datasets.make_magic()
+    magic_rows = np.resize(np.concatenate([magic.X_train, magic.X_test]),
+                           (MAGIC_ROWS, magic.X_train.shape[1]))
+    mforest = core.quantize_forest(
+        core.random_forest_ir(64, 64, magic_rows.shape[1], seed=1),
+        magic.X_train, QUANT)
+    qfull8 = core.quantize_forest(full, msn.X_train, QUANT8)
+    wide = np.random.default_rng(1).permutation(d + 14)[:d]
+    mapped = dataclasses.replace(qfull, feat_map=wide,
+                                 n_features_src=d + 14)
+    msn_wide = np.full((len(msn_rows), d + 14), 7.0)
+    msn_wide[:, wide] = msn_rows
+    cases = [(qfull, msn_rows[:n], b) for n, b in QUANTIZE_MSN] + [
+        (mforest, magic_rows, MAGIC_ROWS),
+        (qfull8, msn_rows, len(msn_rows)), (qfull8, msn_rows[:100], 128),
+        (mapped, msn_wide[:1024], 1024)]
+    n = sum(compare_quantize(f, edge_rows(f, X), b, device)
+            for f, X, b in cases)
+    if n != (2 * len(cases) if device.type == "cuda" else 0):
+        raise AssertionError(f"quantize_rows launched {n} times for "
+                             f"{len(cases)} shapes x 2 dtypes")
+    return dict(msn_rows=msn_rows, magic_rows=magic_rows, mforest=mforest,
+                n_cases=len(cases), launches=n)
+
+
+def quantize_timing(forest, X, device) -> dict:
+    """``quantize_rows`` on rows ``X`` (f32, as the benchmark's cells send
+    them) into a bucket of ``len(X)``: eager ms, device ms by graph
+    replay, the plain version's ms, and the bound by bytes (the rows read,
+    the feed written, the grid's arrays read once)."""
+    grid = ops.InputGrid(forest, device)
+    x = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32)).to(
+        device)
+    kw = dict(scale=grid.scale, bits=grid.bits, nan_value=grid.nan_value,
+              rows=len(X))
+    args = (x, grid.lo, grid.span, grid.cols)
+    ms = cuda_ms(lambda: quantize_rows(*args, **kw), 200)
+    device_ms = graph_ms(lambda: quantize_rows(*args, **kw), 200)
+    plain_ms = cuda_ms(lambda: quantize_rows_reference(*args, **kw), 10)
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if t is not None) + len(X) * len(forest.feat_lo) * 4
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                nbytes=nbytes, shape=list(X.shape))
+
+
 def serve(pred, rows, *, max_batch=MAX_BATCH, rate_hz=ARRIVAL_RATE_HZ,
           seed=0):
     """Serve ``rows`` one request each through a ``ForestServer`` on a
@@ -785,6 +914,7 @@ def reset_launches() -> None:
         k.launch.launches = 0
     cascade_qs_forward.launches = 0
     flash_forward.launches = 0
+    quantize_rows.launches = 0
     for routes in [k.launch.launches_by_route for k in KERNELS] + \
             [cascade_qs_forward.launches_by_route,
              flash_forward.launches_by_route]:
@@ -806,18 +936,27 @@ def launch_counts() -> dict:
     return counts
 
 
+def transform_launches() -> int:
+    """``quantize_rows``' launches.  Apart from ``launch_counts``, whose
+    callers compare it with the forest and attention kernels they expect:
+    the input transform launches beside the forest kernels of every
+    quantized predictor on the card."""
+    return quantize_rows.launches
+
+
 def main_path(forest, X_calib, rows, device, engine="bitvector"):
     """Quantize → compile_forest(engine, backend="cuda") → serve.  Every
     kernel's launch count is set to 0 just before and read just after;
-    the engine's kernel must have launched once per served batch and the
-    others not at all.  Returns (predictor, served output, server, the
-    engine's launches)."""
+    the engine's kernel and ``quantize_rows`` must each have launched once
+    per served batch and the others not at all.  Returns (predictor,
+    served output, server, the engine's launches)."""
     reset_launches()
     qforest = core.quantize_forest(forest, X_calib, QUANT)
     pred = core.compile_forest(qforest, engine=engine, backend="cuda",
                                device=device)
     served, server = serve(pred, rows)
     counts = launch_counts()
+    transforms = transform_launches()
     routes = tile_routes()
     launches = counts.pop(engine)
     if not np.array_equal(served, pred.predict(rows)):
@@ -830,6 +969,11 @@ def main_path(forest, X_calib, rows, device, engine="bitvector"):
     if device.type == "cuda" and launches != server.stats.n_batches:
         raise AssertionError(f"{engine}: its kernel launched {launches} "
                              f"times for {server.stats.n_batches} batches")
+    want = server.stats.n_batches if device.type == "cuda" else 0
+    if transforms != want:
+        raise AssertionError(f"{engine}: quantize_rows launched "
+                             f"{transforms} times for "
+                             f"{server.stats.n_batches} batches")
     check_routes(routes, {engine: launches}, engine)
     if any(counts.values()):
         raise AssertionError(f"{engine}: other kernels launched {counts}")
@@ -986,6 +1130,7 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         rec = ExitRecorder(pred)
         served, server = serve(rec, rows)
         counts = launch_counts()
+        transforms = transform_launches()
         routes = tile_routes()
         cascade_routes = dict(cascade_qs_forward.launches_by_route)
         if not np.array_equal(served, pred.predict(rows)):
@@ -1002,6 +1147,12 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         if counts != want:
             raise AssertionError(f"{name} cascade: kernel launches {counts},"
                                  f" expected {want}")
+        # the fused tiers quantize on the card, the staged loop on the host
+        want = server.stats.n_batches if on_card and name != "staged" \
+            else 0
+        if transforms != want:
+            raise AssertionError(f"{name} cascade: quantize_rows launched "
+                                 f"{transforms} times, expected {want}")
         check_routes(routes, counts, f"{name} cascade")
         if cascade_routes != {"smem_x": counts["cascade"], "global_x": 0}:
             raise AssertionError(
@@ -1012,7 +1163,8 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
                                  f"{server.stats.stage_exit_counts} for "
                                  f"{len(rows)} rows")
         runs[name] = dict(served=served, batches=rec.batches, server=server,
-                          launches=counts, routes=cascade_routes)
+                          launches=counts, routes=cascade_routes,
+                          transforms=transforms)
     f = runs["fused"]
     for name, other in runs.items():
         if not np.array_equal(f["served"], other["served"]):
@@ -1050,6 +1202,8 @@ def cascade_path(forest, X_train, X_cal, y_cal, rows, y_rows, device,
         served=f["served"], full=full,
         stages=fused.stages, launches=f["launches"]["cascade"],
         routes=f["routes"],
+        transform_launches={name: r["transforms"]
+                            for name, r in runs.items()},
         staged_launches=st["launches"]["bitvector"],
         tier1_launches={e: runs[f"fused_{e}"]["launches"][e]
                         for e in CASCADE_TIER1_ENGINES},
@@ -1105,7 +1259,10 @@ def host_split(pred, X, reps: int = 20) -> dict:
     """Host milliseconds (median of ``reps``) of each span of one served
     fused batch (``repro_torch.obs.trace``: transform, pad, h2d, launch,
     d2h, the last holding the wait for the card) and its bucket, after a
-    first call that builds what the predictor builds on first use."""
+    first call that builds what the predictor builds on first use.  The
+    root's children by name; a child's own children as
+    ``<child>.<name>`` (``transform.h2d`` where the card quantizes the
+    rows), which the children's times already hold."""
     pred.predict(X)
     trace.enable(True)
     trace.drain()
@@ -1114,12 +1271,20 @@ def host_split(pred, X, reps: int = 20) -> dict:
             pred.predict(X)
     finally:
         trace.enable(False)
+    spans = trace.drain()
+    names = {s["id"]: s["name"].removeprefix("repro_torch.") for s in spans}
+    roots = {s["id"] for s in spans if s["parent"] is None}
+    kids = {s["id"] for s in spans if s["parent"] in roots}
     ms, bucket = defaultdict(list), None
-    for s in trace.drain():
-        if s["parent"] is not None:
-            ms[s["name"].removeprefix("repro_torch.")].append(
-                (s["end_ns"] - s["start_ns"]) / 1e6)
-            bucket = s.get("padded_rows", bucket)
+    for s in spans:
+        if s["parent"] in roots:
+            name = names[s["id"]]
+        elif s["parent"] in kids:
+            name = f"{names[s['parent']]}.{names[s['id']]}"
+        else:
+            continue
+        ms[name].append((s["end_ns"] - s["start_ns"]) / 1e6)
+        bucket = s.get("padded_rows", bucket)
     return {k: float(np.median(v)) for k, v in ms.items()} | {
         "bucket": bucket}
 
@@ -1686,6 +1851,7 @@ def runtime_fleet(msn_preds, fused, msn_rows, msn_served, mnist_rows,
     reset_launches()
     run = run_fleet(rt, traffic, msn_rows, mnist_rows, url)
     counts, routes = launch_counts(), tile_routes()
+    transforms = transform_launches()
     cascade_routes = dict(cascade_qs_forward.launches_by_route)
     stats = rt.stats()
     summary = {tid: rt.summary(tid) for tid in rt.model_ids}
@@ -1756,7 +1922,8 @@ def runtime_fleet(msn_preds, fused, msn_rows, msn_served, mnist_rows,
                 deciles=(latency_deciles(free), latency_deciles(run)),
                 first=(free_first, compute_first_max(rt)),
                 target=target, phases=phase_means(rt), launches=counts,
-                wall=run["wall"], scrapes=run["scrapes"],
+                transform_launches=transforms, wall=run["wall"],
+                scrapes=run["scrapes"],
                 n_requests=len(traffic), exits=exits,
                 n_series=sum(1 for ln in text.splitlines()
                              if ln and not ln.startswith("#")))
@@ -3703,7 +3870,8 @@ def examples_path(device, card: str) -> dict:
                 sync(device)
                 out[label] = {"s": time.perf_counter() - t0,
                               "returned": ret, "launches": launch_counts(),
-                              "routes": kernel_routes()}
+                              "routes": kernel_routes(),
+                              "transform_launches": transform_launches()}
                 print(f"example {label}: {out[label]['s']:.1f} s, kernel "
                       f"launches {out[label]['launches']} by route "
                       f"{out[label]['routes']} [{card}]")
@@ -3960,8 +4128,8 @@ def main() -> int:
 
     # 2. build from the repo's sources
     t0 = time.perf_counter()
-    sources = [k.source_name for k in KERNELS] + ["cascade_qs_forward",
-                                                  "flash_forward"]
+    sources = [k.source_name for k in KERNELS] + [
+        "cascade_qs_forward", "flash_forward", "quantize_rows"]
     paths = build.build(sources)
     print(f"built {', '.join(str(p) for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4041,24 +4209,38 @@ def main() -> int:
               f"{err_float:.3g} (atol {ATOL_FULL}), int16 bit-exact "
               f"({err_quant})")
 
+    # the input transform at the cells' shapes
+    qc = quantize_check(msn, full, qfull, device)
+    msn_rows, magic_rows, mforest = qc["msn_rows"], qc["magic_rows"], \
+        qc["mforest"]
+    print(f"quantize_rows: {qc['n_cases']} shapes (MSN "
+          f"{QUANTIZE_MSN[0][0]}x{d} and {len(QUANTIZE_MSN) - 1} query "
+          f"buckets 128-1024 on the int16 grid, magic {MAGIC_ROWS}x"
+          f"{magic_rows.shape[1]}, the int8 grid at 8192 and 100 rows, a "
+          f"feat_map over {d + 14} columns) x f32/f64 callers, with NaN "
+          f"rows, ±inf, -0.0, lo, hi and grid edges ±1 ulp: bit-identical "
+          f"to the plain torch version and to quantize_inputs(...)"
+          f".astype(float32), padding +0.0; {qc['launches']} launches")
+
     # 4. the main path at full width through each engine, then a trained
     # model's accuracy
     rows = np.concatenate([msn.X_test, msn.X_train])[:N_REQUESTS]
-    launches, served, msn_preds = {}, {}, {}
+    launches, served, msn_preds, servers = {}, {}, {}, {}
     for k in KERNELS:
         t0 = time.perf_counter()
         pred, served[k.engine], server, launches[k.engine] = main_path(
             full, msn.X_train, rows, device, engine=k.engine)
-        msn_preds[k.engine] = pred
+        msn_preds[k.engine], servers[k.engine] = pred, server
         wall = time.perf_counter() - t0
         stats = server.stats.summary()
         print(f"main path: {pred.plan.describe()}")
         print(f"{k.engine}: served {stats['n_requests']} requests in "
               f"{stats['n_batches']} batches (mean {stats['mean_batch']:.1f} "
-              f"rows), {k.source_name} launches {launches[k.engine]}; served "
-              f"== predict; {wall:.2f} s host wall incl. quantize+compile")
-        print(f"{k.engine} per batch, host clock: predict (quantize rows, "
-              f"pad, copy in, kernel, copy out) p50 "
+              f"rows), {k.source_name} launches {launches[k.engine]}, "
+              f"quantize_rows as many; served == predict; {wall:.2f} s host "
+              f"wall incl. quantize+compile")
+        print(f"{k.engine} per batch, host clock: predict (copy in, "
+              f"quantize_rows, kernel, copy out) p50 "
               f"{stats['compute_p50_ms']:.3f} ms, max "
               f"{max(server.stats.compute_ms):.3f} ms [{card}]")
     for engine, out in served.items():
@@ -4124,7 +4306,9 @@ def main() -> int:
           f"cascade_qs_forward 0; tier-1 fused on engine=bitmm "
           f"qs_bitmm_forward launches {tier1['bitmm']}, on engine=gemm "
           f"gemm_forward launches {tier1['gemm']} (each once per stage "
-          f"with survivors); tier-2 fused == staged == tier-1 bitmm == "
+          f"with survivors); quantize_rows launches "
+          f"{casc['transform_launches']}; tier-2 fused == staged == "
+          f"tier-1 bitmm == "
           f"tier-1 gemm bit for bit, scores and per-batch exit counts; "
           f"served == predict")
     print(f"exit fractions {[round(x, 4) for x in casc['exit_fractions']]},"
@@ -4148,12 +4332,13 @@ def main() -> int:
           f"{worst_cascade:.3g} (rtol {RTOL}, atol {ATOL}, {ATOL_FULL} at "
           f"512 trees)")
     split = host_split(casc["fused"], crows[:round(casc["mean_batch"])])
+    children = sum(v for k, v in split.items()
+                   if k != "bucket" and "." not in k)
     print(f"one served fused mnist batch of {round(casc['mean_batch'])} rows "
           f"(bucket {split['bucket']}), the program's spans, median of 20: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()
                       if k != "bucket")
-          + f"; sum {sum(v for k, v in split.items() if k != 'bucket'):.3f}"
-          f" ms [{card}]")
+          + f"; sum of the root's children {children:.3f} ms [{card}]")
 
     # 6. the compile slice: model files and the packed format, through the
     # optimizer middle-end, onto the forest kernels
@@ -4549,6 +4734,26 @@ def main() -> int:
             "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_device_ms": None})
+    qt = {"msn_bulk": quantize_timing(qfull, msn_rows, device),
+          "magic_cascade": quantize_timing(mforest, magic_rows, device)}
+    for name, t in qt.items():
+        print(f"quantize_rows {name} {t['shape'][0]}x{t['shape'][1]} f32 "
+              f"rows: kernel {t['ms']:.4f} ms (eager loop; on the device by "
+              f"graph replay {t['device_ms']:.4f} ms), plain torch "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+              f"bytes ({t['nbytes']} bytes) [{card}]")
+    t = qt["msn_bulk"]
+    records.append({
+        "name": "quantize_rows", "route": "cuda",
+        "source": quantize_rows.source, "replaces": quantize_rows.replaces,
+        "launches": sum(s.stats.n_batches for s in servers.values()),
+        "runtime_launches": fl["transform_launches"], "max_abs_err": 0.0,
+        "ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "library_device_ms": None, "shapes": {"magic_cascade": {
+            k: v for k, v in qt["magic_cascade"].items()
+            if k != "nbytes"}}})
 
     x, valid, arrays, kw = cascade_operands(
         casc["qforest"], casc["stages"], casc["policy"], crows[:B], device)
@@ -4879,6 +5084,11 @@ def main() -> int:
             "gemm_forward": "gemm", "cascade_qs_forward": "cascade",
             "flash_forward": "flash"}
     for rec in records:
+        if rec["name"] == "quantize_rows":
+            rec["examples_launches"] = {
+                label: run["transform_launches"]
+                for label, run in ex.items()}
+            continue
         key = keys[rec["name"]]
         rec["examples_launches"] = {label: run["launches"][key]
                                     for label, run in ex.items()}

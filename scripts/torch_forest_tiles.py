@@ -2,7 +2,8 @@
 trees, in turns, on a CUDA card.
 
     PYTHONPATH=src python scripts/torch_forest_tiles.py \
-        [--kernels bitmm,gemm,cascade] [--clusters 2,3,4,8] [DIR ...]
+        [--kernels bitmm,gemm,cascade,quantize] [--clusters 2,3,4,8] \
+        [DIR ...]
 
 Each DIR is a ``kernels/csrc`` directory.  Inside a checkout of this
 repository (``<root>/src/repro_torch/kernels/csrc``) that checkout's own
@@ -28,6 +29,12 @@ int16 forests) and times it by replaying 50 launches from one CUDA graph
    a gate that never fires (the gates' cost) and as one stage of all 512
    trees (the stage boundaries' cost); and ``qs_forward`` over all 512
    trees on the same rows.
+ * ``quantize``: ``quantize_rows`` (the input transform) at the bulk cells'
+   calls, 8192 x 136 and 65,536 x 10 f32 rows, checked bit for bit
+   against the host's ``quantize_inputs``: the device's time, an eager
+   loop of launches and the plain version's eager loop (CUDA events), and
+   the bound by bytes (the rows read and the feed written once at
+   3.35 TB/s).  Trees without the kernel are skipped.
 
 Run from the repository root.
 """
@@ -53,6 +60,10 @@ CASCADE_FOREST = (512, 64)
 CASCADE_STAGES = (16, 64, 256, 512)
 CASCADE_GATE = 0.5
 CASCADE_BATCHES = (1024, 512)
+# (label, rows, features): the bulk cells' calls
+QUANTIZE_SHAPES = [("msn 8192 x 136", 8192, 136),
+                   ("magic 65536 x 10", 65536, 10)]
+HBM_BYTES_PER_S = 3.35e12
 
 
 class Tree:
@@ -83,6 +94,11 @@ class Tree:
         self.ck = importlib.import_module(
             "repro_torch.kernels.cascade_kernel")
         self.cascade = importlib.import_module("repro_torch.cascade")
+        try:
+            self.quantize = importlib.import_module(
+                "repro_torch.kernels.quantize_kernel")
+        except ModuleNotFoundError:
+            self.quantize = None
         if not own:
             self.build.CSRC = csrc
 
@@ -109,6 +125,56 @@ def device_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def eager_ms(fn) -> float:
+    """Milliseconds per call of REPS calls in a loop, by CUDA events,
+    after a warm-up: the host's launch cost included."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def quantize_runs(tree, device):
+    """(label, ms) of ``quantize_rows`` at QUANTIZE_SHAPES (module
+    docstring), each first checked against ``quantize_inputs``."""
+    if tree.quantize is None:
+        return []
+    core, qk = tree.core, tree.quantize
+    runs = []
+    for label, n, d in QUANTIZE_SHAPES:
+        X = np.random.default_rng(d).normal(0, 1.3, size=(n, d)).astype(
+            np.float32)
+        qf = core.quantize_forest(core.random_forest_ir(64, 64, d, seed=0),
+                                  X[:4096], core.QuantSpec(16,
+                                                           int_accum=True))
+        grid = tree.ops.InputGrid(qf, device)
+        x = torch.from_numpy(X).to(device)
+        args = (x, grid.lo, grid.span, grid.cols)
+        kw = dict(scale=grid.scale, bits=grid.bits,
+                  nan_value=grid.nan_value, rows=n)
+        want = core.quantize_inputs(qf, X).astype(np.float32)
+        got = qk.quantize_rows(*args, **kw).cpu().numpy()
+        if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError(f"{tree.name} quantize_rows {label}: "
+                                 "kernel != quantize_inputs")
+        runs += [
+            (f"quantize_rows {label} device (graph replay)",
+             device_ms(lambda: qk.quantize_rows(*args, **kw))),
+            (f"quantize_rows {label} eager (events)",
+             eager_ms(lambda: qk.quantize_rows(*args, **kw))),
+            (f"quantize_rows {label} plain version eager (events)",
+             eager_ms(lambda: qk.quantize_rows_reference(*args, **kw))),
+            (f"quantize_rows {label} bound by bytes",
+             (X.nbytes + want.nbytes) / HBM_BYTES_PER_S * 1e3)]
+    return runs
 
 
 def tile_cases(tree, msn, device):
@@ -249,7 +315,7 @@ def cascade_runs(tree, qforest, rows, clusters, device):
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="*", type=Path)
-    ap.add_argument("--kernels", default="bitmm,gemm,cascade")
+    ap.add_argument("--kernels", default="bitmm,gemm,cascade,quantize")
     ap.add_argument("--clusters", default="2,3,4,8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -266,9 +332,12 @@ def main(argv) -> int:
     tree = Tree(dirs[0])
     msn = importlib.import_module("repro_torch.data.datasets").make_msn()
     cascade = mnist_cascade(tree) if "cascade" in kernels else None
-    times = {}
+    times, quantize = {}, {}
     for csrc in dirs + dirs[::-1] if len(dirs) > 1 else dirs:
         tree = Tree(csrc)
+        if "quantize" in kernels:
+            for label, ms in quantize_runs(tree, device):
+                quantize.setdefault(label, []).append((tree.name, ms))
         if kernels & {"bitmm", "gemm"}:
             for label, engine, kernel, plain, x, arrays, kw in tile_cases(
                     tree, msn, device):
@@ -288,6 +357,9 @@ def main(argv) -> int:
         print(f"{label} int16: " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in runs)
             + f" (device, graph replay) [{card}]")
+    for label, runs in quantize.items():
+        print(f"{label}: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in runs) + f" [{card}]")
     return 0
 
 

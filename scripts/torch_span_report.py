@@ -26,7 +26,9 @@ Prints one JSON line:
 * ``host_syncs_per_call``: ``d2h`` spans ÷ ``predict`` spans;
 * ``coverage``: the share of the ``predict`` spans' time that their six
   children cover (``coverage_median``, ``coverage_min``: of one call);
-* ``ms_per_call``: each span's mean ms a call;
+* ``ms_per_call``: each span's mean ms a call, a child's own children
+  under ``<child>.<name>`` (``transform.h2d``: the raw rows' copy where
+  the card quantizes them);
 * ``compile_arrays_s``: host builds of kernel arrays in the set-up's
   ``compile_forest`` (``.build``) and in its warm-up (``.warmup``), beside
   ``compile_s`` and ``setup_s`` as the harness reads them;
@@ -114,10 +116,16 @@ def per_call(spans) -> dict:
         root = roots[0]
         dur = root["end_ns"] - root["start_ns"]
         kids = defaultdict(int)
+        kid_names = {}
         for s in group:
             if s is not root and s["parent"] == root["id"]:
                 kids[s["name"][len(PREFIX):]] += s["end_ns"] - s["start_ns"]
+                kid_names[s["id"]] = s["name"][len(PREFIX):]
                 n_d2h += s["name"] == PREFIX + "d2h"
+        for s in group:
+            if s["parent"] in kid_names:
+                name = f"{kid_names[s['parent']]}.{s['name'][len(PREFIX):]}"
+                ms[name] += (s["end_ns"] - s["start_ns"]) / 1e6
         n_root += 1
         for name, ns in kids.items():
             ms[name] += ns / 1e6

@@ -31,6 +31,11 @@ travel back with the scores in one int32 buffer (the scores' f32 bits,
 then the counts), whose read is the batch's one wait for the device
 (``host_syncs == 1``).
 
+On the card, with kernel stages and a forest with integer thresholds,
+the rows are quantized there too: ``transform_inputs`` copies the raw rows
+once and ``quantize_rows`` writes the zero-padded bucket both tiers run
+(``kernels.ops.InputGrid``); elsewhere the host quantizes and pads them.
+
 Each blocking read is a ``repro_torch.d2h`` span (``repro_torch.obs.trace``),
 beside ``launch`` spans for the device work each tier enqueues.
 
@@ -41,6 +46,7 @@ reduction order agree, and the gate sees the same f32 values.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -49,6 +55,7 @@ import torch
 from ..core.engine_select import bucket_batch
 from ..core.forest import Forest
 from ..core.registry import as_input_tensor, ensure_feature_column
+from ..kernels import ops as kops
 from ..obs import trace
 from .predictor import CascadePredictor, CascadeSpec
 
@@ -99,6 +106,12 @@ class FusedCascadePredictor(CascadePredictor):
         # bucket ladder, as the reference's Pallas stages do
         self._row_mult = max(blocks) if blocks else 1
         self._feed_f32 = bool(blocks)
+
+    @functools.cached_property
+    def _grid(self):
+        """The card's input grid, made on the first transform."""
+        return kops.input_grid(self.forest, self.device) \
+            if self._feed_f32 else None
 
     # ------------------------------------------------------------- policy
     def set_policy(self, policy) -> None:
@@ -200,7 +213,6 @@ class FusedCascadePredictor(CascadePredictor):
         """Tier 2: the single CUDA cascade kernel plus on-device exit
         accounting (per-row exit stage → one-hot → per-stage counts), read
         back with the scores in one copy."""
-        from ..kernels import ops as kops
         fn = kops.cuda_fused_cascade_qs(
             self.forest, self.stages, self.policy, device=self.device,
             **self.engine_kw)
@@ -232,6 +244,38 @@ class FusedCascadePredictor(CascadePredictor):
         return self._program
 
     # --------------------------------------------------------- prediction
+    def _bucket(self, n: int) -> int:
+        """The staged loop's power-of-two bucketing, in units of blocks."""
+        mult = self._row_mult
+        return mult * bucket_batch(-(-n // mult)) if mult > 1 \
+            else bucket_batch(n)
+
+    def transform_inputs(self, X: np.ndarray):
+        """On the card with a grid, a ``kernels.ops.CardFeed``: the rows
+        quantized on the card into the bucket ``predict`` runs.  Else the
+        host's transform (``CascadePredictor.transform_inputs``)."""
+        if self._grid is None:
+            return super().transform_inputs(X)
+        X = np.asarray(X)
+        return self._grid.feed(X, self._bucket(len(X)))
+
+    def _host_feed(self, feed: np.ndarray):
+        """Host-transformed rows → (the zero-padded bucket on the device,
+        the row count)."""
+        t = trace.begin("repro_torch.pad")
+        feed = ensure_feature_column(np.asarray(feed))
+        if self._feed_f32:
+            feed = feed.astype(np.float32)
+        n = feed.shape[0]
+        bucket = self._bucket(n)
+        Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
+        Xp[:n] = feed
+        trace.end(t, rows=n, padded_rows=bucket)
+        t = trace.begin("repro_torch.h2d")
+        xt = as_input_tensor(Xp, self.device)
+        trace.end(t, nbytes=Xp.nbytes)
+        return xt, n
+
     def predict(self, X: np.ndarray) -> np.ndarray:
         root = trace.begin("repro_torch.predict")
         try:
@@ -244,22 +288,10 @@ class FusedCascadePredictor(CascadePredictor):
             t = trace.begin("repro_torch.transform")
             feed = self.transform_inputs(X)
             trace.end(t)
-            t = trace.begin("repro_torch.pad")
-            feed = ensure_feature_column(np.asarray(feed))
-            if self._feed_f32:
-                feed = feed.astype(np.float32)
-            n, mult = feed.shape[0], self._row_mult
-            # the staged loop's power-of-two bucketing, in units of blocks
-            bucket = mult * bucket_batch(-(-n // mult)) if mult > 1 \
-                else bucket_batch(n)
-            Xp = np.zeros((bucket,) + feed.shape[1:], dtype=feed.dtype)
-            Xp[:n] = feed
-            trace.end(t, rows=n, padded_rows=bucket)
-            t = trace.begin("repro_torch.h2d")
-            xt = as_input_tensor(Xp, self.device)
-            trace.end(t, nbytes=Xp.nbytes)
+            xt, n = feed if isinstance(feed, kops.CardFeed) \
+                else self._host_feed(feed)
             out, counts = program(xt, n)
-            self._buckets.add(Xp.shape)
+            self._buckets.add(tuple(xt.shape))
             self.last_exit_counts = counts
             self.exit_counts += counts
             return out

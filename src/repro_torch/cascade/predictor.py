@@ -246,7 +246,8 @@ class CascadePredictor:
         open — the calibration input; ``cumulative_scores(X)[-1]`` equals
         the underlying engine's full-forest prediction."""
         X = np.asarray(X)
-        feed = self.transform_inputs(X) if self._pre_transform else X
+        # the host's transform: the stage predictors take host rows
+        feed = quantize_inputs(self.forest, X) if self._pre_transform else X
         acc = np.zeros((X.shape[0], self.forest.n_classes), dtype=np.float32)
         out = []
         for k in range(len(self.stages)):

@@ -170,16 +170,18 @@ def on_card(x: torch.Tensor, name: str) -> bool:
     return True
 
 
-def library(name: str, fn: str, err_fn: str, n_ptrs: int,
-            n_ints: int) -> ctypes.CDLL:
+def library(name: str, fn: str, err_fn: str, n_ptrs: int, n_ints: int,
+            n_doubles: int = 0) -> ctypes.CDLL:
     """The built ``csrc/<name>.cu`` with its launch function ``fn`` typed
-    as ``n_ptrs`` pointers, ``n_ints`` ints and a stream, returning an
-    int error code that ``err_fn`` turns into a message."""
+    as ``n_ptrs`` pointers, ``n_ints`` ints, ``n_doubles`` doubles and a
+    stream, returning an int error code that ``err_fn`` turns into a
+    message."""
     lib = build.load(name)
     launch_fn = getattr(lib, fn)
     if launch_fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        launch_fn.argtypes = [p] * n_ptrs + [i] * n_ints + [p]
+        launch_fn.argtypes = ([p] * n_ptrs + [i] * n_ints
+                              + [ctypes.c_double] * n_doubles + [p])
         launch_fn.restype = ctypes.c_int
         getattr(lib, err_fn).argtypes = [i]
         getattr(lib, err_fn).restype = ctypes.c_char_p

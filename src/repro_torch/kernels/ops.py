@@ -3,6 +3,7 @@ kernel-backed predictors — the port's ``repro.kernels.ops``."""
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from ..core.registry import BasePredictor, ensure_feature_column, \
 from ..obs import trace
 from .gemm_forest_kernel import (gemm_forward, gemm_forward_limits,
                                  leaf_major)
+from .quantize_kernel import quantize_rows
 from .quickscorer_kernel import (byte_planes, qs_bitmm_forward,
                                  qs_bitmm_forward_limits, qs_forward,
                                  qs_forward_limits)
@@ -46,6 +48,76 @@ def bucket_rows(n: int, block_b: int) -> int:
     return block_b * bucket_batch(-(-n // block_b))
 
 
+class CardFeed(NamedTuple):
+    """A call's rows as the card's input transform hands them on: ``x``
+    the (bucket, d) f32 feed on the card, zero from row ``n`` on, and
+    ``n`` the caller's row count."""
+    x: torch.Tensor
+    n: int
+
+
+class InputGrid:
+    """A quantized forest's input grid on the card.  ``feed(X, rows)``
+    copies the caller's raw rows to the card once, as they are, and
+    quantizes them there into a bucket of ``rows`` zero-padded rows
+    (``quantize_rows``): bit for bit ``quantize_inputs(forest,
+    X).astype(np.float32)``, padded."""
+
+    def __init__(self, forest: Forest, device: torch.device):
+        lo = np.asarray(forest.feat_lo, dtype=np.float64)
+        # hi - lo exactly as normalize_features computes it
+        span = np.asarray(forest.feat_hi - forest.feat_lo, dtype=np.float64)
+        fm = forest.feat_map
+        self.lo = torch.from_numpy(lo).to(device)
+        self.span = torch.from_numpy(span).to(device)
+        self.cols = None if fm is None else torch.from_numpy(
+            np.asarray(fm, dtype=np.int32)).to(device)
+        # the gather reads these columns unchecked
+        self.width = len(lo) if fm is None else int(np.max(fm)) + 1
+        self.scale = float(forest.quant_scale)
+        self.bits = int(forest.quant_bits)
+        with np.errstate(invalid="ignore"):
+            # what the host's int cast gives NaN (0 on x86-64)
+            self.nan_value = float(np.array([np.nan]).astype(
+                forest.threshold.dtype)[0])
+        self.device = device
+
+    def feed(self, X, rows: int) -> CardFeed:
+        X = np.asarray(X)
+        if X.dtype != np.float32:
+            # float64 rows are quantized from float64, as on the host
+            X = X.astype(np.float64, copy=False)
+        if X.ndim != 2 or (X.shape[1] < self.width if self.cols is not None
+                           else X.shape[1] != self.width):
+            raise ValueError(f"rows of width {self.width} expected, got "
+                             f"shape {X.shape}")
+        if not (X.flags.c_contiguous or X.flags.f_contiguous):
+            # one block to copy; rows kept column by column (a frame's
+            # values, a slice of them) copy fastest as whole columns, and
+            # the kernel reads either layout
+            X = np.asfortranarray(X) if X.strides[0] < X.strides[1] \
+                else np.ascontiguousarray(X)
+        t = trace.begin("repro_torch.h2d")
+        x = torch.from_numpy(X).to(self.device)
+        trace.end(t, rows=len(X), padded_rows=rows, nbytes=X.nbytes)
+        return CardFeed(quantize_rows(
+            x, self.lo, self.span, self.cols, scale=self.scale,
+            bits=self.bits, nan_value=self.nan_value, rows=rows), len(X))
+
+
+def input_grid(forest: Forest,
+               device: torch.device) -> Optional[InputGrid]:
+    """The forest's ``InputGrid`` where the card quantizes the rows: on a
+    CUDA device, for a forest with integer thresholds over at least one
+    feature.  None elsewhere: on the CPU, and for float, leaves-only and
+    FLInt forests, the host's transform stays."""
+    if device.type != "cuda" or forest.quant_scale is None or \
+            not np.issubdtype(forest.threshold.dtype, np.integer) or \
+            not len(forest.feat_lo):
+        return None
+    return InputGrid(forest, device)
+
+
 def _out_dtype(forest: Forest, block_t: int) -> torch.dtype:
     """Kernel output dtype: int32 accumulation for int-accum forests.
 
@@ -70,7 +142,12 @@ class _KernelPredictor(BasePredictor):
     its padded operands, ``feat`` first; ``limits(*arrays)`` the kernel
     module's limits function, which on a CUDA device must pass before any
     array is moved there (the plain version on the CPU takes any
-    forest)."""
+    forest).
+
+    On the card, a forest with integer thresholds has its rows quantized
+    there (``grid``, an ``InputGrid``): ``predict`` copies the raw rows
+    once, launches ``quantize_rows`` into a bucket, the forest kernel and
+    one read back.  Elsewhere the host transforms and pads the rows."""
 
     def __init__(self, forest: Forest, launch, arrays: tuple, out_dtype,
                  block_b: int, device: torch.device, limits=None):
@@ -94,25 +171,31 @@ class _KernelPredictor(BasePredictor):
         self.min_width = int(arrays[0].max(initial=0)) + 1
         self._shapes: set = set()        # padded shapes launched
 
-    def transform_inputs(self, X: np.ndarray) -> np.ndarray:
-        return quantize_inputs(self.forest,
-                               np.asarray(X)).astype(np.float32)
+    @functools.cached_property
+    def grid(self) -> Optional[InputGrid]:
+        """Made on the first transform, so a cascade's stage predictors,
+        fed host rows, never make one."""
+        return input_grid(self.forest, self.device)
 
-    def predict_transformed(self, Xq: np.ndarray) -> np.ndarray:
-        t = trace.begin("repro_torch.pad")
-        Xq = ensure_feature_column(np.asarray(Xq, dtype=np.float32))
-        if Xq.ndim != 2 or Xq.shape[1] < self.min_width:
-            trace.end(t)
-            raise ValueError(f"rows of width >= {self.min_width} expected, "
-                             f"got shape {Xq.shape}")
-        B = Xq.shape[0]
-        Xp = np.ascontiguousarray(
-            _pad_to(Xq, 0, bucket_rows(B, self.block_b)))
-        self._shapes.add((Xp.shape, Xp.dtype.str))
-        trace.end(t, rows=B, padded_rows=Xp.shape[0])
-        t = trace.begin("repro_torch.h2d")
-        x = torch.from_numpy(Xp).to(self.device)
-        trace.end(t, nbytes=Xp.nbytes)
+    def transform_inputs(self, X: np.ndarray):
+        """Raw rows → the kernel's feed: on the card with a ``grid``, a
+        ``CardFeed`` (the bucket on the card and the row count); else the
+        host's ``quantize_inputs`` as f32 rows."""
+        if self.grid is None:
+            return quantize_inputs(self.forest,
+                                   np.asarray(X)).astype(np.float32)
+        X = np.asarray(X)
+        return self.grid.feed(X, bucket_rows(len(X), self.block_b))
+
+    def predict_transformed(self, Xq) -> np.ndarray:
+        """Scores for rows that went through the input transform: host
+        rows (the host's, from any caller), or this predictor's
+        ``CardFeed``, which is launched as it is."""
+        if isinstance(Xq, CardFeed):
+            x, B = Xq
+        else:
+            x, B = self._host_feed(Xq)
+        self._shapes.add((tuple(x.shape), "<f4"))
         t = trace.begin("repro_torch.launch")
         out = self.launch(x, *self.arrays, out_dtype=self.out_dtype)
         trace.end(t)
@@ -125,6 +208,23 @@ class _KernelPredictor(BasePredictor):
         scores = host.astype(np.float32) / self.leaf_scale
         trace.end(t)
         return scores
+
+    def _host_feed(self, Xq: np.ndarray):
+        """Host rows → (the padded bucket on the device, the row count)."""
+        t = trace.begin("repro_torch.pad")
+        Xq = ensure_feature_column(np.asarray(Xq, dtype=np.float32))
+        if Xq.ndim != 2 or Xq.shape[1] < self.min_width:
+            trace.end(t)
+            raise ValueError(f"rows of width >= {self.min_width} expected, "
+                             f"got shape {Xq.shape}")
+        B = Xq.shape[0]
+        Xp = np.ascontiguousarray(
+            _pad_to(Xq, 0, bucket_rows(B, self.block_b)))
+        trace.end(t, rows=B, padded_rows=Xp.shape[0])
+        t = trace.begin("repro_torch.h2d")
+        x = torch.from_numpy(Xp).to(self.device)
+        trace.end(t, nbytes=Xp.nbytes)
+        return x, B
 
 
 def _node_arrays(forest: Forest, block_t: int, node_thr, tree_thr):

@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention_kernel import (  # noqa: E402
     flash_attention_bshd, flash_forward, flash_forward_reference)
 from repro_torch.kernels.gemm_forest_kernel import (  # noqa: E402
     gemm_forward, gemm_forward_reference)
+from repro_torch.kernels.quantize_kernel import quantize_rows  # noqa: E402
 from repro_torch.kernels.quickscorer_kernel import (  # noqa: E402
     qs_bitmm_forward, qs_bitmm_forward_reference, qs_forward,
     qs_forward_reference)
@@ -554,6 +555,136 @@ def test_compile_forest_fused_cascade_defaults_to_the_card(card):
     before = cascade_qs_forward.launches
     pred.predict(X)
     assert cascade_qs_forward.launches == before + 1
+
+
+# --------------------------------------------------------------------------- #
+# quantize_rows: the input transform on the card
+# --------------------------------------------------------------------------- #
+def _grid_case(T, d, bits, n, dtype, seed, nan_rows=False):
+    """A quantized forest over d features and n caller rows in ``dtype``
+    with NaN, ±inf, -0.0 and the grid's ends among them."""
+    forest = core.random_forest_ir(T, 64, d, seed=seed, full=True)
+    rng = np.random.default_rng(seed)
+    qf = core.quantize_forest(forest, rng.normal(0, 1.3, size=(500, d)),
+                              core.QuantSpec(bits, int_accum=True))
+    X = rng.normal(0, 1.3, size=(n, d)).astype(dtype)
+    X[0] = np.resize([np.nan, np.inf, -np.inf, -0.0, 0.0], d)
+    X[1 % n] = qf.feat_lo
+    X[2 % n] = qf.feat_hi
+    if nan_rows:
+        X[::3, ::2] = np.nan
+    return qf, X
+
+
+def _host_feed(qf, X, rows):
+    want = np.zeros((rows, qf.n_features), dtype=np.float32)
+    with np.errstate(invalid="ignore"):
+        want[:len(X)] = core.quantize_inputs(qf, X).astype(np.float32)
+    return want
+
+
+# (d, n, bucket): the MSN bulk call, the cascade's magic call and the
+# query cell's buckets
+QUANTIZE_SHAPES = [(136, 8192, 8192), (10, 65536, 65536), (136, 8, 128),
+                   (136, 100, 128), (136, 200, 256), (136, 500, 512),
+                   (136, 1024, 1024)]
+
+
+def _laid_out(X, layout):
+    """Row-major rows, or rows of a column-major array (a data frame's
+    values, sliced), as the magic cell sends them."""
+    if layout == "rows":
+        return X
+    return np.asfortranarray(np.concatenate([X, X[:3]]))[:len(X)]
+
+
+@pytest.mark.parametrize("layout", ["rows", "column-slice"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("d,n,rows", QUANTIZE_SHAPES)
+def test_quantize_rows_kernel_matches_host_transform(card, d, n, rows,
+                                                     dtype, layout):
+    """The kernel's feed equals ``quantize_inputs(...).astype(f32)`` bit
+    for bit, padding rows +0.0, at the cells' shapes, from row-major rows
+    and from a block of a column-major array; one launch."""
+    qf, X = _grid_case(8, d, 16, n, dtype, seed=d + n)
+    X = _laid_out(X, layout)
+    before = quantize_rows.launches
+    feed = ops.InputGrid(qf, card).feed(X, rows)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1 and feed.n == n
+    got = feed.x.cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _host_feed(qf, X, rows).view(np.uint32))
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+def test_quantize_rows_kernel_nan_rows_and_int8_grid(card, bits):
+    """Rows full of NaN take the host cast's value; the control's int8
+    grid clips where NumPy clips; a feat_map gathers the caller's
+    columns."""
+    import dataclasses
+    qf, X = _grid_case(8, 136, bits, 300, np.float32, seed=bits,
+                       nan_rows=True)
+    feed = ops.InputGrid(qf, card).feed(X, 512)
+    np.testing.assert_array_equal(feed.x.cpu().numpy().view(np.uint32),
+                                  _host_feed(qf, X, 512).view(np.uint32))
+    cols = np.random.default_rng(bits).permutation(150)[:136]
+    mapped = dataclasses.replace(qf, feat_map=cols, n_features_src=150)
+    Xw = np.random.default_rng(1).normal(size=(300, 150)).astype(np.float32)
+    Xw[::4, cols[::3]] = np.nan
+    feed = ops.InputGrid(mapped, card).feed(Xw, 512)
+    np.testing.assert_array_equal(
+        feed.x.cpu().numpy().view(np.uint32),
+        _host_feed(mapped, Xw, 512).view(np.uint32))
+
+
+@pytest.mark.parametrize("engine", ["qs", "bitmm", "gemm"])
+def test_predict_on_card_quantizes_on_card(card, engine):
+    """``predict`` on the card (raw rows copied once, ``quantize_rows``,
+    the forest kernel) equals ``predict_transformed`` of the host's
+    transform bit for bit, f32 and f64 callers and NaN rows; one
+    ``quantize_rows`` launch a call."""
+    build = {"qs": ops.cuda_qs_predictor, "bitmm": ops.cuda_bitmm_predictor,
+             "gemm": ops.cuda_gemm_predictor}[engine]
+    for dtype, nan_rows in ((np.float32, False), (np.float64, True)):
+        qf, X = _grid_case(64, 136, 16, 300, dtype, seed=7,
+                           nan_rows=nan_rows)
+        X = _laid_out(X, "column-slice" if nan_rows else "rows")
+        pred = build(qf, device=card)
+        assert pred.grid is not None
+        before = quantize_rows.launches
+        got = pred.predict(X)
+        assert quantize_rows.launches == before + 1
+        with np.errstate(invalid="ignore"):
+            host = core.quantize_inputs(qf, X).astype(np.float32)
+        np.testing.assert_array_equal(got, pred.predict_transformed(host))
+        assert quantize_rows.launches == before + 1
+
+
+@pytest.mark.parametrize("engine", ["bitvector", "bitmm"],
+                         ids=["kernel-tier", "generic-tier"])
+def test_fused_cascade_quantizes_on_card(card, engine):
+    """Both fused tiers on the card: scores and exit counts of the card
+    feed equal the host feed's (the same predictor with its grid off);
+    one ``quantize_rows`` launch a call."""
+    X, (_, qf) = _cascade_forests(24, 16, 8, 3, 300, False)
+    X[::7, ::3] = np.nan
+    X = _laid_out(X, "column-slice")
+    spec = CascadeSpec((6, 12, 24), MarginGate(0.3), fused=True)
+    fused = FusedCascadePredictor(qf, spec, engine=engine, backend="cuda",
+                                  device=card)
+    assert fused._grid is not None
+    before = quantize_rows.launches
+    got = fused.predict(X)
+    counts = fused.last_exit_counts.copy()
+    assert quantize_rows.launches == before + 1
+    fused._grid = None
+    with np.errstate(invalid="ignore"):
+        want = fused.predict(X)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(counts, fused.last_exit_counts)
+    assert not any("grid" in vars(p) for p in fused.stage_predictors)
 
 
 # --------------------------------------------------------------------------- #

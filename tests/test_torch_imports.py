@@ -56,6 +56,13 @@ assert res["launches"] == 0 and sum(res["exit_fractions"]) > 0.999
 split = chip_smoke.host_split(res["fused"], ds.X_test[60:100], reps=2)
 assert split["bucket"] == 128 and min(split.values()) >= 0
 assert set(split) == {"transform", "pad", "h2d", "launch", "d2h", "bucket"}
+# phase 3's input-transform check on a small forest (the plain version)
+msn = datasets.make_msn()
+small = core.random_forest_ir(8, 16, 136, seed=0)
+qc = chip_smoke.quantize_check(
+    msn, small, core.quantize_forest(small, msn.X_train, chip_smoke.QUANT),
+    torch.device("cpu"))
+assert qc["launches"] == 0 and qc["magic_rows"].shape == (65536, 10)
 err, counts = chip_smoke.compare_cascade(
     res["qforest"], (4, 8, 16), res["policy"], ds.X_test[:40],
     torch.device("cpu"), 0.0, n_invalid=2)

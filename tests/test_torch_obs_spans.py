@@ -293,6 +293,25 @@ def test_idle_in_spans_intersects_intervals():
         "pad": 10.0, "transform": 20.0}
 
 
+def test_per_call_reads_a_childs_children():
+    """The card path's copy nests inside ``transform``: the report keeps it
+    out of the glue and the coverage, and reads it as ``transform.h2d``."""
+    rep = _report_script()
+
+    def span(i, name, a, b, parent):
+        return {"id": i, "name": "repro_torch." + name, "start_ns": a,
+                "end_ns": b, "parent": parent, "call": 1, "rows": 8}
+    spans = [span(1, "predict", 0, 10_000_000, None),
+             span(2, "transform", 0, 4_000_000, 1),
+             span(3, "h2d", 1_000_000, 3_000_000, 2),
+             span(4, "launch", 4_000_000, 5_000_000, 1),
+             span(5, "d2h", 5_000_000, 10_000_000, 1)]
+    r = rep.per_call(spans)
+    assert r["ms_per_call"]["transform.h2d"] == 2.0
+    assert "h2d" not in r["ms_per_call"]
+    assert r["glue_ms_per_call"] == 1.0 and r["coverage"] == 1.0
+
+
 def test_span_report_runs_a_tiny_cell(tmp_path):
     from chipbench.tests.tiny import tiny_root
     rep = _report_script()
