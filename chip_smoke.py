@@ -408,6 +408,9 @@ QUANT8 = core.QuantSpec(bits=8)
 QUANTIZE_MSN = [(8192, 8192)] + [(n, b) for b in (128, 256, 512, 1024)
                                  for n in (8, 100, 1024) if n <= b]
 MAGIC_ROWS = 65536
+# the mnist cascade cell's call: 8-bit pixel rows of 784 features
+# (chipbench/traffic/bulk_16384.json), widened to float64 by the feed
+MNIST_ROWS = 16384
 # Float kernel vs plain version: the same f32 leaves summed in another
 # order.  At the sweep's <= 16 trees the reference's own rtol 1e-5 /
 # atol 1e-6 holds; at 1024 trees of |leaf| ~ 1 the rounding of two
@@ -425,8 +428,9 @@ ACCURACY_MARGIN_PP = 0.5
 # later stages are short enough to fire (C = 3 and the C = 1 band), wide
 # leaves and classes, batches that cross the 32-row tiles (the last two
 # rows invalid), a first stage of fewer trees than a cluster has warps, and
-# the mnist cascade's shape on a random forest: every entry of
-# tests/test_torch_cuda.py's CASCADE_SHAPES, two more batches, and a
+# the mnist cascade's shape on a random forest, at 1024 rows and at the
+# mnist cell's 16384-row bucket: every entry of
+# tests/test_torch_cuda.py's CASCADE_SHAPES, three more batches, and a
 # two-word vote forest
 CASCADE_SWEEP = [
     (24, 16, 8, 3, 300, (6, 12, 24), MarginGate(0.3), False),
@@ -438,6 +442,7 @@ CASCADE_SWEEP = [
     (12, 256, 7, 16, 33, (3, 12), MarginGate(0.1), False),
     (24, 16, 8, 3, 77, (3, 12, 24), MarginGate(0.3), False),
     (512, 64, 784, 10, 1024, (16, 64, 256, 512), MarginGate(0.3), False),
+    (512, 64, 784, 10, 16384, (16, 64, 256, 512), MarginGate(0.3), False),
     (16, 64, 10, 2, 77, (4, 16), MarginGate(0.2), True),
 ]
 CASCADE_INVALID = 2              # rows of each sweep batch with valid False
@@ -835,13 +840,60 @@ def compare_quantize(forest, X, rows: int, device) -> int:
     return quantize_rows.launches - before
 
 
+def pixel_edge_rows(forest, X, seed=0):
+    """``X``, 8-bit pixel rows, with values that try the input transform
+    at 8 bits: whole rows of 0 and of 255, each feature's ``lo`` and
+    ``hi``, and the pixel values either side of grid edges."""
+    X = np.array(X, dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    lo, hi = forest.feat_lo, forest.feat_hi
+    X[1::11] = 0
+    X[2::13] = 255
+    X[5::17] = np.clip(np.round(lo), 0, 255)
+    X[6::19] = np.clip(np.round(hi), 0, 255)
+    k = rng.integers(0, int(forest.quant_scale) + 1, size=len(lo))
+    edge = lo + k * (hi - lo) / forest.quant_scale
+    X[7::23] = np.clip(np.floor(edge), 0, 255)
+    X[8::29] = np.clip(np.ceil(edge), 0, 255)
+    return X
+
+
+def compare_pixel_feed(forest, X, rows: int, device) -> int:
+    """``InputGrid.feed`` of 8-bit rows ``X`` as a caller sends them
+    (widened to float64 on the host, then ``quantize_rows``) into a
+    bucket of ``rows``: bit for bit the plain version on the widened rows
+    and the host's ``quantize_inputs(forest, X).astype(float32)``, rows
+    past ``len(X)`` +0.0.  Returns the kernel's launches (one on the
+    card, none on the CPU)."""
+    grid = ops.InputGrid(forest, device)
+    before = quantize_rows.launches
+    got = grid.feed(X, rows).x.cpu().numpy()
+    launches = quantize_rows.launches - before
+    x = torch.from_numpy(X.astype(np.float64)).to(device)
+    ref = quantize_rows_reference(
+        x, grid.lo, grid.span, grid.cols, scale=grid.scale, bits=grid.bits,
+        nan_value=grid.nan_value, rows=rows).cpu().numpy()
+    want = np.zeros_like(got)
+    want[:len(X)] = core.quantize_inputs(forest, X).astype(np.float32)
+    what = (f"InputGrid.feed uint8 rows {X.shape} into {rows}, "
+            f"int{grid.bits}")
+    if not np.array_equal(got.view(np.uint32), ref.view(np.uint32)):
+        raise AssertionError(f"{what}: kernel != plain version")
+    if not np.array_equal(got.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError(f"{what}: kernel != host quantize_inputs")
+    return launches
+
+
 def quantize_check(msn, full, qfull, device) -> dict:
     """Phase 3's input transform: ``compare_quantize`` at the cells' shapes
     (``QUANTIZE_MSN`` on the MSN int16 forest ``qfull``, the magic
     cascade's ``MAGIC_ROWS`` x 10), on the control's int8 grid and through
-    a ``feat_map``, on ``edge_rows``; one launch per shape and dtype on the
-    card.  Returns the rows and the magic forest phase 12 times, the
-    number of shapes and the launches."""
+    a ``feat_map``, on ``edge_rows``, from f32 and f64 callers; and the
+    mnist cascade's call, ``MNIST_ROWS`` x 784 8-bit rows on
+    ``pixel_edge_rows`` through ``InputGrid.feed`` into an int16 grid
+    fitted to 8-bit rows.  One launch per shape and dtype on the card.
+    Returns the rows and the magic forest phase 12 times, the number of
+    shapes and the launches."""
     d = qfull.n_features
     msn_rows = np.resize(np.concatenate([msn.X_test, msn.X_train]),
                          (QUANTIZE_MSN[0][0], d))
@@ -863,11 +915,21 @@ def quantize_check(msn, full, qfull, device) -> dict:
         (mapped, msn_wide[:1024], 1024)]
     n = sum(compare_quantize(f, edge_rows(f, X), b, device)
             for f, X, b in cases)
-    if n != (2 * len(cases) if device.type == "cuda" else 0):
+    mnist = datasets.make_mnist()
+    pixels = np.resize(np.round(255 * np.concatenate(
+        [mnist.X_train, mnist.X_test])).astype(np.uint8),
+        (MNIST_ROWS, mnist.X_train.shape[1]))
+    pforest = core.quantize_forest(
+        core.random_forest_ir(64, 64, pixels.shape[1], n_classes=10,
+                              seed=2), pixels[:len(mnist.X_train)], QUANT)
+    n += compare_pixel_feed(pforest, pixel_edge_rows(pforest, pixels),
+                            MNIST_ROWS, device)
+    if n != (2 * len(cases) + 1 if device.type == "cuda" else 0):
         raise AssertionError(f"quantize_rows launched {n} times for "
-                             f"{len(cases)} shapes x 2 dtypes")
+                             f"{len(cases)} shapes x 2 dtypes and the "
+                             "8-bit feed")
     return dict(msn_rows=msn_rows, magic_rows=magic_rows, mforest=mforest,
-                n_cases=len(cases), launches=n)
+                n_cases=len(cases) + 1, launches=n)
 
 
 def quantize_timing(forest, X, device) -> dict:
@@ -4218,9 +4280,12 @@ def main() -> int:
           f"buckets 128-1024 on the int16 grid, magic {MAGIC_ROWS}x"
           f"{magic_rows.shape[1]}, the int8 grid at 8192 and 100 rows, a "
           f"feat_map over {d + 14} columns) x f32/f64 callers, with NaN "
-          f"rows, ±inf, -0.0, lo, hi and grid edges ±1 ulp: bit-identical "
-          f"to the plain torch version and to quantize_inputs(...)"
-          f".astype(float32), padding +0.0; {qc['launches']} launches")
+          f"rows, ±inf, -0.0, lo, hi and grid edges ±1 ulp, and mnist "
+          f"{MNIST_ROWS}x784 uint8 rows through InputGrid.feed with rows "
+          f"of 0 and 255, lo, hi and the pixels either side of grid edges: "
+          f"bit-identical to the plain torch version and to "
+          f"quantize_inputs(...).astype(float32), padding +0.0; "
+          f"{qc['launches']} launches")
 
     # 4. the main path at full width through each engine, then a trained
     # model's accuracy

@@ -28,7 +28,8 @@ Prints one JSON line:
   children cover (``coverage_median``, ``coverage_min``: of one call);
 * ``ms_per_call``: each span's mean ms a call, a child's own children
   under ``<child>.<name>`` (``transform.h2d``: the raw rows' copy where
-  the card quantizes them);
+  the card quantizes them; ``transform.host_copy``: the host's copy of
+  rows the card cannot read as they are, before it);
 * ``compile_arrays_s``: host builds of kernel arrays in the set-up's
   ``compile_forest`` (``.build``) and in its warm-up (``.warmup``), beside
   ``compile_s`` and ``setup_s`` as the harness reads them;

@@ -58,10 +58,12 @@ class CardFeed(NamedTuple):
 
 class InputGrid:
     """A quantized forest's input grid on the card.  ``feed(X, rows)``
-    copies the caller's raw rows to the card once, as they are, and
-    quantizes them there into a bucket of ``rows`` zero-padded rows
-    (``quantize_rows``): bit for bit ``quantize_inputs(forest,
-    X).astype(np.float32)``, padded."""
+    copies the caller's raw rows to the card once and quantizes them
+    there into a bucket of ``rows`` zero-padded rows (``quantize_rows``):
+    bit for bit ``quantize_inputs(forest, X).astype(np.float32)``,
+    padded.  f32 and f64 rows in either layout go as they are; others
+    are first copied on the host (the ``repro_torch.host_copy`` span):
+    widened to float64, or made contiguous."""
 
     def __init__(self, forest: Forest, device: torch.device):
         lo = np.asarray(forest.feat_lo, dtype=np.float64)
@@ -84,19 +86,26 @@ class InputGrid:
 
     def feed(self, X, rows: int) -> CardFeed:
         X = np.asarray(X)
-        if X.dtype != np.float32:
-            # float64 rows are quantized from float64, as on the host
-            X = X.astype(np.float64, copy=False)
         if X.ndim != 2 or (X.shape[1] < self.width if self.cols is not None
                            else X.shape[1] != self.width):
             raise ValueError(f"rows of width {self.width} expected, got "
                              f"shape {X.shape}")
+        # f32 and f64 rows in either order go to the card as they are
+        t = None if X.dtype in (np.float32, np.float64) and (
+            X.flags.c_contiguous or X.flags.f_contiguous) else \
+            trace.begin("repro_torch.host_copy")
+        if X.dtype != np.float32:
+            # every dtype but f32 (f64, ints, 8-bit pixels, ...) is widened
+            # to float64 on the host and quantized from float64, as the
+            # host's quantize_inputs does
+            X = X.astype(np.float64, copy=False)
         if not (X.flags.c_contiguous or X.flags.f_contiguous):
             # one block to copy; rows kept column by column (a frame's
             # values, a slice of them) copy fastest as whole columns, and
             # the kernel reads either layout
             X = np.asfortranarray(X) if X.strides[0] < X.strides[1] \
                 else np.ascontiguousarray(X)
+        trace.end(t, rows=len(X), nbytes=X.nbytes)
         t = trace.begin("repro_torch.h2d")
         x = torch.from_numpy(X).to(self.device)
         trace.end(t, rows=len(X), padded_rows=rows, nbytes=X.nbytes)

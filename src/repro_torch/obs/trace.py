@@ -35,6 +35,10 @@ build, on any caller's path; they share no state with ``Span``:
   * ``repro_torch.transform`` — ``transform_inputs`` (input quantization);
   * ``repro_torch.pad``      — dtype, width check and padding to the row
     bucket (``rows``, ``padded_rows``);
+  * ``repro_torch.host_copy`` — on the card's input path, the host's
+    copy of rows the card cannot read as they are (widened to float64,
+    or made contiguous) before their ``h2d`` (``rows``, ``nbytes``
+    written);
   * ``repro_torch.h2d``      — the copy of the padded rows to the device
     (``nbytes``);
   * ``repro_torch.launch``   — the host's enqueue of the kernel and of

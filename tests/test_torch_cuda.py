@@ -639,6 +639,28 @@ def test_quantize_rows_kernel_nan_rows_and_int8_grid(card, bits):
         _host_feed(mapped, Xw, 512).view(np.uint32))
 
 
+@pytest.mark.parametrize("layout", ["rows", "column-slice"])
+@pytest.mark.parametrize("n,rows", [(16384, 16384), (700, 1024)])
+def test_quantize_rows_kernel_on_8bit_rows(card, n, rows, layout):
+    """8-bit pixel rows (the mnist cell's 16384 × 784 calls), widened to
+    float64 on the host: the feed equals ``quantize_inputs(...)
+    .astype(f32)`` bit for bit, padding rows +0.0."""
+    forest = core.random_forest_ir(8, 64, 784, seed=3, full=True)
+    rng = np.random.default_rng(n)
+    calib = rng.integers(0, 256, size=(500, 784)).astype(np.uint8)
+    qf = core.quantize_forest(forest, calib, core.QuantSpec(
+        16, int_accum=True))
+    X = rng.integers(0, 256, size=(n, 784)).astype(np.uint8)
+    X[0], X[1] = 0, 255
+    X = _laid_out(X, layout)
+    before = quantize_rows.launches
+    feed = ops.InputGrid(qf, card).feed(X, rows)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1 and feed.n == n
+    np.testing.assert_array_equal(feed.x.cpu().numpy().view(np.uint32),
+                                  _host_feed(qf, X, rows).view(np.uint32))
+
+
 @pytest.mark.parametrize("engine", ["qs", "bitmm", "gemm"])
 def test_predict_on_card_quantizes_on_card(card, engine):
     """``predict`` on the card (raw rows copied once, ``quantize_rows``,

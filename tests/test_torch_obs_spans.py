@@ -367,3 +367,44 @@ def test_spans_under_thread_contention_lose_no_record(monkeypatch):
             assert s["call"] == s["parent"]
             root = by_id.get(s["parent"])
             assert root is None or root["rows"] == s["rows"]
+
+
+@pytest.mark.parametrize("rows, copied", [
+    ("uint8", True), ("column-slice", True), ("f32", False),
+    ("columns", False), ("f64", False)])
+@pytest.mark.parametrize("kind", ["kernel", "fused"])
+def test_host_copy_spans_the_card_paths_host_copies(qforest, kind, rows,
+                                                    copied):
+    """On the card path (an ``InputGrid``; plain versions on the CPU), a
+    ``host_copy`` span inside ``transform`` and before ``h2d`` times the
+    host's widening of 8-bit rows to float64 and its copy of a block of
+    a column-major array; rows the card reads as they are get none."""
+    from repro_torch.kernels import ops
+    qf, X = qforest
+    pred = _kernel(qf) if kind == "kernel" else _fused(qf, "cuda")
+    grid = ops.InputGrid(pred.forest, torch.device("cpu"))
+    if kind == "kernel":
+        pred.grid = grid
+    else:
+        pred._grid = grid
+    n = 50
+    X = {"uint8": np.random.default_rng(1).integers(
+             0, 256, size=(n, 8)).astype(np.uint8),
+         "column-slice": np.asfortranarray(X[:n + 5])[:n],
+         "f32": X[:n], "columns": np.asfortranarray(X[:n]),
+         "f64": X[:n].astype(np.float64)}[rows]
+    trace.enable()
+    pred.predict(X)
+    spans = trace.drain()
+    by = {s["name"]: s for s in spans}
+    assert "repro_torch.pad" not in by
+    if not copied:
+        assert "repro_torch.host_copy" not in by
+        return
+    copy, h2d = by["repro_torch.host_copy"], by["repro_torch.h2d"]
+    assert [s["name"] for s in spans].count("repro_torch.host_copy") == 1
+    assert copy["parent"] == h2d["parent"] == by["repro_torch.transform"]["id"]
+    assert copy["end_ns"] <= h2d["start_ns"]
+    assert copy["rows"] == n
+    # widened: 8 bytes a value; a column-major block keeps its f32
+    assert copy["nbytes"] == n * 8 * (8 if rows == "uint8" else 4)
